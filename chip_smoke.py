@@ -1,27 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's score path on one GPU and check it.
+"""Drive the PyTorch/CUDA port on one GPU and check it.
 
 Run from the root of the repository, on a machine with an NVIDIA H100 and the
 CUDA toolkit (``nvcc``)::
 
     python3 chip_smoke.py [--seed N]
 
-It builds the port's CUDA kernels from ``trialign_torch/csrc`` and prints one
-JSON line per phase:
+It builds the port's CUDA kernels from ``trialign_torch/csrc`` (one ``nvcc``
+per source, all at once) and prints one JSON line per phase:
 
-1. ``device``: the card, the toolkit, the build time and ptxas statistics;
+1. ``device``: the card, its SM clock, the toolkit, the build time and
+   ptxas statistics;
 2. ``wavefront``: K2 against its plain version (the torch sweep), exactly;
 3. ``blocked``: K3 against its plain versions (the tiled ``blocked_ref`` and
    the torch sweep), exactly;
-4. ``main_path``: ``trialign_torch.align`` with backend "auto" against the
+4. ``slab``: K5 against its plain versions (the tiled ``slab_ref`` and the
+   torch engine), exactly: the captured plane and the final vector of every
+   variant, on multi-tile and ragged shapes, under five scorings (one a
+   16-symbol submatrix, which only K5 takes);
+5. ``main_path``: ``trialign_torch.align`` with backend "auto" against the
    golden model and the C++ oracle, with the kernels' launch counts;
-5. ``tuning``: K2's thread count and K3's tile shape candidates;
-6. ``timings``: each kernel beside the plain sweep at the main path's sizes.
+6. ``traceback``: ``trialign_torch.align(..., return_alignment=True)`` at
+   512^3 and 1024^3 (the direct engine), 2048^3 (K5 for the top split) and
+   768^3 with lowered caps (K5 on pin nodes); each alignment rescores to the
+   score path's score and holds the inputs; seconds, peak memory, the top
+   node's route and K5's launches (those of the 2048^3 run go to the
+   summary);
+7. ``tuning``: K2's thread count and K3's tile shape candidates;
+8. ``timings``: each kernel beside its plain version at the main path's
+   sizes, and beside its bound; K5 against the torch engine, exactly, at
+   the shape the 2048^3 traceback gives it.
 
 Then a summary of the kernels, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any mismatch or error exits
 non-zero before that line; without a CUDA device it exits 1 at once.  It
-imports no JAX: the oracles are the reference's JAX-free modules.
+imports neither JAX nor the JAX package: the oracles are the port's copies.
 """
 
 from __future__ import annotations
@@ -35,16 +48,22 @@ import time
 import numpy as np
 import torch
 
-from trialign.config import Scoring
-from trialign.golden import align_planes_numpy
-from trialign.io import load_reference_triplet
-from trialign.native import score_native
 import trialign_torch
 from trialign_torch import _build
 from trialign_torch.benchmarks import gcups, time_cuda_ms
+from trialign_torch.config import NUM_MATRICES, Scoring
+from trialign_torch.golden import align_planes_numpy, rescore_alignment
+from trialign_torch.io import load_reference_triplet
 from trialign_torch.kernels import blocked as bk
 from trialign_torch.kernels import ref
+from trialign_torch.kernels import slab as sk
 from trialign_torch.kernels import wavefront as wf
+from trialign_torch.kernels.plane_math import op_count
+from trialign_torch.native import score_native
+from trialign_torch.traceback import direct
+from trialign_torch.traceback import hirschberg as hb
+from trialign_torch.traceback import torch_engine
+from trialign_torch.traceback.engine import NEG
 
 DEFAULT = Scoring()
 RTL = Scoring(s3_mode="rtl")
@@ -55,6 +74,10 @@ SUB4 = Scoring(submatrix=((3, -1, -2, 0), (-2, 2, -1, -3), (0, -3, 4, -1),
 SUB8 = Scoring(submatrix=tuple(
     tuple(int(v) for v in row)
     for row in np.random.default_rng(7).integers(-4, 6, (8, 8))))
+# K5 alone takes alphabets past 8 symbols: up to the 16 Scoring accepts.
+SUB16 = Scoring(submatrix=tuple(
+    tuple(int(v) for v in row)
+    for row in np.random.default_rng(16).integers(-4, 6, (16, 16))))
 # Large enough that a 64-long near-identical triplet passes 2047.
 WIDE = Scoring(match=60, mismatch=-20, gap_open=80, gap_extend=10)
 
@@ -67,6 +90,15 @@ VARIANTS = {
     "sub4": (SUB4, 0, 6),
     "sub8": (SUB8, 0, 10),
 }
+SLAB_VARIANTS = {**VARIANTS, "sub16": (SUB16, 0, 18)}
+
+# The shape of K5's sweeps at the 2048^3 traceback's top split.
+SPLIT_SHAPE = (1024, 2048, 2048)
+# HBM bytes a second of one H100 SXM (NVIDIA's data sheet).
+HBM_BYTES_PER_S = 3.35e12
+# INT32 lanes of one SM of Hopper (the CUDA programming guide's throughput
+# table: 64 results a clock for 32-bit integer add and min/max).
+INT32_LANES_PER_SM = 64
 
 CUDA = torch.device("cuda")
 
@@ -99,32 +131,48 @@ def cpu_ints(t: torch.Tensor) -> list:
     return [int(v) for v in t.cpu().reshape(-1)]
 
 
-def nvidia_smi() -> str:
+def smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     return out.splitlines()[0]
 
 
+def reset_launches() -> None:
+    wf.final_values.launches = 0
+    bk.final_values.launches = 0
+    sk.slab_sweep.launches = 0
+
+
+def read_launches() -> dict:
+    return {"wavefront": wf.final_values.launches,
+            "blocked": bk.final_values.launches,
+            "slab": sk.slab_sweep.launches}
+
+
 # ---------------------------------------------------------------- phases
 
 
-def phase_device() -> str:
-    smi = nvidia_smi()
+def phase_device() -> dict:
+    name_power = smi("name,power.limit")
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True).stdout
     t0 = time.perf_counter()
-    _build.load()
+    _build.build()
+    for name in _build.SOURCES:
+        _build.load(name)
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in _build.build_log().splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    emit(phase="device", nvidia_smi=smi, torch=torch.__version__,
-         torch_cuda=torch.version.cuda,
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    emit(phase="device", nvidia_smi=name_power, sm_clock_max_mhz=clock_mhz,
+         sms=sms, torch=torch.__version__, torch_cuda=torch.version.cuda,
          nvcc=[ln for ln in nvcc.splitlines() if "release" in ln][0],
          build_s=build_s, ptxas=ptxas)
-    return smi
+    return {"smi": name_power, "int32_ops_per_s":
+            sms * INT32_LANES_PER_SM * clock_mhz * 1e6}
 
 
 def wavefront_pair(a, b, c, scoring, bits):
@@ -229,9 +277,77 @@ def phase_blocked(rng) -> int:
     return err
 
 
+def onehot(state: int) -> np.ndarray:
+    v = np.full(NUM_MATRICES, NEG, np.int32)
+    v[state] = 0
+    return v
+
+
+def _diff(got: torch.Tensor, want: torch.Tensor) -> int:
+    return int((got.long() - want.long()).abs().max())
+
+
+def slab_case(rng, shape, block_shape, name, variant, tiled_ref=True):
+    """K5 against the torch engine (the assembled slab, and the final vector
+    of a forward variant) and, if asked, against slab_ref (every capture
+    entry, halo included, and the final vector) on one input; returns the
+    largest difference."""
+    scoring, _, nsym = SLAB_VARIANTS[name]
+    a, b, c = (x.astype(np.int32) for x in triplet(rng, shape, nsym))
+    la, lb, lc = shape
+    ev = onehot(int(rng.integers(0, NUM_MATRICES)))
+    if variant == "bwd":
+        # The kernel sweeps reversed inputs; the engine reverses itself.
+        a, b, c = (x[::-1].copy() for x in (a, b, c))
+    dims = sk._plan(la, lb, lc, block_shape)
+    arrs = sk.prep_blocked(a, b, c, dims, CUDA)
+    f_k, cap_k = sk.slab_sweep(*arrs, la, lb, lc, dims, variant, ev, scoring)
+    slab_k = sk._assemble(cap_k, dims, lb, lc)
+    what = f"K5 {shape} {block_shape} {name} {variant}"
+    pairs = []
+    if tiled_ref:
+        f_r, cap_r = sk.slab_ref(*arrs, la, lb, lc, dims, variant, ev, scoring)
+        pairs.append((cap_k, cap_r, "slab_ref capture"))
+        if variant != "bwd":
+            pairs.append((f_k, f_r, "slab_ref final"))
+    if variant == "bwd":
+        g = torch_engine.backward_slab_torch_async(
+            a[::-1].copy(), b[::-1].copy(), c[::-1].copy(), scoring,
+            end_v=ev, device=CUDA)()
+        pairs.append((slab_k, torch.from_numpy(g).to(CUDA).flip(1, 2),
+                      "engine slab"))
+    else:
+        f_e, s_e = torch_engine.forward_sweep_torch_async(
+            a, b, c, scoring, mode=variant,
+            v0=ev if variant == "pin" else None, capture_m=la, device=CUDA)()
+        pairs += [(slab_k, torch.from_numpy(s_e).to(CUDA), "engine slab"),
+                  (f_k, torch.from_numpy(f_e).to(CUDA), "engine final")]
+    err = 0
+    for got, want, against in pairs:
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"{what}: kernel != {against}")
+        err = max(err, _diff(got, want))
+    return err
+
+
+def phase_slab(rng) -> int:
+    # Multi-tile and ragged (9 x 17 and 17 x 9 tiles over lengths that are
+    # no multiple of the tile), a single tile, and the default tile plane.
+    shapes = [((12, 20, 30), (9, 17)), ((7, 8, 9), (9, 17)),
+              ((15, 40, 33), (17, 9)), ((40, 100, 70), None)]
+    checked, err = [], 0
+    for name in ("default", "rtl", "nondefault", "sub4", "sub16"):
+        for shape, block in shapes:
+            for variant in sk.VARIANTS:
+                err = max(err, slab_case(rng, shape, block, name, variant))
+            checked.append(f"{shape}/{block}/{name}")
+    emit(phase="slab", cases=checked, variants=list(sk.VARIANTS),
+         max_abs_err=err)
+    return err
+
+
 def phase_main_path(rng) -> dict:
-    wf.final_values.launches = 0
-    bk.final_values.launches = 0
+    reset_launches()
     runs = []
     a, b, c = load_reference_triplet()
     r = trialign_torch.align(a, b, c)
@@ -251,11 +367,103 @@ def phase_main_path(rng) -> dict:
         runs.append({"input": f"random {n}^3", "backend": r.backend,
                      "score": r.score, "oracle": "native",
                      "oracle_s": native_s, "align_s": r.seconds})
-    launches = {"wavefront": wf.final_values.launches,
-                "blocked": bk.final_values.launches}
-    require(all(launches.values()), f"a kernel did not launch: {launches}")
+    launches = read_launches()
+    require(launches["wavefront"] and launches["blocked"],
+            f"a kernel did not launch: {launches}")
     emit(phase="main_path", runs=runs, launches=launches)
     return launches
+
+
+class _Spy:
+    """Counts the calls of a module function (by ``mode`` where given) while
+    installed; the function itself runs unchanged."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.calls = {}
+
+    def __enter__(self):
+        def spy(*args, **kwargs):
+            mode = kwargs.get("mode", "free")
+            self.calls[mode] = self.calls.get(mode, 0) + 1
+            return self.orig(*args, **kwargs)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def traceback_case(a, b, c, label, native):
+    """One align(return_alignment=True) on the card, checked; its record."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = read_launches()
+    with _Spy(direct, "direct_traceback") as dspy, \
+            _Spy(sk, "split_point_blocked_async") as sspy:
+        r = trialign_torch.align(a, b, c, return_alignment=True)
+        torch.cuda.synchronize()
+    after = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: after[k] - before[k] for k in after}
+    score_path = trialign_torch.align(a, b, c)
+    require(r.backend == "hirschberg", f"{label}: backend {r.backend}")
+    require(r.score == score_path.score,
+            f"{label}: traceback {r.score} != score path "
+            f"({score_path.backend}) {score_path.score}")
+    rescored = rescore_alignment(r.alignment)
+    require(rescored == r.score, f"{label}: rescored {rescored} != {r.score}")
+    for row, seq in zip(r.alignment, (a, b, c)):
+        require([v for v in row if v != -1] == [int(x) for x in seq],
+                f"{label}: a row without its gaps is not its input")
+    rec = {"case": label, "score": r.score,
+           "score_path": [score_path.backend, score_path.score],
+           "columns": len(r.alignment[0]), "seconds": r.seconds,
+           "max_memory_allocated": peak,
+           "top_route": "split" if sspy.calls else "direct",
+           "slab_split_nodes": sspy.calls,
+           "direct_leaves": sum(dspy.calls.values()),
+           "launches": launches}
+    if native:
+        t0 = time.perf_counter()
+        want = score_native(a, b, c)
+        rec["native"] = [want, time.perf_counter() - t0]
+        require(r.score == want, f"{label}: {r.score} != native {want}")
+    return rec
+
+
+def phase_traceback(rng) -> int:
+    """The slice's path; returns K5's launches in the run of the 2048^3 case,
+    the one size whose default route reaches K5."""
+    recs = []
+    for n in (512, 1024, 2048):
+        trip = triplet(rng, (n, n, n))
+        reset_launches()
+        rec = traceback_case(*trip, f"random {n}^3", native=n == 512)
+        require(rec["top_route"] == ("split" if n == 2048 else "direct"),
+                f"{n}^3 took route {rec['top_route']}")
+        require(n < 2048 or rec["launches"]["slab"] > 0,
+                f"K5 did not launch at 2048^3: {rec['launches']}")
+        recs.append(rec)
+    slab_launches = rec["launches"]["slab"]
+    # Pin nodes on K5: the direct cap lowered to 16 Mi cells and the slab
+    # kernel's to 8 Mi, so that the right half of the 768^3 split (a pin
+    # node) splits again through K5.
+    saved = hb.DIRECT_CELLS, hb.SLAB_KERNEL_CELLS
+    hb.DIRECT_CELLS, hb.SLAB_KERNEL_CELLS = 16 << 20, 8 << 20
+    try:
+        rec = traceback_case(*triplet(rng, (768, 768, 768)),
+                             "random 768^3, pin splits", native=False)
+    finally:
+        hb.DIRECT_CELLS, hb.SLAB_KERNEL_CELLS = saved
+    require(rec["slab_split_nodes"].get("pin", 0) > 0,
+            f"no pin node ran K5: {rec['slab_split_nodes']}")
+    recs.append(rec)
+    emit(phase="traceback", runs=recs, slab_launches_2048=slab_launches,
+         slab_launches_pin_splits=rec["launches"]["slab"])
+    return slab_launches
 
 
 def _inputs(rng, shape, count=4):
@@ -286,12 +494,34 @@ def time_plain(trips):
     return time_cuda_ms(ref.sweep, args)
 
 
+def time_slab(trips, variant):
+    ev = np.zeros(NUM_MATRICES, np.int32)
+    args = []
+    for a, b, c in trips:
+        la, lb, lc = len(a), len(b), len(c)
+        dims = sk._plan(la, lb, lc)
+        args.append((*sk.prep_blocked(a, b, c, dims, CUDA), la, lb, lc, dims,
+                     variant, ev))
+    return time_cuda_ms(sk.slab_sweep, args)
+
+
+def time_engine(trips, variant):
+    """The torch engine's sweep of the same work as K5 ``variant``."""
+    if variant == "bwd":
+        fn = lambda a, b, c: torch_engine.backward_slab_torch_async(  # noqa
+            a, b, c, end_v=np.zeros(NUM_MATRICES, np.int32), device=CUDA)
+    else:
+        fn = lambda a, b, c: torch_engine.forward_sweep_torch_async(  # noqa
+            a, b, c, capture_m=len(a), device=CUDA)
+    return time_cuda_ms(fn, trips)
+
+
 def phase_tuning(rng) -> None:
     trips = _inputs(rng, (255, 255, 255))
     k2 = {t: time_wavefront(trips, t) for t in (256, 512, 1024)}
     trips = _inputs(rng, (1024, 1024, 1024))
     k3 = {}
-    for shape in ((17, 17), (33, 33), (17, 65), (33, 65), (65, 33)):
+    for shape in ((17, 17), (33, 33), (33, 65)):
         for threads in (256, 512, 1024):
             k3[f"{shape[0]}x{shape[1]}/{threads}"] = time_blocked(
                 trips, shape, threads)
@@ -302,7 +532,19 @@ def phase_tuning(rng) -> None:
                  "blocked_threads": bk.THREADS})
 
 
-def phase_timings(rng) -> dict:
+def bound(la, lb, lc, nbytes, dev) -> tuple:
+    """(least ms the card could take, "bytes" or "operations") for a sweep
+    of la * lb * lc cells at op_count(Scoring()) int32 operations a cell,
+    moving ``nbytes``."""
+    ops_ms = la * lb * lc * op_count(DEFAULT) / dev["int32_ops_per_s"] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def phase_timings(rng, dev) -> tuple:
+    """The timing rows, and K5's largest difference from the torch engine at
+    the split's shape."""
     rows = {}
     for name, n in (("wavefront", 255), ("blocked", 512), ("blocked", 1024)):
         trips = _inputs(rng, (n, n, n))
@@ -312,11 +554,34 @@ def phase_timings(rng) -> dict:
             ms = time_blocked(trips, bk.choose_block_shape(n, n, n))
         plain_ms = time_plain(trips[:3])
         cells = n ** 3
+        # Inputs read once (3 symbol vectors), the final vector written.
+        bms, by = bound(n, n, n, 4 * (3 * n + NUM_MATRICES + 1), dev)
         rows[f"{name}_{n}"] = {"ms": ms, "gcups": gcups(cells, ms),
                                "plain_ms": plain_ms,
-                               "plain_gcups": gcups(cells, plain_ms)}
-    emit(phase="timings", **rows)
-    return rows
+                               "plain_gcups": gcups(cells, plain_ms),
+                               "bound_ms": bms, "bound_by": by}
+    la, lb, lc = SPLIT_SHAPE
+    trips = _inputs(rng, SPLIT_SHAPE)
+    dims = sk._plan(la, lb, lc)
+    # Inputs read once; the capture (every tile's plane) and final written.
+    nbytes = 4 * (la + lb + lc + dims.n_jb * dims.n_kb * NUM_MATRICES
+                  * dims.hb * dims.wc + NUM_MATRICES)
+    bms, by = bound(la, lb, lc, nbytes, dev)
+    # K5 against the torch engine at the shape the 2048^3 traceback gives
+    # it (slab_ref would take too long there): the slab and final vector of
+    # "free", the slab of "bwd" with a pinned end state.
+    split_err = max(slab_case(rng, SPLIT_SHAPE, None, "default", variant,
+                              tiled_ref=False) for variant in ("free", "bwd"))
+    for variant in ("free", "bwd"):
+        ms = time_slab(trips, variant)
+        plain_ms = time_engine(trips[:3], variant)
+        rows[f"slab_{variant}_{la}x{lb}x{lc}"] = {
+            "ms": ms, "gcups": gcups(la * lb * lc, ms),
+            "plain": "torch engine", "plain_ms": plain_ms,
+            "plain_gcups": gcups(la * lb * lc, plain_ms),
+            "bound_ms": bms, "bound_by": by}
+    emit(phase="timings", **rows, slab_split_max_abs_err=split_err)
+    return rows, split_err
 
 
 def main() -> int:
@@ -329,28 +594,35 @@ def main() -> int:
               file=sys.stderr)
         return 1
     rng = np.random.default_rng(args.seed)
-    smi = phase_device()
+    dev = phase_device()
     k2_err = phase_wavefront(rng)
     k3_err = phase_blocked(rng)
+    k5_err = phase_slab(rng)
     launches = phase_main_path(rng)
+    launches["slab"] = phase_traceback(rng)
     phase_tuning(rng)
-    rows = phase_timings(rng)
-    require("jax" not in sys.modules, "JAX was imported")
+    rows, split_err = phase_timings(rng, dev)
+    k5_err = max(k5_err, split_err)
+    require("jax" not in sys.modules and "trialign" not in sys.modules,
+            "JAX or the JAX package was imported")
+    split = "x".join(map(str, SPLIT_SHAPE))
+    kernels = [
+        ("wavefront", "trialign/kernels/wavefront.py:112", k2_err,
+         rows["wavefront_255"]),
+        ("blocked", "trialign/kernels/blocked.py:225", k3_err,
+         rows["blocked_1024"]),
+        ("slab", "trialign/kernels/slab.py:74", k5_err,
+         rows[f"slab_free_{split}"]),
+    ]
     emit(kernels=[
-        {"name": "wavefront", "route": "cuda",
-         "source": "trialign_torch/csrc/wavefront.cu",
-         "replaces": "trialign/kernels/wavefront.py:112",
-         "launches": launches["wavefront"], "max_abs_err": k2_err,
-         "ms": rows["wavefront_255"]["ms"],
-         "plain_ms": rows["wavefront_255"]["plain_ms"]},
-        {"name": "blocked", "route": "cuda",
-         "source": "trialign_torch/csrc/blocked.cu",
-         "replaces": "trialign/kernels/blocked.py:225",
-         "launches": launches["blocked"], "max_abs_err": k3_err,
-         "ms": rows["blocked_1024"]["ms"],
-         "plain_ms": rows["blocked_1024"]["plain_ms"]},
+        {"name": name, "route": "cuda",
+         "source": f"trialign_torch/csrc/{name}.cu", "replaces": replaces,
+         "launches": launches[name], "max_abs_err": err, "ms": row["ms"],
+         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+         "bound_by": row["bound_by"], "library_ms": None}
+        for name, replaces, err, row in kernels
     ])
-    print(smi, flush=True)
+    print(dev["smi"], flush=True)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -15,9 +15,10 @@ import torch
 import trialign
 import trialign_torch
 from tests.conftest import random_triplet
-from trialign.config import Scoring
-from trialign.io import load_reference_triplet
+from trialign.config import Scoring as JScoring
 from trialign_torch import api
+from trialign_torch.config import Scoring
+from trialign_torch.io import load_reference_triplet
 
 torch.set_num_threads(1)
 
@@ -68,7 +69,8 @@ def test_big_submatrix_auto_routes_to_plain_sweep(rng):
     a, b, c = random_triplet(rng, 5, 6, 4, nsym=12)
     got = trialign_torch.align(a, b, c, sc, device="cpu")
     assert got.backend == "torch"
-    assert got.score == trialign.align(a, b, c, sc, backend="golden").score
+    want = trialign.align(a, b, c, JScoring(submatrix=SUB12), backend="golden")
+    assert got.score == want.score
     got = trialign_torch.align(a, b, c, sc, score_bits=12, device="cpu")
     assert got.backend == "torch"
 
@@ -77,25 +79,38 @@ def test_big_submatrix_auto_routes_to_plain_sweep(rng):
     ("nope", "nope", {}),
     ("native", "native", {"score_bits": 12}),
     ("golden", "golden", {"score_bits": 12, "return_alignment": True}),
-    ("wavefront", "pallas_interpret", {"scoring": Scoring(submatrix=SUB12)}),
-    ("blocked", "blocked", {"scoring": Scoring(submatrix=SUB12)}),
+    ("auto", "auto", {"score_bits": 12, "return_alignment": True}),
+    ("wavefront", "pallas_interpret", {"submatrix": SUB12}),
+    ("blocked", "blocked", {"submatrix": SUB12}),
 ])
 def test_same_value_errors(rng, port, reference, kwargs):
     a, b, c = random_triplet(rng, 3, 3, 3)
+    kwargs = dict(kwargs)
+    sub = kwargs.pop("submatrix", None)
     with pytest.raises(ValueError):
-        trialign.align(a, b, c, backend=reference, **kwargs)
+        trialign.align(a, b, c, JScoring(submatrix=sub), backend=reference,
+                       **kwargs)
     with pytest.raises(ValueError):
-        trialign_torch.align(a, b, c, backend=port, device="cpu", **kwargs)
+        trialign_torch.align(a, b, c, Scoring(submatrix=sub), backend=port,
+                             device="cpu", **kwargs)
 
 
 def test_return_alignment(rng):
+    """Alignment recovery runs the Hirschberg/direct engine for every
+    backend but "native", which keeps the host C++ oracle, as in the
+    reference."""
     a, b, c = random_triplet(rng, 6, 5, 7)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        trialign_torch.align(a, b, c, return_alignment=True, device="cpu")
+    for backend in ("auto", "blocked"):
+        got = trialign_torch.align(a, b, c, backend=backend,
+                                   return_alignment=True, device="cpu")
+        want = trialign.align(a, b, c, backend=backend, return_alignment=True)
+        assert (got.backend, got.score, got.alignment) == \
+            ("hirschberg", want.score, want.alignment)
     got = trialign_torch.align(a, b, c, backend="native",
                                return_alignment=True, device="cpu")
     want = trialign.align(a, b, c, backend="native", return_alignment=True)
-    assert (got.score, got.alignment) == (want.score, want.alignment)
+    assert (got.backend, got.score, got.alignment) == \
+        ("native", want.score, want.alignment)
 
 
 def test_needs_a_card_unless_cpu_is_asked_for(rng):

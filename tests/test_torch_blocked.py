@@ -7,16 +7,25 @@ is compared with blocked_ref in tests/test_torch_cuda.py.  Scores are
 integers: equality is exact.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from tests.conftest import random_triplet
-from trialign.config import Scoring
+from trialign.config import Scoring as JScoring
 from trialign.golden import align_planes_numpy
 from trialign.kernels.blocked import align_blocked as jax_align_blocked
 from trialign.kernels.xla_ref import align_xla
+from trialign_torch.config import Scoring
 from trialign_torch.kernels import blocked as bk
+
+
+def ref_scoring(sc):
+    """The JAX package's Scoring with the same fields as the port's."""
+    return JScoring(**dataclasses.asdict(sc))
+
 
 torch.set_num_threads(1)
 
@@ -56,8 +65,8 @@ def test_rtl_mode(rng):
     sc = Scoring(s3_mode="rtl")
     a, b, c = random_triplet(rng, 12, 30, 25)
     got = port(a, b, c, sc, (9, 9))
-    assert got == align_planes_numpy(a, b, c, sc)
-    assert got == align_xla(a, b, c, sc)
+    assert got == align_planes_numpy(a, b, c, ref_scoring(sc))
+    assert got == align_xla(a, b, c, ref_scoring(sc))
 
 
 def test_nondefault_scoring_and_submatrix(rng):
@@ -65,7 +74,8 @@ def test_nondefault_scoring_and_submatrix(rng):
                               gap_extend=2), 4),
                      (Scoring(submatrix=SUB4), 6)):
         a, b, c = random_triplet(rng, 10, 19, 23, nsym=nsym)
-        assert port(a, b, c, sc, (7, 9)) == align_planes_numpy(a, b, c, sc)
+        assert port(a, b, c, sc, (7, 9)) == \
+            align_planes_numpy(a, b, c, ref_scoring(sc))
 
 
 def test_score_bits(rng):
@@ -73,8 +83,8 @@ def test_score_bits(rng):
     b, c = a.copy(), a.copy()
     b[::7] = (b[::7] + 1) % 4
     c[::5] = (c[::5] + 2) % 4
-    want = align_planes_numpy(a, b, c, WIDE, score_bits=12)
-    assert want != align_planes_numpy(a, b, c, WIDE)
+    want = align_planes_numpy(a, b, c, ref_scoring(WIDE), score_bits=12)
+    assert want != align_planes_numpy(a, b, c, ref_scoring(WIDE))
     assert port(a, b, c, WIDE, (9, 9), score_bits=12) == want
 
 

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The file
-imports no JAX, so it also runs on a GPU machine without it, where
-tests/conftest.py (which imports JAX) is left out:
+imports neither JAX nor the JAX package, so it also runs on a GPU machine
+without them, where tests/conftest.py (which imports JAX) is left out:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py
@@ -15,12 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from trialign.config import Scoring
-from trialign.golden import align_planes_numpy
 from trialign_torch import api
+from trialign_torch.config import Scoring
+from trialign_torch.golden import align_planes_numpy, rescore_alignment
 from trialign_torch.kernels import blocked as bk
 from trialign_torch.kernels import ref
+from trialign_torch.kernels import slab as sk
 from trialign_torch.kernels import wavefront as wf
+from trialign_torch.traceback.engine import NEG
 
 pytestmark = pytest.mark.cuda
 
@@ -31,6 +33,11 @@ SCORINGS = {
     "sub4": (Scoring(submatrix=((3, -1, -2, 0), (-2, 2, -1, -3),
                                 (0, -3, 4, -1), (-1, -2, -1, 1))), 6),
 }
+# K5 alone takes alphabets past 8 symbols: up to the 16 Scoring accepts.
+SUB16 = Scoring(submatrix=tuple(
+    tuple(int(v) for v in row)
+    for row in np.random.default_rng(16).integers(-4, 6, (16, 16))))
+SLAB_SCORINGS = {**SCORINGS, "sub16": (SUB16, 18)}
 
 
 @pytest.fixture
@@ -76,3 +83,40 @@ def test_align_on_card_matches_golden(card, dims, backend):
     r = api.align(a, b, c)
     assert r.backend == backend
     assert r.score == align_planes_numpy(a, b, c)
+
+
+@pytest.mark.parametrize("variant", sorted(sk.VARIANTS))
+@pytest.mark.parametrize("name", sorted(SLAB_SCORINGS))
+@pytest.mark.parametrize("dims,block", [((12, 20, 30), (9, 17)),
+                                        ((7, 8, 9), (9, 17)),
+                                        ((40, 100, 70), None)])
+def test_slab_kernel_matches_plain(card, dims, block, name, variant):
+    """K5's capture (every tile's plane, halo included) and final vector
+    equal slab_ref's, on multi-tile, ragged and single-tile shapes."""
+    scoring, nsym = SLAB_SCORINGS[name]
+    a, b, c = (x.astype(np.int32) for x in triplet(4, dims, nsym))
+    ev = np.full(7, NEG, np.int32)
+    ev[len(a) % 7] = 0
+    d = sk._plan(*dims, block)
+    arrs = sk.prep_blocked(a, b, c, d, card)
+    f_k, cap_k = sk.slab_sweep(*arrs, *dims, d, variant, ev, scoring)
+    f_r, cap_r = sk.slab_ref(*arrs, *dims, d, variant, ev, scoring)
+    assert torch.equal(cap_k, cap_r)
+    if variant != "bwd":
+        assert torch.equal(f_k, f_r)
+
+
+def test_traceback_on_card_rescores(card, monkeypatch):
+    """A top split through K5 (caps lowered so that 60 x 70 x 80 splits),
+    on the card: the alignment rescores to the score path's score."""
+    from trialign_torch.traceback import hirschberg as hb
+
+    monkeypatch.setattr(hb, "BASE_CELLS", 1 << 12)
+    monkeypatch.setattr(hb, "DIRECT_CELLS", 1 << 17)
+    monkeypatch.setattr(hb, "SLAB_KERNEL_CELLS", 1 << 16)
+    a, b, c = triplet(5, (60, 70, 80))
+    before = sk.slab_sweep.launches
+    r = api.align(a, b, c, return_alignment=True)
+    assert sk.slab_sweep.launches > before
+    assert r.score == api.align(a, b, c).score
+    assert rescore_alignment(r.alignment) == r.score

@@ -5,16 +5,25 @@ Inputs come from a seeded numpy generator and go to both packages; scores are
 integers, so equality is exact (tolerance 0).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from tests.conftest import random_triplet
-from trialign.config import Scoring
+from trialign.config import Scoring as JScoring
 from trialign.golden import align_planes_numpy
 from trialign.io import load_reference_triplet
 from trialign.kernels.xla_ref import align_xla
+from trialign_torch.config import Scoring
 from trialign_torch.kernels.ref import align_ref
+
+
+def ref_scoring(sc):
+    """The JAX package's Scoring with the same fields as the port's."""
+    return JScoring(**dataclasses.asdict(sc))
+
 
 torch.set_num_threads(1)
 
@@ -46,14 +55,15 @@ def near_identical(rng, n):
 def test_ref_matches_golden(rng, dims, name):
     a, b, c = random_triplet(rng, *dims)
     sc = SCORINGS[name]
-    assert align_ref(a, b, c, sc) == align_planes_numpy(a, b, c, sc)
+    assert align_ref(a, b, c, sc) == \
+        align_planes_numpy(a, b, c, ref_scoring(sc))
 
 
 @pytest.mark.parametrize("name", sorted(SCORINGS))
 def test_ref_matches_xla(rng, name):
     a, b, c = random_triplet(rng, 9, 8, 10)
     sc = SCORINGS[name]
-    assert align_ref(a, b, c, sc) == align_xla(a, b, c, sc)
+    assert align_ref(a, b, c, sc) == align_xla(a, b, c, ref_scoring(sc))
 
 
 @pytest.mark.parametrize("matrix", [SUB4, SUB12], ids=["sub4", "sub12"])
@@ -62,8 +72,8 @@ def test_ref_submatrix(rng, matrix):
     sc = Scoring(submatrix=matrix)
     a, b, c = random_triplet(rng, 11, 9, 10, nsym=len(matrix) + 2)
     got = align_ref(a, b, c, sc)
-    assert got == align_planes_numpy(a, b, c, sc)
-    assert got == align_xla(a, b, c, sc)
+    assert got == align_planes_numpy(a, b, c, ref_scoring(sc))
+    assert got == align_xla(a, b, c, ref_scoring(sc))
 
 
 def test_ref_dat_fixture():
@@ -77,11 +87,11 @@ def test_ref_score_bits_overflow(rng):
     """A 12-bit register wraps: golden with score_bits=12 differs from the
     unwrapped score, and the sweep reproduces both."""
     a, b, c = near_identical(rng, 40)
-    want12 = align_planes_numpy(a, b, c, WIDE, score_bits=12)
-    want0 = align_planes_numpy(a, b, c, WIDE)
+    want12 = align_planes_numpy(a, b, c, ref_scoring(WIDE), score_bits=12)
+    want0 = align_planes_numpy(a, b, c, ref_scoring(WIDE))
     assert want12 != want0
     assert align_ref(a, b, c, WIDE, score_bits=12) == want12
-    assert align_xla(a, b, c, WIDE, score_bits=12) == want12
+    assert align_xla(a, b, c, ref_scoring(WIDE), score_bits=12) == want12
     assert align_ref(a, b, c, WIDE) == want0
 
 

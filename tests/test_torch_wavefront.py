@@ -6,16 +6,25 @@ itself is compared with its plain version in tests/test_torch_cuda.py.
 Scores are integers: equality is exact.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from tests.conftest import random_triplet
-from trialign.config import Scoring
+from trialign.config import Scoring as JScoring
 from trialign.golden import align_planes_numpy
 from trialign.kernels import wavefront as jax_wf
+from trialign_torch.config import Scoring
 from trialign_torch.kernels import ref
 from trialign_torch.kernels import wavefront as wf
+
+
+def ref_scoring(sc):
+    """The JAX package's Scoring with the same fields as the port's."""
+    return JScoring(**dataclasses.asdict(sc))
+
 
 torch.set_num_threads(1)
 
@@ -27,8 +36,8 @@ WIDE = Scoring(match=60, mismatch=-20, gap_open=80, gap_extend=10)
 
 def both(a, b, c, scoring=Scoring(), score_bits=0):
     port = wf.align_wavefront(a, b, c, scoring, score_bits, device="cpu")
-    want = jax_wf.align_wavefront(a, b, c, scoring, interpret=True,
-                                  score_bits=score_bits)
+    want = jax_wf.align_wavefront(a, b, c, ref_scoring(scoring),
+                                  interpret=True, score_bits=score_bits)
     return port, want
 
 
@@ -59,15 +68,15 @@ def test_plain_submatrix(rng, matrix):
     sc = Scoring(submatrix=matrix)
     a, b, c = random_triplet(rng, 10, 8, 9, nsym=len(matrix) + 2)
     assert wf.align_wavefront(a, b, c, sc, device="cpu") == \
-        align_planes_numpy(a, b, c, sc)
+        align_planes_numpy(a, b, c, ref_scoring(sc))
 
 
 def test_plain_score_bits(rng):
     a = rng.integers(0, 4, 30).astype(np.uint8)
     b, c = a.copy(), a.copy()
     b[::7] = (b[::7] + 1) % 4
-    want = align_planes_numpy(a, b, c, WIDE, score_bits=12)
-    assert want != align_planes_numpy(a, b, c, WIDE)
+    want = align_planes_numpy(a, b, c, ref_scoring(WIDE), score_bits=12)
+    assert want != align_planes_numpy(a, b, c, ref_scoring(WIDE))
     assert wf.align_wavefront(a, b, c, WIDE, score_bits=12, device="cpu") == \
         want
 
@@ -94,7 +103,7 @@ def test_submatrix_cap_matches_reference(rng):
                                  for i in range(9)))
     a, b, c = random_triplet(rng, 3, 3, 3)
     with pytest.raises(ValueError):
-        jax_wf.align_wavefront(a, b, c, sc, interpret=True)
+        jax_wf.align_wavefront(a, b, c, ref_scoring(sc), interpret=True)
     with pytest.raises(ValueError):
         wf.align_wavefront(a, b, c, sc, device="cpu")
 

@@ -2,13 +2,15 @@
 
 The score path of ``align(a, b, c)`` runs on an NVIDIA Hopper GPU through two
 CUDA kernels written for ``sm_90a`` (``csrc/``): the single-block wavefront
-sweep for |B|, |C| <= 255 and the blocked, sliced sweep beyond.  Scoring,
-encoding and the host oracles are the reference's own JAX-free modules
-(``trialign.config``, ``trialign.golden``, ``trialign.native``); this package
-never imports JAX.
+sweep for |B|, |C| <= 255 and the blocked, sliced sweep beyond.
+``align(..., return_alignment=True)`` recovers an alignment through the
+Hirschberg/direct engine (``traceback/``), whose biggest splits run on the
+slab kernel.  The package keeps its own copies of the scoring, encoding,
+golden models, datasets and host C++ oracle (``config``, ``golden``, ``io``,
+``native``): it imports neither JAX nor the JAX package ``trialign``.
 """
 
-from trialign.config import Scoring, decode, encode  # noqa: F401
+from trialign_torch.config import Scoring, decode, encode  # noqa: F401
 
 
 def __getattr__(name):

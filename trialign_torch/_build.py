@@ -1,9 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, under ``_build/`` (listed
-in ``.gitignore``), and ``ctypes`` loads it.  The library's file name carries
-a hash of the sources and flags, so an edited source builds anew.  Importing
+At first use, ``nvcc`` compiles each ``csrc/<name>.cu`` for Hopper
+(``sm_90a``) into a shared library of its own with a plain C interface, under
+``_build/`` (listed in ``.gitignore``), and ``ctypes`` loads it; the
+compilers of all sources that need building run at once.  A library's file
+name carries a hash of its source, the shared headers and the flags, so an
+edited source builds anew.  Importing
 this module needs no toolchain: a machine without ``nvcc`` fails when a kernel
 is first launched, not before.
 
@@ -19,7 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
@@ -32,12 +34,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Largest runtime submatrix the kernels take (csrc/plane_step.cuh kMaxSym),
+# Largest runtime submatrix K2 and K3 take (csrc/plane_step.cuh kMaxSym),
 # the Pallas kernels' cap (trialign/kernels/wavefront.py SUBMATRIX_NSYM_CAP).
+# K5 takes every alphabet Scoring accepts (kernels/slab.py).
 SUBMATRIX_NSYM_CAP = 8
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 class StepScoring(ctypes.Structure):
@@ -55,13 +58,41 @@ class BlockedGeom(ctypes.Structure):
         "la", "hb", "wc", "n_jb", "n_kb", "nrows", "jlstar", "klstar")]
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+class SlabGeom(ctypes.Structure):
+    """Mirror of ``trialign::SlabGeom`` (csrc/slab.cu)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "la", "hb", "wc", "n_jb", "n_kb", "nrows", "variant")]
 
 
-def _digest() -> str:
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Entry points of each kernel library: name -> (restype, argtypes).
+SIGNATURES = {
+    "wavefront": {
+        "trialign_wavefront_scratch_ints": (_I, [_I, _I]),
+        "trialign_wavefront": (
+            _I, [_P, _I, _P, _P, _P, _I, _I, _I, _P, StepScoring, _P, _P, _I,
+                 _P]),
+    },
+    "blocked": {
+        "trialign_blocked_diag": (
+            _I, [_P, _P, _P, BlockedGeom, _I, _P, StepScoring, _P, _P, _P, _I,
+                 _P]),
+    },
+    "slab": {
+        "trialign_slab_shared_bytes": (_I, [_I, _I]),
+        "trialign_slab_diag": (
+            _I, [_P, _P, _P, SlabGeom, _I, _P, _P, StepScoring, _P, _P, _P,
+                 _P, _P]),
+    },
+}
+SOURCES = tuple(SIGNATURES)
+
+
+def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+    for path in [os.path.join(CSRC, f"{name}.cu"),
+                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -76,17 +107,20 @@ def nvcc_path() -> Optional[str]:
     return default if os.path.exists(default) else None
 
 
-def library_path() -> str:
-    return os.path.join(BUILD_DIR, f"libtrialign_torch_{_digest()}.so")
+def library_path(name: str) -> str:
+    """Where the library built from ``csrc/<name>.cu`` lives."""
+    return os.path.join(BUILD_DIR, f"lib{name}_{_digest(name)}.so")
 
 
-def build() -> str:
-    """Compile the kernels if this source hash has no library yet; returns
-    the library's path.  Raises RuntimeError without ``nvcc`` or when the
+def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
+    """Compile each named kernel source that has no library for its hash
+    yet, one ``nvcc`` per source, all started together; returns the
+    libraries' paths by name.  Raises RuntimeError without ``nvcc`` or when a
     compile fails, with the compiler's output."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
+    paths = {name: library_path(name) for name in names}
+    todo = [name for name in names if not os.path.exists(paths[name])]
+    if not todo:
+        return paths
     nvcc = nvcc_path()
     if nvcc is None:
         raise RuntimeError(
@@ -94,71 +128,77 @@ def build() -> str:
             "the CUDA toolkit on a machine with an sm_90 GPU"
         )
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    with open(path + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    return path
+    procs = {}
+    for name in todo:
+        tmp = f"{paths[name]}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, f"{name}.cu")]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{log}")
+            continue
+        os.replace(tmp, paths[name])
+        with open(paths[name] + ".log", "w") as f:
+            f.write(log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
 def build_log() -> str:
-    """The compiler's output for the current library (ptxas statistics)."""
-    try:
-        with open(library_path() + ".log") as f:
-            return f.read()
-    except FileNotFoundError:
-        return ""
+    """The compiler's output for the current libraries (ptxas statistics)."""
+    logs = []
+    for name in SOURCES:
+        try:
+            with open(library_path(name) + ".log") as f:
+                logs.append(f.read())
+        except FileNotFoundError:
+            pass
+    return "".join(logs)
 
 
-def load() -> ctypes.CDLL:
-    """Build if needed, load, and declare every entry point's C types."""
-    global _lib
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed, load it, and declare its entry
+    points' C types."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(build())
-        p, i = ctypes.c_void_p, ctypes.c_int
+        if name in _libs:
+            return _libs[name]
+        lib = ctypes.CDLL(build([name])[name])
         lib.trialign_error_string.restype = ctypes.c_char_p
-        lib.trialign_error_string.argtypes = [i]
-        lib.trialign_wavefront_scratch_ints.restype = i
-        lib.trialign_wavefront_scratch_ints.argtypes = [i, i]
-        lib.trialign_wavefront.restype = i
-        lib.trialign_wavefront.argtypes = [
-            p, i, p, p, p, i, i, i, p, StepScoring, p, p, i, p]
-        lib.trialign_blocked_diag.restype = i
-        lib.trialign_blocked_diag.argtypes = [
-            p, p, p, BlockedGeom, i, p, StepScoring, p, p, p, i, p]
-        _lib = lib
+        lib.trialign_error_string.argtypes = [_I]
+        for fn, (restype, argtypes) in SIGNATURES[name].items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _libs[name] = lib
         return lib
 
 
-def check_submatrix(scoring) -> None:
-    """Raise ValueError for a submatrix the kernels do not take."""
-    if scoring.submatrix is not None and \
-            len(scoring.submatrix) > SUBMATRIX_NSYM_CAP:
+def check_submatrix(scoring, cap: int = SUBMATRIX_NSYM_CAP) -> None:
+    """Raise ValueError for a submatrix past a kernel's ``cap`` symbols."""
+    if scoring.submatrix is not None and len(scoring.submatrix) > cap:
         raise ValueError(
-            f"submatrix alphabets beyond {SUBMATRIX_NSYM_CAP} symbols: "
+            f"submatrix alphabets beyond {cap} symbols: "
             "use the 'golden'/'torch' backends"
         )
 
 
-def kernel_scoring(scoring, score_bits: int, device):
+def kernel_scoring(scoring, score_bits: int, device,
+                   cap: int = SUBMATRIX_NSYM_CAP):
     """(StepScoring, submatrix table on ``device``) for a launch.
 
     The table is the top-left (nsym+1)^2 corner of ``Scoring.sub_lookup()``:
     its last row and column hold the clamped floor that every code >= nsym
     scores, which is how the kernels index it.  Without a submatrix it is a
-    one-int placeholder the kernels do not read."""
+    one-int placeholder the kernels do not read.  Raises ValueError for a
+    submatrix past ``cap`` symbols, the kernel's table."""
     import torch
 
-    check_submatrix(scoring)
+    check_submatrix(scoring, cap)
     nsym = 0 if scoring.submatrix is None else len(scoring.submatrix)
     if nsym:
         table = torch.from_numpy(

@@ -1,15 +1,17 @@
-"""Public API of the port: align(), the score path.
+"""Public API of the port: align(), its score path and alignment recovery.
 
 Port of ``trialign/api.py`` (``AlignResult``, ``BACKENDS``, ``_pick_backend``
 and ``align``).  The backends map onto the reference's: "torch" is the plain
 sweep (the reference's "xla"), "wavefront" and "blocked" are the CUDA
 kernels K2 and K3 (the reference's "pallas" and "blocked"), and "golden" and
-"native" are the reference's own host oracles.  Sizes route to the same
-kernel as in the reference.
+"native" are the host oracles (the port's copies).  Sizes route to the same
+kernel as in the reference.  ``return_alignment=True`` runs the
+Hirschberg/direct engine (traceback/hirschberg.py), whose biggest splits
+sweep on the slab kernel K5; backend "native" recovers one on the host.
 
 Devices are explicit: ``device`` defaults to "cuda", and without a card
-align() raises unless the caller passes ``device="cpu"``, where the
-"wavefront" and "blocked" backends run their kernels' plain versions.
+align() raises unless the caller passes ``device="cpu"``, where the kernel
+backends run their kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from trialign.config import Scoring, encode
+from trialign_torch.config import Scoring, encode
 from trialign_torch.kernels.wavefront import SUBMATRIX_NSYM_CAP
 
 
@@ -48,9 +50,6 @@ def _prep(seq) -> np.ndarray:
 
 
 BACKENDS = ("auto", "golden", "torch", "wavefront", "blocked", "native")
-
-# The alignment-recovery item of the port's plan.
-_TRACEBACK_ITEM = "ROADMAP.md queue 1 item 5 (Traceback)"
 
 
 def _pick_backend(la: int, lb: int, lc: int) -> str:
@@ -87,10 +86,12 @@ def align(
     ``backend``: "auto" (by size, as the reference routes), "golden"
     (NumPy), "torch" (plain sweep on ``device``), "wavefront" (K2, |B|,|C|
     <= 255 and |A| <= 4096), "blocked" (K3, any size) or "native" (C++
-    oracle on the host; with ``return_alignment`` it also recovers one
-    alignment).  ``score_bits`` nonzero wraps stored scores as signed
-    registers of that width (the RTL's SCORE_BITS); "golden", "torch",
-    "wavefront" and "blocked" implement it.
+    oracle on the host).  ``return_alignment`` recovers one optimal
+    alignment through the Hirschberg/direct engine on ``device`` (backend
+    "hirschberg" in the result; ``backend`` is ignored except "native",
+    which recovers it with the C++ oracle).  ``score_bits`` nonzero wraps
+    stored scores as signed registers of that width (the RTL's
+    SCORE_BITS); "golden", "torch", "wavefront" and "blocked" implement it.
     """
     a, b, c = _prep(a), _prep(b), _prep(c)
     la, lb, lc = len(a), len(b), len(c)
@@ -113,16 +114,17 @@ def align(
             )
 
     if return_alignment:
-        if backend != "native":
-            raise NotImplementedError(
-                f"alignment recovery is not ported yet ({_TRACEBACK_ITEM}); "
-                "backend='native' recovers one on the host"
-            )
-        from trialign.native import align_native
-
         t0 = time.perf_counter()
-        score, alignment = align_native(a, b, c, scoring)
-        return AlignResult(score=score, alignment=alignment, backend="native",
+        if backend == "native":
+            from trialign_torch.native import align_native
+
+            score, alignment = align_native(a, b, c, scoring)
+        else:
+            from trialign_torch.traceback import hirschberg_align
+
+            score, alignment = hirschberg_align(a, b, c, scoring, device=dev)
+            backend = "hirschberg"
+        return AlignResult(score=score, alignment=alignment, backend=backend,
                            cells=cells, seconds=time.perf_counter() - t0)
 
     if scoring.submatrix is not None:
@@ -142,7 +144,7 @@ def align(
 
     t0 = time.perf_counter()
     if backend == "golden":
-        from trialign.golden import align_planes_numpy
+        from trialign_torch.golden import align_planes_numpy
 
         score = align_planes_numpy(a, b, c, scoring, score_bits=score_bits)
     elif backend == "torch":
@@ -159,7 +161,7 @@ def align(
         score = align_blocked(a, b, c, scoring, score_bits=score_bits,
                               device=dev)
     else:  # native
-        from trialign.native import score_native
+        from trialign_torch.native import score_native
 
         score = score_native(a, b, c, scoring)
 

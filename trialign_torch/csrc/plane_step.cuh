@@ -1,5 +1,5 @@
-// The 7-matrix affine-gap cell step shared by the wavefront (K2) and blocked
-// (K3) kernels.
+// The 7-matrix affine-gap cell step shared by the wavefront (K2), blocked
+// (K3) and slab (K5) kernels.
 //
 // Replaces trialign/kernels/plane_math.py:fused_plane_update_m7 (K1), the
 // plane-wide grouped max-plus update every Pallas kernel inlines.  On the TPU
@@ -25,6 +25,7 @@
 //   M   q-3 (j-1, k-1), carried as max7 of that plane (M's charges are 0).
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace trialign {
@@ -150,3 +151,9 @@ __device__ __forceinline__ void load_sub_table(const int* sub, int nsym,
 }
 
 }  // namespace trialign
+
+// Every kernel source includes this header once and builds into a library
+// of its own, so each library carries this message lookup for its wrapper.
+extern "C" const char* trialign_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

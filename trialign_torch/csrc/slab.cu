@@ -1,0 +1,320 @@
+// K5: the slab sweep of alignment recovery, with capture of the plane i = |A|.
+//
+// Replaces trialign/kernels/slab.py:_slab_sweep as launched by
+// make_slab_grid_call.  It is K3's tiled sweep (csrc/blocked.cu: tiles of
+// tb x tc cells with a one-cell halo, faces in skewed global slabs, one launch
+// per tile anti-diagonal) plus three things the Hirschberg split needs:
+//
+// * Capture.  Every position (jl, kl) of a tile, halo included, is written
+//   once to cap[blk][t][jl][kl] on the plane where its global i equals |A|.
+//   The forward variants also write the seven values of (|A|, |B|, |C|).
+// * Per-variant borders (trialign/traceback/engine.py:77-119).  "free" has
+//   zero borders, as K3.  "free_jk" has zero j = 0 / k = 0 faces and a NEG
+//   wall at i = 0.  "pin" (the origin holds v0) and "bwd" (reversed inputs,
+//   the origin holds the end vector) have NEG walls everywhere, and their
+//   face cells are real DP cells: the tiles of the first tile row and column
+//   compute their halo row or column with the step, reading NEG outside the
+//   cuboid.
+// * A backward step, keyed by source state: E_u is the u-shifted plane's row
+//   u plus u's substitution at this cell, and value_t = max_u E_u + W[u][t]
+//   (engine.py:238-273).  Every computed value is clamped at NEG, as the
+//   engine clamps, so captured cells equal it bit for bit.
+//
+// Bound on the card: as K3, the integer add/max step (no tensor-core work)
+// reads 43 values a cell from the plane ring in shared memory, and a barrier
+// ends each plane; the grid is bound by the tiles of one anti-diagonal.  The
+// capture adds one write of 7 ints for each cell of the i = |A| plane.
+//
+// Design: the tile plane carries a guard row and column (index -1) that are
+// set to the variant's fill and never written, so an edge cell's
+// predecessor outside the cuboid reads NEG without a branch.  The ring (3
+// generations of 7 planes and 4 generations of one plane: max7 forward, the
+// M row backward) starts at the value every cell has below its first plane:
+// 0 ("free"), 0 on the j = 0 / k = 0 faces and NEG elsewhere ("free_jk"),
+// NEG ("pin", "bwd").  A position is written only on planes where its i is in
+// [1, |A|] ("free", "free_jk") or [0, |A|] ("pin", "bwd"); "pin" and "bwd"
+// start at plane 0, where each tile's corner holds i = 0.  The faces carry
+// every written position of the bottom row and right column, so a
+// neighbour reads only face rows that were written, and no slab needs
+// initialising.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "plane_step.cuh"
+
+namespace trialign {
+
+// Geometry of one slab sweep; mirrors the ctypes structure in
+// trialign_torch/_build.py field for field.
+struct SlabGeom {
+  int la;       // |A|: the capture plane, and the last i the sweep computes
+  int hb;       // tile plane rows: halo row + tb cells
+  int wc;       // tile plane columns: halo column + tc cells
+  int n_jb;     // tile rows
+  int n_kb;     // tile columns
+  int nrows;    // rows of each face slab (local planes 0 .. la + tb + tc)
+  int variant;  // kFree, kFreeJk, kPin or kBwd
+};
+
+namespace {
+
+enum Variant { kFree = 0, kFreeJk = 1, kPin = 2, kBwd = 3 };
+
+// trialign/traceback/engine.py NEG: minus infinity that survives additions.
+constexpr int kNeg = -(1 << 26);
+// Columns of a row of the per-block scalar table (trialign_torch/kernels/
+// slab.py _scal_table): la, jb, kb, qstar, jlstar, klstar, ev[7], row-face
+// slab, column-face slab, pad.
+constexpr int kScalCols = 16;
+constexpr int kRingPlanes = 3 * kNumMatrices + 4;
+// Threads per tile, as K3 (csrc/blocked.cu).
+constexpr int kThreads = 512;
+// Largest submatrix K5 takes: every alphabet Scoring accepts (16 symbols),
+// as the reference's slab kernel builds its select chains for any of them.
+// K2 and K3 keep plane_step.cuh's kMaxSym.  The table has one more row and
+// column for the clamped floor.
+constexpr int kSlabMaxSym = 16;
+constexpr int kSlabSubTable = (kSlabMaxSym + 1) * (kSlabMaxSym + 1);
+
+// Axes (bit 0 A, bit 1 B, bit 2 C) matrix t consumes, in the order of
+// trialign_torch/config.py CONSUMES: M, Ix, Iy, Iz, Ixy, Iyz, Ixz.
+__host__ __device__ constexpr int consume_bits(int t) {
+  return t == 0 ? 7 : t == 1 ? 1 : t == 2 ? 2 : t == 3 ? 4 : t == 4 ? 3
+       : t == 5 ? 6 : 5;
+}
+
+// Scoring.weight_matrix()[t][s]: each axis target t gaps costs gap_extend
+// if source s gapped it too, else gap_open.  Unrolled, the indices are
+// constants and this folds to a sum of the two charges.
+__device__ __forceinline__ int weight(int t, int s, int go, int ge) {
+  int charge = 0;
+#pragma unroll
+  for (int axis = 0; axis < 3; ++axis) {
+    if (!((consume_bits(t) >> axis) & 1))
+      charge += ((consume_bits(s) >> axis) & 1) ? go : ge;
+  }
+  return -charge;
+}
+
+// The three pairwise scores and S3 of one cell, as cell_step computes them.
+__device__ __forceinline__ void cell_subs(int a, int b, int cc,
+                                          const StepScoring& s, const int* sub,
+                                          int& s3, int& sab, int& sbc,
+                                          int& sac) {
+  sab = pair_score(a, b, s, sub);
+  sac = pair_score(a, cc, s, sub);
+  sbc = pair_score(b, cc, s, sub);
+  if (s.rtl) {
+    s3 = a == b ? (b == cc ? 3 * s.match : 2 * (s.match + s.mismatch))
+                : 3 * s.mismatch;
+  } else {
+    s3 = sab + sac + sbc;
+  }
+}
+
+// One cell of the backward sweep (engine.backward_slab): p1, p2 point at
+// matrix 0 of planes q-1 and q-2 (matrices `ts` ints apart), m3 at the M row
+// of plane q-3; c, up, left, upleft as in cell_step.
+__device__ __forceinline__ void bwd_step(const int* p1, const int* p2,
+                                         const int* m3, int ts, int c, int up,
+                                         int left, int upleft, int a, int b,
+                                         int cc, const StepScoring& s,
+                                         const int* sub,
+                                         int out[kNumMatrices]) {
+  int s3, sab, sbc, sac;
+  cell_subs(a, b, cc, s, sub, s3, sab, sbc, sac);
+  int e[kNumMatrices];
+  e[0] = m3[upleft] + s3;          // M: plane q-3 at (j-1, k-1)
+  e[1] = p1[1 * ts + c];           // Ix: plane q-1 at (j, k)
+  e[2] = p1[2 * ts + up];          // Iy: plane q-1 at (j-1, k)
+  e[3] = p1[3 * ts + left];        // Iz: plane q-1 at (j, k-1)
+  e[4] = p2[4 * ts + up] + sab;    // Ixy: plane q-2 at (j-1, k)
+  e[5] = p2[5 * ts + upleft] + sbc;  // Iyz: plane q-2 at (j-1, k-1)
+  e[6] = p2[6 * ts + left] + sac;  // Ixz: plane q-2 at (j, k-1)
+  const int go = s.gap_open, ge = s.gap_extend;
+#pragma unroll
+  for (int t = 0; t < kNumMatrices; ++t) {
+    int acc = e[0] + weight(0, t, go, ge);
+#pragma unroll
+    for (int u = 1; u < kNumMatrices; ++u)
+      acc = max(acc, e[u] + weight(u, t, go, ge));
+    out[t] = max(acc, kNeg);
+  }
+}
+
+size_t shared_bytes(int hb, int wc) {
+  return sizeof(int) * ((size_t)kRingPlanes * (hb + 1) * (wc + 1) + hb + wc +
+                         kSlabSubTable);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    slab_kernel(const int* __restrict__ a_ext, const int* __restrict__ b_ext,
+                const int* __restrict__ c_ext, SlabGeom g, int d, int jb_lo,
+                const int* __restrict__ scal, const int* __restrict__ sub,
+                StepScoring s, int* rf, int* cf, int* __restrict__ out,
+                int* __restrict__ cap) {
+  extern __shared__ int smem[];
+  const int hb = g.hb, wc = g.wc, tb = hb - 1, tc = wc - 1;
+  // Guarded plane: position (jl, kl) at (jl + 1) * W1 + kl + 1, jl, kl >= -1.
+  const int W1 = wc + 1, PG = (hb + 1) * W1;
+  int* planes = smem;                         // [3 slots][7][PG]
+  int* m4 = planes + 3 * kNumMatrices * PG;   // [4 slots][PG]
+  int* bsym = m4 + 4 * PG;                    // [hb]
+  int* csym = bsym + hb;                      // [wc]
+  int* sub_s = csym + wc;                     // [kSlabSubTable]
+  const int jb = jb_lo + blockIdx.x, kb = d - jb;
+  const int blk = jb * g.n_kb + kb;
+  const int* row = scal + (size_t)blk * kScalCols;
+  const int la = g.la, qstar = row[3], jlstar = row[4], klstar = row[5];
+  const int variant = g.variant;
+  const bool fwd = variant != kBwd;
+  const bool walls = variant == kPin || variant == kBwd;
+
+  for (int x = threadIdx.x; x < kRingPlanes * PG; x += kThreads) {
+    const int pos = x % PG;
+    const int jl = pos / W1 - 1, kl = pos % W1 - 1;
+    const bool border = (jb == 0 && jl == 0) || (kb == 0 && kl == 0);
+    planes[x] = variant == kFree || (variant == kFreeJk && border) ? 0 : kNeg;
+  }
+  for (int x = threadIdx.x; x < hb; x += kThreads)
+    bsym[x] = b_ext[jb * tb + x];
+  for (int x = threadIdx.x; x < wc; x += kThreads)
+    csym[x] = c_ext[kb * tc + x];
+  load_sub_table(sub, s.nsym, sub_s);
+  __syncthreads();
+
+  // Face slabs: row faces [n_kb][nrows][7][wc], column faces
+  // [n_jb][nrows][7][hb].  Written here, read by the next launch.
+  const size_t rrow = (size_t)kNumMatrices * wc, crow = (size_t)kNumMatrices * hb;
+  int* rface = rf + (size_t)row[13] * g.nrows * rrow;
+  int* cface = cf + (size_t)row[14] * g.nrows * crow;
+  int* capb = cap + (size_t)blk * kNumMatrices * hb * wc;
+  const int ilo = walls ? 0 : 1;
+  const int nq = la + tb + tc;
+  const int npos = hb * wc;
+
+  for (int q = walls ? 0 : 1; q <= nq; ++q) {
+    int* cur = planes + (q % 3) * kNumMatrices * PG;
+    const int* p1 = planes + ((q + 2) % 3) * kNumMatrices * PG;
+    const int* p2 = planes + ((q + 1) % 3) * kNumMatrices * PG;
+    int* m4cur = m4 + (q & 3) * PG;
+    const int* m4p3 = m4 + ((q + 1) & 3) * PG;  // slot of plane q - 3
+
+    for (int x = threadIdx.x; x < npos; x += kThreads) {
+      const int jl = x / wc, kl = x - (x / wc) * wc;
+      const int i = q - jl - kl;
+      if (i < ilo || i > la) continue;
+      const int c = (jl + 1) * W1 + kl + 1;
+      int v[kNumMatrices];
+      if (jl == 0 && jb > 0) {
+        // Halo row from the row face; it wins at the corner.
+        const int* src = rface + q * rrow + kl;
+#pragma unroll
+        for (int t = 0; t < kNumMatrices; ++t) v[t] = src[t * wc];
+      } else if (kl == 0 && kb > 0) {
+        const int* src = cface + q * crow + jl;
+#pragma unroll
+        for (int t = 0; t < kNumMatrices; ++t) v[t] = src[t * hb];
+      } else if ((jl == 0 || kl == 0) && !walls) {
+        // A j = 0 or k = 0 face cell of "free" / "free_jk": zero.
+#pragma unroll
+        for (int t = 0; t < kNumMatrices; ++t) v[t] = 0;
+      } else if (i == 0 && jl == 0 && kl == 0) {
+        // The origin of "pin" / "bwd" (only tile (0, 0) reaches here).
+#pragma unroll
+        for (int t = 0; t < kNumMatrices; ++t) v[t] = row[6 + t];
+      } else if (fwd) {
+        cell_step(p1, p2, PG, c, c - W1, c - 1, c - W1 - 1, m4p3[c - W1 - 1],
+                  a_ext[i], bsym[jl], csym[kl], s, sub_s, v);
+#pragma unroll
+        for (int t = 0; t < kNumMatrices; ++t) v[t] = max(v[t], kNeg);
+        if (variant == kPin) {
+          // A matrix is a wall where it would consume a symbol that does
+          // not exist: i < ca, global j < cb or k < cc.
+          const int gj = jb * tb + jl, gk = kb * tc + kl;
+#pragma unroll
+          for (int t = 0; t < kNumMatrices; ++t) {
+            const int cb = consume_bits(t);
+            if (i < (cb & 1) || gj < ((cb >> 1) & 1) || gk < ((cb >> 2) & 1))
+              v[t] = kNeg;
+          }
+        }
+      } else {
+        bwd_step(p1, p2, m4p3, PG, c, c - W1, c - 1, c - W1 - 1, a_ext[i],
+                 bsym[jl], csym[kl], s, sub_s, v);
+      }
+
+      int m = v[0];
+#pragma unroll
+      for (int t = 0; t < kNumMatrices; ++t) {
+        cur[t * PG + c] = v[t];
+        m = max(m, v[t]);
+      }
+      m4cur[c] = fwd ? m : v[0];
+      if (jl == tb) {
+#pragma unroll
+        for (int t = 0; t < kNumMatrices; ++t)
+          rface[(q - tb) * rrow + t * wc + kl] = v[t];
+      }
+      if (kl == tc) {
+#pragma unroll
+        for (int t = 0; t < kNumMatrices; ++t)
+          cface[(q - tc) * crow + t * hb + jl] = v[t];
+      }
+      if (i == la) {
+#pragma unroll
+        for (int t = 0; t < kNumMatrices; ++t) capb[t * npos + x] = v[t];
+      }
+      if (fwd && q == qstar && jl == jlstar && kl == klstar) {
+#pragma unroll
+        for (int t = 0; t < kNumMatrices; ++t) out[t] = v[t];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+int launch(const int* a, const int* b, const int* c, const SlabGeom& g, int d,
+           const int* scal, const int* sub, StepScoring s, int* rf, int* cf,
+           int* out, int* cap, cudaStream_t stream) {
+  const int jb_lo = d - (g.n_kb - 1) > 0 ? d - (g.n_kb - 1) : 0;
+  const int jb_hi = d < g.n_jb - 1 ? d : g.n_jb - 1;
+  if (d < 0 || jb_hi < jb_lo || g.variant < kFree || g.variant > kBwd ||
+      s.nsym < 0 || s.nsym > kSlabMaxSym)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = shared_bytes(g.hb, g.wc);
+  cudaError_t err = cudaFuncSetAttribute(
+      slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  slab_kernel<<<jb_hi - jb_lo + 1, kThreads, smem, stream>>>(
+      a, b, c, g, d, jb_lo, scal, sub, s, rf, cf, out, cap);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace trialign
+
+extern "C" {
+
+// Shared memory one tile's thread block takes at tile plane hb x wc.
+int trialign_slab_shared_bytes(int hb, int wc) {
+  return (int)trialign::shared_bytes(hb, wc);
+}
+
+// Launch K5 for the tiles of anti-diagonal d on `stream`.  a: A_i at index i
+// for 0 <= i <= |A| (index 0 a sentinel); b: n_jb * tb + 1 symbols (B_j at
+// index j), c likewise with n_kb * tc + 1; scal: (n_jb * n_kb, 16) ints, one
+// row per tile (row jb * n_kb + kb); rf: n_kb * nrows * 7 * wc ints; cf:
+// n_jb * nrows * 7 * hb ints; out: 7 ints, written by the forward variants'
+// target tile; cap: (n_jb * n_kb, 7, hb, wc) ints, every entry written.
+// Diagonals must be launched in order 0 .. n_jb + n_kb - 2 on one stream.
+// Returns cudaGetLastError() (or the error of cudaFuncSetAttribute).
+int trialign_slab_diag(const int* a, const int* b, const int* c,
+                       trialign::SlabGeom g, int d, const int* scal,
+                       const int* sub, trialign::StepScoring s, int* rf,
+                       int* cf, int* out, int* cap, void* stream) {
+  return trialign::launch(a, b, c, g, d, scal, sub, s, rf, cf, out, cap,
+                          (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -135,8 +135,4 @@ int trialign_wavefront(const int* a, int a_stride, const int* b, const int* c,
   }
 }
 
-const char* trialign_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
 }  // extern "C"

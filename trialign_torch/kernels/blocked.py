@@ -25,8 +25,10 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from trialign.config import Scoring
-from trialign.kernels.plane_math import fused_plane_update_m7, transition_groups
+from trialign_torch.config import Scoring
+from trialign_torch.kernels.plane_math import (
+    fused_plane_update_m7, transition_groups,
+)
 from trialign_torch import _build
 from trialign_torch.kernels.ref import (
     PAD_A, PAD_B, PAD_C, extend, pair_fn, roll1, substitution, wrap,
@@ -209,7 +211,7 @@ def final_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                            score_bits)
     if a_ext.device.type != "cuda":
         raise ValueError(f"no blocked kernel for device {a_ext.device}")
-    lib = _build.load()
+    lib = _build.load("blocked")
     dev = a_ext.device
     step, table = _build.kernel_scoring(scoring, score_bits, dev)
     jlstar, klstar = _target(lb, lc, dims)

@@ -16,8 +16,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from trialign.config import PAD_SYMBOL, Scoring
-from trialign.kernels.plane_math import fused_plane_update_m7, transition_groups
+from trialign_torch.config import PAD_SYMBOL, Scoring
+from trialign_torch.kernels.plane_math import (
+    fused_plane_update_m7, transition_groups,
+)
 
 # Sentinels before and after each sequence (xla_ref.align_xla,
 # wavefront.prepare_compact): distinct, so a pad never matches a pad.

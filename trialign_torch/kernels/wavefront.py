@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from trialign.config import Scoring
+from trialign_torch.config import Scoring
 from trialign_torch import _build
 from trialign_torch.kernels.ref import PAD_A, PAD_B, PAD_C, extend, sweep
 
@@ -84,7 +84,7 @@ def final_values(a, b, c, lens, scoring: Scoring = Scoring(),
         raise ValueError(f"no wavefront kernel for device {a.device}")
     if b.shape[1] > MAX_BC + 1 or c.shape[1] > MAX_BC + 1:
         raise ValueError("b and c hold at most 256 symbols a problem")
-    lib = _build.load()
+    lib = _build.load("wavefront")
     hb, wc = b.shape[1], c.shape[1]
     step, table = _build.kernel_scoring(scoring, score_bits, a.device)
     lens_d = torch.from_numpy(lens.astype(np.int32)).to(a.device)
