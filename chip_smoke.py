@@ -18,18 +18,31 @@ per source, all at once) and prints one JSON line per phase:
    torch engine), exactly: the captured plane and the final vector of every
    variant, on multi-tile and ragged shapes, under five scorings (one a
    16-symbol submatrix, which only K5 takes);
-5. ``main_path``: ``trialign_torch.align`` with backend "auto" against the
+5. ``hetero``: K4 against its plain version ``hetero_ref``, exactly: the
+   final vector of every problem of ragged batches (a 1 x 1-tile problem,
+   an empty sequence, one batch cut into several dispatches) under four
+   scorings;
+6. ``main_path``: ``trialign_torch.align`` with backend "auto" against the
    golden model and the C++ oracle, with the kernels' launch counts;
-6. ``traceback``: ``trialign_torch.align(..., return_alignment=True)`` at
+7. ``traceback``: ``trialign_torch.align(..., return_alignment=True)`` at
    512^3 and 1024^3 (the direct engine), 2048^3 (K5 for the top split) and
    768^3 with lowered caps (K5 on pin nodes); each alignment rescores to the
    score path's score and holds the inputs; seconds, peak memory, the top
    node's route and K5's launches (those of the 2048^3 run go to the
    summary);
-7. ``tuning``: K2's thread count and K3's tile shape candidates;
-8. ``timings``: each kernel beside its plain version at the main path's
-   sizes, and beside its bound; K5 against the torch engine, exactly, at
-   the shape the 2048^3 traceback gives it.
+8. ``batch``: ``trialign_torch.align_batch`` on 1024 triplets with every
+   length uniform in [128, 512] (K4, by its launches; seconds, GCUPS and
+   triplets/s, best of 3 after a warm-up; the card's busy share under
+   ``torch.profiler``), 64 of its scores against
+   ``align()`` and 8 against the C++ oracle; a 48-triplet batch (one K2
+   launch and K3) against ``align()``; 16 alignments that rescore exactly;
+9. ``tuning``: K2's thread count and K3's tile shape candidates;
+10. ``timings``: each kernel beside its plain version at the main path's
+    sizes, and beside its bound; K5 against the torch engine, exactly, at
+    the shape the 2048^3 traceback gives it; K4 against hetero_ref,
+    exactly and timed, on a dispatch of three of the 1024-triplet batch's
+    problems (its largest, its smallest, one at random), and K4 at the
+    whole batch.
 
 Then a summary of the kernels, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any mismatch or error exits
@@ -44,6 +57,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -55,11 +69,14 @@ from trialign_torch.config import NUM_MATRICES, Scoring
 from trialign_torch.golden import align_planes_numpy, rescore_alignment
 from trialign_torch.io import load_reference_triplet
 from trialign_torch.kernels import blocked as bk
+from trialign_torch.kernels import hetero as hk
+from trialign_torch.kernels import mosaic
 from trialign_torch.kernels import ref
 from trialign_torch.kernels import slab as sk
 from trialign_torch.kernels import wavefront as wf
 from trialign_torch.kernels.plane_math import op_count
 from trialign_torch.native import score_native
+from trialign_torch.profile_traceback import kernel_seconds
 from trialign_torch.traceback import direct
 from trialign_torch.traceback import hirschberg as hb
 from trialign_torch.traceback import torch_engine
@@ -94,6 +111,9 @@ SLAB_VARIANTS = {**VARIANTS, "sub16": (SUB16, 0, 18)}
 
 # The shape of K5's sweeps at the 2048^3 traceback's top split.
 SPLIT_SHAPE = (1024, 2048, 2048)
+# The repo's throughput workload (trialign/benchmarks.py bench_batch_mixed,
+# BASELINE config 3): 1024 triplets, each length uniform in [128, 512].
+BATCH_N, BATCH_LENS = 1024, (128, 512)
 # HBM bytes a second of one H100 SXM (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 # INT32 lanes of one SM of Hopper (the CUDA programming guide's throughput
@@ -142,12 +162,14 @@ def smi(query: str) -> str:
 def reset_launches() -> None:
     wf.final_values.launches = 0
     bk.final_values.launches = 0
+    hk.final_values.launches = 0
     sk.slab_sweep.launches = 0
 
 
 def read_launches() -> dict:
     return {"wavefront": wf.final_values.launches,
             "blocked": bk.final_values.launches,
+            "hetero": hk.final_values.launches,
             "slab": sk.slab_sweep.launches}
 
 
@@ -346,6 +368,52 @@ def phase_slab(rng) -> int:
     return err
 
 
+def hetero_case(trips, scoring, block):
+    """K4 against hetero_ref on one dispatch, exactly; the largest
+    difference."""
+    batch = hk.prep_hetero(trips, *block, CUDA)
+    got = hk.final_values(batch, scoring)
+    want = hk.hetero_ref(batch, scoring)
+    require(torch.equal(got, want), f"K4 {[list(map(len, t)) for t in trips]}"
+            f" {block}: kernel {cpu_ints(got)} != hetero_ref {cpu_ints(want)}")
+    return _diff(got, want)
+
+
+def phase_hetero(rng) -> int:
+    # Different |A|, tile counts and final cells, ragged against the tile,
+    # a 1 x 1-tile problem and an empty sequence.
+    lens = [(20, 30, 12), (3, 5, 4), (0, 4, 3), (7, 17, 40), (25, 9, 9),
+            (1, 1, 1), (60, 70, 50), (33, 32, 33)]
+    checked, err = [], 0
+    for name in ("default", "rtl", "nondefault", "sub4"):
+        scoring, _, nsym = VARIANTS[name]
+        trips = [triplet(rng, n, nsym) for n in lens]
+        for block in ((9, 17), bk.choose_block_shape(0, 0, 0)):
+            err = max(err, hetero_case(trips, scoring, block))
+            checked.append(f"{len(trips)} problems/{block}/{name}")
+        # One batch cut into dispatches by a small face budget: each
+        # dispatch against hetero_ref, and the scores of align_hetero.
+        block = (9, 17)
+        budget = 2 * hk.face_bytes(60, 70, 50, *block)
+        plan = hk.plan_dispatches(lens, *block, budget)
+        require(len(plan) >= 2, f"one dispatch under budget {budget}")
+        want = [0] * len(trips)
+        for idx in plan:
+            err = max(err, hetero_case([trips[i] for i in idx], scoring,
+                                       block))
+            batch = hk.prep_hetero([trips[i] for i in idx], *block, CUDA)
+            for i, v in zip(idx, hk.hetero_ref(batch, scoring).max(dim=1)
+                            .values.tolist()):
+                want[i] = v
+        got = hk.align_hetero(trips, scoring, CUDA, block,
+                              budget_bytes=budget)
+        require(got == want, f"K4 {name} in {len(plan)} dispatches: {got} "
+                f"!= {want}")
+        checked.append(f"{len(plan)} dispatches/{block}/{name}")
+    emit(phase="hetero", cases=checked, max_abs_err=err)
+    return err
+
+
 def phase_main_path(rng) -> dict:
     reset_launches()
     runs = []
@@ -466,6 +534,96 @@ def phase_traceback(rng) -> int:
     return slab_launches
 
 
+def batch_triplets(rng, n=BATCH_N, lens=BATCH_LENS):
+    lo, hi = lens
+    return [triplet(rng, rng.integers(lo, hi + 1, 3)) for _ in range(n)]
+
+
+def batch_cells(trips) -> int:
+    return sum(len(a) * len(b) * len(c) for a, b, c in trips)
+
+
+def timed_batch(trips, **kwargs):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trialign_torch.align_batch(trips, **kwargs)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_batch(rng) -> tuple:
+    """The slice's path: the 1024-triplet batch on K4.  Returns K4's
+    launches in its first run and the batch, for the timings."""
+    trips = batch_triplets(rng)
+    cells = batch_cells(trips)
+    reset_launches()
+    res, first_s = timed_batch(trips)
+    launches = read_launches()
+    require(launches["hetero"] > 0 and not launches["wavefront"]
+            and not launches["blocked"],
+            f"the 1024-triplet batch did not take K4 alone: {launches}")
+    scores = [r.score for r in res]
+    runs_s = []
+    for _ in range(3):
+        again, sec = timed_batch(trips)
+        require([r.score for r in again] == scores, "a rerun disagrees")
+        runs_s.append(sec)
+    best = min(runs_s)
+    # The card's busy share: kernel seconds of one more call under
+    # torch.profiler (CUDA activity only) over the best unprofiled call.
+    prof = kernel_seconds(lambda: trialign_torch.align_batch(trips))
+
+    sample = [int(i) for i in rng.choice(len(trips), 64, replace=False)]
+    single = {}
+    for i in sample:
+        r = trialign_torch.align(*trips[i])
+        require(r.score == scores[i], f"triplet {i} "
+                f"{list(map(len, trips[i]))}: batch {scores[i]} != align() "
+                f"({r.backend}) {r.score}")
+        single[r.backend] = single.get(r.backend, 0) + 1
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        native = list(ex.map(lambda i: score_native(*trips[i]), sample[:8]))
+    native_s = time.perf_counter() - t0
+    require(native == [scores[i] for i in sample[:8]],
+            f"batch {[scores[i] for i in sample[:8]]} != native {native}")
+
+    # The padded route: fewer than 64 triplets, some past K2's caps.
+    small = batch_triplets(rng, 48, (16, 320))
+    reset_launches()
+    res48, s48 = timed_batch(small)
+    l48 = read_launches()
+    n_long = sum(not wf.fits(*map(len, t)) for t in small)
+    require(l48["wavefront"] == 1 and l48["blocked"] > 0
+            and not l48["hetero"], f"48-triplet batch launches {l48}")
+    want48 = [trialign_torch.align(*t).score for t in small]
+    require([r.score for r in res48] == want48, "48-triplet batch != align()")
+
+    tb = batch_triplets(rng, 16, (64, 200))
+    res16, s16 = timed_batch(tb, return_alignment=True)
+    for r, t in zip(res16, tb):
+        require(rescore_alignment(r.alignment) == r.score,
+                "a batch alignment does not rescore")
+        for row, seq in zip(r.alignment, t):
+            require([v for v in row if v != -1] == [int(x) for x in seq],
+                    "a batch alignment row without gaps is not its input")
+    want16 = [trialign_torch.align(*t).score for t in tb]
+    require([r.score for r in res16] == want16, "batch alignments != align()")
+
+    emit(phase="batch", triplets=len(trips), lengths=list(BATCH_LENS),
+         cells=cells, first_s=first_s, runs_s=runs_s, best_s=best,
+         gcups=cells / best / 1e9, triplets_per_s=len(trips) / best,
+         launches=launches, **prof, busy_share=prof["kernel_s"] / best,
+         checked_against_align=len(sample),
+         align_backends=single, checked_against_native=len(native),
+         native_s=native_s,
+         padded={"triplets": len(small), "past_k2_caps": n_long,
+                 "seconds": s48, "launches": l48},
+         alignments={"triplets": len(tb), "seconds": s16,
+                     "backends": sorted({r.backend for r in res16})})
+    return launches["hetero"], trips
+
+
 def _inputs(rng, shape, count=4):
     return [triplet(rng, shape) for _ in range(count)]
 
@@ -516,6 +674,73 @@ def time_engine(trips, variant):
     return time_cuda_ms(fn, trips)
 
 
+def hetero_dispatch(trips):
+    """The K4 dispatch that align_batch gives a batch (rotated, the longest
+    |A| first); the batch must fit one."""
+    rot = [mosaic._rotate(t, DEFAULT) for t in trips]
+    hb_, wc_ = bk.choose_block_shape(0, 0, 0)
+    plan = hk.plan_dispatches([list(map(len, t)) for t in rot], hb_, wc_,
+                              hk.default_budget(CUDA))
+    require(len(plan) == 1, f"the batch took {len(plan)} dispatches")
+    return hk.prep_hetero([rot[i] for i in plan[0]], hb_, wc_, CUDA)
+
+
+def hetero_bound(trips, dev) -> tuple:
+    """bound() of one K4 dispatch of ``trips``: each problem's three symbol
+    vectors read once, its 7 final values written once."""
+    nbytes = 4 * sum(len(a) + len(b) + len(c) + NUM_MATRICES
+                     for a, b, c in trips)
+    return bound(batch_cells(trips), nbytes, dev)
+
+
+def time_hetero(rng, trips, dev) -> dict:
+    """K4 and hetero_ref on one sample dispatch of the batch's problems (the
+    one with the most cells, the one with the fewest and one at random), held
+    equal and timed on that same dispatch; then K4 at the whole 1024-triplet
+    batch (that batch and two more like it), the host's packing of its
+    dispatch and its bound."""
+    sizes = [len(a) * len(b) * len(c) for a, b, c in trips]
+    pick = [int(np.argmax(sizes)), int(np.argmin(sizes))]
+    pick.append(int(rng.choice([i for i in range(len(trips))
+                                if i not in pick])))
+    rot = [mosaic._rotate(trips[i], DEFAULT) for i in pick]
+    sample = hk.prep_hetero(rot, *bk.choose_block_shape(0, 0, 0), CUDA)
+    # The kernel is deterministic, so three trials of one dispatch.
+    ms = time_cuda_ms(hk.final_values, [(sample,)] * 3)
+    got = hk.final_values(sample)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = hk.hetero_ref(sample)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    require(torch.equal(got, want), f"K4 on the batch's problems "
+            f"{[list(map(len, t)) for t in rot]}: kernel {cpu_ints(got)} != "
+            f"hetero_ref {cpu_ints(want)}")
+    cells = batch_cells(rot)
+    bms, by = hetero_bound(rot, dev)
+
+    batches = [trips] + [batch_triplets(rng) for _ in range(2)]
+    t0 = time.perf_counter()
+    inputs = [(hetero_dispatch(trips),)]
+    prep_s = time.perf_counter() - t0
+    inputs += [(hetero_dispatch(t),) for t in batches[1:]]
+    batch_ms = time_cuda_ms(hk.final_values, inputs)
+    batch_bms, batch_by = hetero_bound(trips, dev)
+    return {"ms": ms, "gcups": gcups(cells, ms),
+            "lengths": [list(map(len, t)) for t in rot], "cells": cells,
+            "plain": "hetero_ref on the same dispatch, one run",
+            "plain_ms": plain_ms, "plain_gcups": gcups(cells, plain_ms),
+            "bound_ms": bms, "bound_by": by, "max_abs_err": _diff(got, want),
+            "batch": {"ms": batch_ms, "gcups": gcups(batch_cells(trips),
+                                                     batch_ms),
+                      "triplets": len(trips), "cells": batch_cells(trips),
+                      "host_prep_s": prep_s, "bound_ms": batch_bms,
+                      "bound_by": batch_by}}
+
+
 def phase_tuning(rng) -> None:
     trips = _inputs(rng, (255, 255, 255))
     k2 = {t: time_wavefront(trips, t) for t in (256, 512, 1024)}
@@ -532,19 +757,19 @@ def phase_tuning(rng) -> None:
                  "blocked_threads": bk.THREADS})
 
 
-def bound(la, lb, lc, nbytes, dev) -> tuple:
+def bound(cells, nbytes, dev) -> tuple:
     """(least ms the card could take, "bytes" or "operations") for a sweep
-    of la * lb * lc cells at op_count(Scoring()) int32 operations a cell,
+    of ``cells`` cells at op_count(Scoring()) int32 operations a cell,
     moving ``nbytes``."""
-    ops_ms = la * lb * lc * op_count(DEFAULT) / dev["int32_ops_per_s"] * 1e3
+    ops_ms = cells * op_count(DEFAULT) / dev["int32_ops_per_s"] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
 
 
-def phase_timings(rng, dev) -> tuple:
+def phase_timings(rng, dev, batch) -> tuple:
     """The timing rows, and K5's largest difference from the torch engine at
-    the split's shape."""
+    the split's shape; ``batch`` is the batch phase's 1024 triplets."""
     rows = {}
     for name, n in (("wavefront", 255), ("blocked", 512), ("blocked", 1024)):
         trips = _inputs(rng, (n, n, n))
@@ -555,7 +780,7 @@ def phase_timings(rng, dev) -> tuple:
         plain_ms = time_plain(trips[:3])
         cells = n ** 3
         # Inputs read once (3 symbol vectors), the final vector written.
-        bms, by = bound(n, n, n, 4 * (3 * n + NUM_MATRICES + 1), dev)
+        bms, by = bound(cells, 4 * (3 * n + NUM_MATRICES + 1), dev)
         rows[f"{name}_{n}"] = {"ms": ms, "gcups": gcups(cells, ms),
                                "plain_ms": plain_ms,
                                "plain_gcups": gcups(cells, plain_ms),
@@ -566,7 +791,7 @@ def phase_timings(rng, dev) -> tuple:
     # Inputs read once; the capture (every tile's plane) and final written.
     nbytes = 4 * (la + lb + lc + dims.n_jb * dims.n_kb * NUM_MATRICES
                   * dims.hb * dims.wc + NUM_MATRICES)
-    bms, by = bound(la, lb, lc, nbytes, dev)
+    bms, by = bound(la * lb * lc, nbytes, dev)
     # K5 against the torch engine at the shape the 2048^3 traceback gives
     # it (slab_ref would take too long there): the slab and final vector of
     # "free", the slab of "bwd" with a pinned end state.
@@ -580,6 +805,7 @@ def phase_timings(rng, dev) -> tuple:
             "plain": "torch engine", "plain_ms": plain_ms,
             "plain_gcups": gcups(la * lb * lc, plain_ms),
             "bound_ms": bms, "bound_by": by}
+    rows["hetero_sample"] = time_hetero(rng, batch, dev)
     emit(phase="timings", **rows, slab_split_max_abs_err=split_err)
     return rows, split_err
 
@@ -598,29 +824,40 @@ def main() -> int:
     k2_err = phase_wavefront(rng)
     k3_err = phase_blocked(rng)
     k5_err = phase_slab(rng)
+    k4_err = phase_hetero(rng)
     launches = phase_main_path(rng)
     launches["slab"] = phase_traceback(rng)
+    launches["hetero"], batch = phase_batch(rng)
     phase_tuning(rng)
-    rows, split_err = phase_timings(rng, dev)
+    rows, split_err = phase_timings(rng, dev, batch)
     k5_err = max(k5_err, split_err)
+    k4 = rows["hetero_sample"]
+    k4_err = max(k4_err, k4["max_abs_err"])
     require("jax" not in sys.modules and "trialign" not in sys.modules,
             "JAX or the JAX package was imported")
     split = "x".join(map(str, SPLIT_SHAPE))
+    # K4's ms, plain_ms and bound_ms are of the sample dispatch (the plain
+    # version would take hours on the whole batch); the whole batch's
+    # kernel ms and bound stand beside them.
     kernels = [
         ("wavefront", "trialign/kernels/wavefront.py:112", k2_err,
-         rows["wavefront_255"]),
+         rows["wavefront_255"], {}),
         ("blocked", "trialign/kernels/blocked.py:225", k3_err,
-         rows["blocked_1024"]),
+         rows["blocked_1024"], {}),
+        ("hetero", "trialign/kernels/blocked.py:963", k4_err, k4,
+         {"cells": k4["cells"], "batch_ms": k4["batch"]["ms"],
+          "batch_bound_ms": k4["batch"]["bound_ms"],
+          "batch_cells": k4["batch"]["cells"]}),
         ("slab", "trialign/kernels/slab.py:74", k5_err,
-         rows[f"slab_free_{split}"]),
+         rows[f"slab_free_{split}"], {}),
     ]
     emit(kernels=[
         {"name": name, "route": "cuda",
          "source": f"trialign_torch/csrc/{name}.cu", "replaces": replaces,
          "launches": launches[name], "max_abs_err": err, "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-         "bound_by": row["bound_by"], "library_ms": None}
-        for name, replaces, err, row in kernels
+         "bound_by": row["bound_by"], "library_ms": None, **extra}
+        for name, replaces, err, row, extra in kernels
     ])
     print(dev["smi"], flush=True)
     emit(ok=True, device={"platform": "gpu",

@@ -19,6 +19,7 @@ from trialign_torch import api
 from trialign_torch.config import Scoring
 from trialign_torch.golden import align_planes_numpy, rescore_alignment
 from trialign_torch.kernels import blocked as bk
+from trialign_torch.kernels import hetero
 from trialign_torch.kernels import ref
 from trialign_torch.kernels import slab as sk
 from trialign_torch.kernels import wavefront as wf
@@ -120,3 +121,36 @@ def test_traceback_on_card_rescores(card, monkeypatch):
     assert sk.slab_sweep.launches > before
     assert r.score == api.align(a, b, c).score
     assert rescore_alignment(r.alignment) == r.score
+
+
+@pytest.mark.parametrize("name", sorted(SCORINGS))
+@pytest.mark.parametrize("block", [(9, 17), None])
+def test_hetero_kernel_matches_plain(card, block, name):
+    """K4's final vectors equal hetero_ref's: ragged lengths, several tile
+    counts, a 1 x 1-tile problem and an empty sequence in one dispatch."""
+    scoring, nsym = SCORINGS[name]
+    rng = np.random.default_rng(6)
+    trips = [tuple(rng.integers(0, nsym, n).astype(np.uint8) for n in lens)
+             for lens in ((20, 30, 12), (3, 5, 4), (0, 4, 3), (7, 17, 40),
+                          (25, 9, 9), (1, 1, 1), (60, 70, 50))]
+    hb, wc = block or bk.choose_block_shape(0, 0, 0)
+    batch = hetero.prep_hetero(trips, hb, wc, card)
+    got = hetero.final_values(batch, scoring)
+    assert torch.equal(got, hetero.hetero_ref(batch, scoring))
+
+
+def test_align_batch_on_card_matches_align(card):
+    """70 triplets take K4; 10 take one K2 launch and K3."""
+    rng = np.random.default_rng(7)
+    trips = [tuple(rng.integers(0, 4, int(n)).astype(np.uint8)
+                   for n in rng.integers(1, 90, 3)) for _ in range(70)]
+    before = hetero.final_values.launches
+    got = [r.score for r in api.align_batch(trips)]
+    assert hetero.final_values.launches > before
+    assert got == [api.align(*t).score for t in trips]
+    small = trips[:8] + [tuple(rng.integers(0, 4, n).astype(np.uint8)
+                               for n in (20, 300, 30)),
+                          (trips[0][0], trips[0][1][:0], trips[0][2])]
+    got = [r.score for r in api.align_batch(small)]
+    assert got == [api.align(*t).score if min(map(len, t)) else 0
+                   for t in small]

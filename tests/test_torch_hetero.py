@@ -1,0 +1,160 @@
+"""The port's heterogeneous batch sweep (K4) and chains against the reference.
+
+On the CPU, K4's wrapper runs hetero_ref, which sweeps each problem of a
+dispatch with K3's plain version from the dispatch's packed symbol buffer and
+geometry table; so these tests exercise the packing, the per-diagonal tile
+table and the dispatch split that the CUDA kernel uses.  The reference's
+chains run in interpret mode at the shapes tests/test_chain.py uses.  The
+CUDA kernel itself is compared with hetero_ref in tests/test_torch_cuda.py.
+Scores are integers: equality is exact.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from trialign.config import Scoring as JScoring
+from trialign.kernels.chain import align_chain as jax_align_chain
+from trialign_torch.config import Scoring
+from trialign_torch.golden import align_planes_numpy
+from trialign_torch.kernels import chain, hetero, mosaic
+
+torch.set_num_threads(1)
+
+RTL_NONDEFAULT = Scoring(match=2, mismatch=-3, gap_open=4, gap_extend=1,
+                         s3_mode="rtl")
+SUB4 = ((3, -1, -2, 0), (-2, 2, -1, -3), (0, -3, 4, -1), (-1, -2, -1, 1))
+
+
+def _rt(rng, la, lb, lc, nsym=4):
+    return tuple(rng.integers(0, nsym, s).astype(np.uint8)
+                 for s in (la, lb, lc))
+
+
+def golden(trips, scoring=Scoring()):
+    return [align_planes_numpy(*t, scoring) if min(map(len, t)) else 0
+            for t in trips]
+
+
+def ref_values(trips, block, scoring=Scoring()):
+    batch = hetero.prep_hetero(trips, *block, "cpu")
+    return hetero.hetero_ref(batch, scoring).max(dim=1).values.tolist()
+
+
+@pytest.mark.parametrize("lens,jax_block,scoring", [
+    # tests/test_chain.py: basic, multiblock, nondefault (rtl) scoring
+    (((12, 10, 14), (9, 13, 11), (15, 8, 16), (11, 12, 9)), (24, 128, 8),
+     Scoring()),
+    (((10, 25, 140), (8, 28, 135), (12, 22, 150)), (16, 128, 8), Scoring()),
+    (((10, 12, 15), (8, 14, 10), (13, 9, 18)), (24, 128, 8),
+     RTL_NONDEFAULT),
+], ids=["basic", "multiblock", "rtl_nondefault"])
+def test_matches_jax_align_chain(rng, lens, jax_block, scoring):
+    trips = [_rt(rng, *n) for n in lens]
+    want = jax_align_chain(trips, JScoring(**dataclasses.asdict(scoring)),
+                           interpret=True, block_shape=jax_block)
+    assert want == golden(trips, scoring)
+    # Several tiles a problem (9 x 17), the reference's row count, and the
+    # default 33 x 33 plane.
+    for block in ((9, 17), (jax_block[0], 33), None):
+        got = chain.align_chain(trips, scoring, block, device="cpu")
+        assert got == want, block
+    assert ref_values(trips, (9, 17), scoring) == want
+
+
+def test_ragged_batch_over_several_dispatches(rng):
+    """Different |A|, tile counts, a 1 x 1-tile problem, empty sequences and
+    repeated final cells, cut into several dispatches by a small budget; the
+    scores come back in input order and on_scores fires once a problem."""
+    empty = (np.zeros(0, np.uint8), np.zeros(4, np.uint8),
+             np.zeros(3, np.uint8))
+    trips = [_rt(rng, 20, 30, 12), _rt(rng, 3, 5, 4), empty,
+             _rt(rng, 7, 17, 40), _rt(rng, 25, 9, 9), _rt(rng, 11, 30, 12),
+             _rt(rng, 1, 1, 1), _rt(rng, 14, 8, 33)]
+    block = (9, 17)
+    budget = 2 * hetero.face_bytes(20, 30, 12, *block)
+    lens = [[len(x) for x in t] for t in trips]
+    plan = hetero.plan_dispatches(lens, *block, budget)
+    assert len(plan) >= 2
+    fired = []
+    got = hetero.align_hetero(trips, device="cpu", block_shape=block,
+                              budget_bytes=budget,
+                              on_scores=lambda i, s: fired.append((i, s)))
+    assert got == golden(trips)
+    assert sorted(fired) == list(enumerate(got))
+    assert ref_values(trips, block) == got
+
+
+def test_plan_dispatches_order_and_cuts():
+    lens = [(5, 9, 9), (30, 9, 9), (0, 3, 3), (12, 9, 9), (30, 40, 40),
+            (1, 1, 1)]
+    block = (9, 9)
+    one = hetero.plan_dispatches(lens, *block)
+    assert one == [[1, 4, 3, 0, 5]]  # longest |A| first, empties left out
+    assert hetero.plan_dispatches(lens, *block, max_problems=2) == \
+        [[1, 4], [3, 0], [5]]
+    big = hetero.face_bytes(30, 40, 40, *block)
+    cut = hetero.plan_dispatches(lens, *block, budget_bytes=big - 1)
+    assert [4] in cut  # past the budget alone: a dispatch of its own
+    assert sorted(i for d in cut for i in d) == [0, 1, 3, 4, 5]
+    for d in cut:
+        need = sum(hetero.face_bytes(*lens[i], *block) for i in d)
+        assert len(d) == 1 or need <= big - 1
+
+
+def test_prep_hetero_tables(rng):
+    """Each diagonal lists (problem, jb) pairs with jb + kb = d, problems in
+    their order; symbol and face offsets of the problems do not overlap."""
+    trips = [_rt(rng, 6, 20, 9), _rt(rng, 4, 3, 30),
+             (np.zeros(0, np.uint8),) * 3, _rt(rng, 2, 9, 9)]
+    b = hetero.prep_hetero(trips, 9, 9, "cpu")
+    g = {name: b.geom[:, col] for col, name in
+         enumerate(hetero.GEOM_FIELDS)}
+    assert list(g["n_jb"]) == [3, 1, 0, 2]
+    assert list(g["n_kb"]) == [2, 4, 0, 2]
+    seen = set()
+    for d in range(len(b.diag_start) - 1):
+        rows = b.tiles[b.diag_start[d]:b.diag_start[d + 1]].tolist()
+        assert [p for p, _ in rows] == sorted(p for p, _ in rows)
+        for p, jb in rows:
+            kb = d - jb
+            assert 0 <= jb < g["n_jb"][p] and 0 <= kb < g["n_kb"][p]
+            seen.add((p, jb, kb))
+    assert len(seen) == len(b.tiles) == int((g["n_jb"] * g["n_kb"]).sum())
+    assert b.rf_ints == int((g["n_kb"] * g["nrows"] * 7 * 9).sum())
+    a0 = int(g["a_off"][0])
+    assert b.syms[a0 + 1:a0 + 7].tolist() == trips[0][0].tolist()
+
+
+@pytest.mark.parametrize("fn", [
+    lambda t, s: chain.align_chain(t, s, device="cpu"),
+    lambda t, s: chain.align_batch_chained(t, s, device="cpu"),
+    lambda t, s: mosaic.align_batch_mosaic(t, s, device="cpu"),
+], ids=["align_chain", "align_batch_chained", "align_batch_mosaic"])
+def test_refuses_submatrix_past_hetero_gate(rng, fn):
+    """As the reference: more than 4 symbols, or entries outside a byte."""
+    five = tuple(tuple(1 if i == j else -1 for j in range(5))
+                 for i in range(5))
+    for sub in (five, ((300, -1), (-1, 300))):
+        with pytest.raises(ValueError, match="4 symbols"):
+            fn([_rt(rng, 5, 5, 5)], Scoring(submatrix=sub))
+
+
+def test_submatrix_and_batch_chained(rng):
+    """A 4-symbol submatrix, codes past it scoring the floor, through
+    align_batch_chained with two problems a dispatch."""
+    sc = Scoring(submatrix=SUB4)
+    trips = [_rt(rng, 11, 9, 17, 6), _rt(rng, 6, 9, 13, 6),
+             _rt(rng, 14, 21, 8, 6), _rt(rng, 3, 10, 17, 6),
+             (np.zeros(2, np.uint8), np.zeros(0, np.uint8),
+              np.zeros(5, np.uint8))]
+    got = chain.align_batch_chained(trips, sc, max_p=2, device="cpu")
+    assert got == golden(trips, sc)
+
+
+def test_kernel_wrapper_refuses_other_devices(rng):
+    batch = hetero.prep_hetero([_rt(rng, 3, 3, 3)], 9, 9, "meta")
+    with pytest.raises(ValueError, match="no hetero kernel"):
+        hetero.final_values(batch)

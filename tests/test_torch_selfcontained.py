@@ -87,15 +87,22 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "r = trialign_torch.align(s, s, s, return_alignment=True,\n"
         "                         device='cpu')\n"
         "assert (r.score, r.backend) == (15, 'hirschberg'), r\n"
+        "rs = trialign_torch.align_batch([(s, s, s), (s, s[:0], s)],\n"
+        "                                device='cpu')\n"
+        "assert [x.score for x in rs] == [15, 0], rs\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
         "       m.split('.')[0] in ('jax', 'trialign')]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    names = out.stdout.split()
+    assert len(names) >= 15
+    for new in ("kernels.hetero", "kernels.chain", "kernels.mosaic",
+                "dist.batch"):
+        assert f"trialign_torch.{new}" in names
 
 
 @pytest.mark.parametrize("kw", SCORINGS, ids=["sop", "nondefault", "rtl",
@@ -158,6 +165,14 @@ def test_plane_math_matches_reference(rng, kw):
     np.testing.assert_array_equal(
         pm.submatrix_pair(ap, got[0], got[3], np.where),
         jpm.submatrix_pair(ap, want[0], want[3], np.where))
+
+
+@pytest.mark.parametrize("sub", [
+    None, SUB4, ((300, -1), (-1, 2)), ((2, -129), (-1, 2)),
+    tuple(tuple(1 if i == j else -1 for j in range(5)) for i in range(5)),
+], ids=["none", "sub4", "past_127", "past_-128", "five_symbols"])
+def test_hetero_sub_ok_matches_reference(sub):
+    assert pm.hetero_sub_ok(sub) == jpm.hetero_sub_ok(sub)
 
 
 @pytest.mark.parametrize("kw", SCORINGS, ids=["sop", "nondefault", "rtl",

@@ -3,6 +3,8 @@
 The score path of ``align(a, b, c)`` runs on an NVIDIA Hopper GPU through two
 CUDA kernels written for ``sm_90a`` (``csrc/``): the single-block wavefront
 sweep for |B|, |C| <= 255 and the blocked, sliced sweep beyond.
+``align_batch`` scores a large batch through the heterogeneous batch kernel,
+many triplets a launch, and smaller ones through the first two.
 ``align(..., return_alignment=True)`` recovers an alignment through the
 Hirschberg/direct engine (``traceback/``), whose biggest splits run on the
 slab kernel.  The package keeps its own copies of the scoring, encoding,
@@ -15,7 +17,7 @@ from trialign_torch.config import Scoring, decode, encode  # noqa: F401
 
 def __getattr__(name):
     # Lazy, as in the reference: `import trialign_torch` stays cheap.
-    if name in ("align", "AlignResult"):
+    if name in ("align", "align_batch", "AlignResult"):
         from trialign_torch import api
 
         return getattr(api, name)

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Largest runtime submatrix K2 and K3 take (csrc/plane_step.cuh kMaxSym),
+# Largest runtime submatrix K2, K3 and K4 take (csrc/plane_step.cuh kMaxSym),
 # the Pallas kernels' cap (trialign/kernels/wavefront.py SUBMATRIX_NSYM_CAP).
 # K5 takes every alphabet Scoring accepts (kernels/slab.py).
 SUBMATRIX_NSYM_CAP = 8
@@ -77,6 +77,11 @@ SIGNATURES = {
     "blocked": {
         "trialign_blocked_diag": (
             _I, [_P, _P, _P, BlockedGeom, _I, _P, StepScoring, _P, _P, _P, _I,
+                 _P]),
+    },
+    "hetero": {
+        "trialign_hetero_diag": (
+            _I, [_P, _P, _P, _I, _I, _I, _I, _P, StepScoring, _P, _P, _P,
                  _P]),
     },
     "slab": {

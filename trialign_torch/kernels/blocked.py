@@ -2,7 +2,8 @@
 
 Port of ``trialign/kernels/blocked.py`` without chain mode: ``_block_sweep``
 as launched by ``make_grid_call``, and the host side ``plan_dims``,
-``choose_block_shape``, ``prep_blocked`` and ``align_blocked``.
+``choose_block_shape``, ``prep_blocked``, ``align_blocked`` and
+``align_blocked_async``.
 
 The (j, k) plane is cut into tiles of tb x tc cells.  A tile's plane is
 (hb, wc) = (tb + 1, tc + 1): a halo row and column that come from the faces
@@ -239,17 +240,27 @@ def final_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
 final_values.launches = 0
 
 
+def align_blocked_async(a, b, c, scoring: Scoring = Scoring(),
+                        block_shape: Optional[Tuple[int, int]] = None,
+                        score_bits: int = 0, device="cuda") -> torch.Tensor:
+    """Like :func:`align_blocked`, but the score is a 0-d int32 tensor on
+    ``device`` and nothing waits for the card: callers queue many problems
+    and read all scores at the end."""
+    a, b, c = np.asarray(a), np.asarray(b), np.asarray(c)
+    la, lb, lc = len(a), len(b), len(c)
+    if min(la, lb, lc) == 0:
+        return torch.zeros((), dtype=torch.int32, device=device)
+    hb, wc = block_shape or choose_block_shape(la, lb, lc)
+    dims = plan_dims(la, lb, lc, hb, wc)
+    return final_values(*prep_blocked(a, b, c, dims, device), la, lb, lc,
+                        dims, scoring, score_bits).max()
+
+
 def align_blocked(a, b, c, scoring: Scoring = Scoring(),
                   block_shape: Optional[Tuple[int, int]] = None,
                   score_bits: int = 0, device="cuda") -> int:
     """Optimal 3-sequence alignment score via the blocked kernel (its plain
     version on ``device="cpu"``).  ``block_shape`` is the tile plane
     (hb, wc), as in the reference; the default is :func:`choose_block_shape`."""
-    a, b, c = np.asarray(a), np.asarray(b), np.asarray(c)
-    la, lb, lc = len(a), len(b), len(c)
-    if min(la, lb, lc) == 0:
-        return 0
-    hb, wc = block_shape or choose_block_shape(la, lb, lc)
-    dims = plan_dims(la, lb, lc, hb, wc)
-    return int(final_values(*prep_blocked(a, b, c, dims, device), la, lb, lc,
-                            dims, scoring, score_bits).max())
+    return int(align_blocked_async(a, b, c, scoring, block_shape, score_bits,
+                                   device))

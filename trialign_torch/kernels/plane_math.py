@@ -1,9 +1,10 @@
 """Shared plane-update math for the wavefront sweep.
 
 The port's own copy of the host algebra it uses from
-``trialign/kernels/plane_math.py`` (same names, same semantics); the
-hetero-ring packers and the select-chain pair score wait for the slices that
-use them.
+``trialign/kernels/plane_math.py`` (same names, same semantics), with the
+batch routing gate :func:`hetero_sub_ok`.  The hetero ring's byte packing
+(``hetero_sub_planes``) is not ported: K4 reads the submatrix from its
+shared-memory table.
 
 Every compute backend (XLA reference, Pallas single-block kernel, Pallas
 blocked kernel) performs the same per-plane update: for each of the 7 DP
@@ -173,6 +174,19 @@ def submatrix_tables(bp, cp, submatrix, dtype, where):
     for v in range(nsym):
         s_bc = where(bp == v, sc[v], floor if s_bc is None else s_bc)
     return sb, sc, s_bc, floor
+
+
+def hetero_sub_ok(submatrix) -> bool:
+    """True when a runtime submatrix fits the hetero ring's byte packing
+    (nsym <= 4 symbols, every entry and the clamped floor biasable into
+    one byte).  The reference's gate between the mosaic/hetero route and
+    the padded one; the port keeps it so that every batch takes the same
+    route as in the reference."""
+    if submatrix is None or len(submatrix) > 4:
+        return False
+    lo = min(min(min(r) for r in submatrix), -1)
+    hi = max(max(r) for r in submatrix)
+    return -128 <= lo and hi <= 127
 
 
 def submatrix_pair(ap, stack, floor, where):

@@ -26,9 +26,14 @@ MAX_BC = 255
 THREADS = 1024
 
 
+def fits(la: int, lb: int, lc: int) -> bool:
+    """Whether the kernel takes a triplet of these lengths."""
+    return lb <= MAX_BC and lc <= MAX_BC and la <= MAX_A
+
+
 def check_dims(la: int, lb: int, lc: int) -> None:
     """Raise ValueError past the kernel's caps."""
-    if lb > MAX_BC or lc > MAX_BC or la > MAX_A:
+    if not fits(la, lb, lc):
         raise ValueError(
             f"wavefront kernel supports |B|,|C| <= {MAX_BC} and |A| <= "
             f"{MAX_A}; got {la}/{lb}/{lc}. Use the blocked backend."

@@ -41,7 +41,7 @@ def _seconds(fn):
     return out, time.perf_counter() - t0
 
 
-def _kernel_seconds(fn) -> dict:
+def kernel_seconds(fn) -> dict:
     """The device's kernel seconds in one run of ``fn``, from torch.profiler
     recording CUDA activity only, and that run's (profiled) wall seconds."""
     from torch.profiler import ProfilerActivity, profile
@@ -97,7 +97,7 @@ def main() -> int:
             (acts, _), walk_s = _seconds(
                 lambda: direct._walk(lo, hi, t0, n, n, n, n + 1, "free"))
             del final, lo, hi
-            prof = _kernel_seconds(sweep)
+            prof = kernel_seconds(sweep)
             rec["direct"] = {"sweep_s": sweep_s, "walk_s": walk_s,
                              "walk_steps": len(acts), **prof,
                              "busy_share": prof["kernel_s"] / sweep_s}
