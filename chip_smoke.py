@@ -36,13 +36,40 @@ per source, all at once) and prints one JSON line per phase:
    ``torch.profiler``), 64 of its scores against
    ``align()`` and 8 against the C++ oracle; a 48-triplet batch (one K2
    launch and K3) against ``align()``; 16 alignments that rescore exactly;
-9. ``tuning``: K2's thread count and K3's tile shape candidates;
-10. ``timings``: each kernel beside its plain version at the main path's
-    sizes, and beside its bound; K5 against the torch engine, exactly, at
-    the shape the 2048^3 traceback gives it; K4 against hetero_ref,
-    exactly and timed, on a dispatch of three of the 1024-triplet batch's
-    problems (its largest, its smallest, one at random), and K4 at the
-    whole batch.
+9. ``vpu``: ``benchmarks.roofline()`` (K6's main path): the int32 and
+   DPX rates beside the rate ``int32_peak_ops()`` assumes, with the SM
+   clock read during the run.  The faster measured rate is the peak that
+   every later bound divides by.  Then K6 against its plain version,
+   exactly, in both op mixes, on a sample that must take at least its
+   bound;
+10. ``checkpoint``: K3's per-tile form against ``blocked_ref`` (the whole
+    state, in runs of tiles that end mid-diagonal, under five scorings);
+    the main path's 1024^3 triplet checkpointed a quarter of its grid at a
+    time, stopped after two segments and resumed by a new aligner from the
+    file, equal to ``main_path``'s score and, all seven final values, to
+    the torch sweep; ``align_resilient`` with one injected failure;
+    ``align_batch_resilient`` on 256 of the batch's triplets in dispatches
+    of 64 with a failure after the second drain (only the unscored 128
+    dispatched again, scores equal to the batch's); the per-tile form's
+    time on a 256^3 sample beside ``blocked_ref``'s;
+11. ``chain``: K3's chain mode against ``blocked_ref`` on multi-tile shapes
+    (9 x 17 and 33 x 33 tiles, 1 to 5 slots, five scorings, and
+    ``score_bits=12``); then the bench's chains, 16 slots of 512^3 and 8 of
+    1024^3 (ms per alignment, GCUPS, bound, launches): every slot's seven
+    values equal the torch sweep of its triplet, two slots' scores equal
+    ``align()`` and one the C++ oracle;
+12. ``cli``: ``python -m trialign_torch.cli`` as a subprocess: ``selftest``
+    (every row OK), ``align --json`` on the bundled ``dat`` files (equal to
+    golden), ``bench --size 1024 --json`` (parity ``exact``);
+13. ``tuning``: K2's thread counts; K3's tile at each thread count and the
+    neighbouring tiles;
+14. ``timings``: each kernel (minimum over distinct inputs after a
+    warm-up) beside its plain version (one run) at the main path's
+    sizes, and beside its bound; K5 against the torch engine, exactly and
+    timed, at the shape the 2048^3 traceback gives it; K4 against
+    hetero_ref, exactly and timed, on a dispatch of three of the
+    1024-triplet batch's problems (its largest, its smallest, one at
+    random), and K4 at the whole batch.
 
 Then a summary of the kernels, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any mismatch or error exits
@@ -53,9 +80,13 @@ imports neither JAX nor the JAX package: the oracles are the port's copies.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -63,7 +94,7 @@ import numpy as np
 import torch
 
 import trialign_torch
-from trialign_torch import _build
+from trialign_torch import _build, benchmarks
 from trialign_torch.benchmarks import gcups, time_cuda_ms
 from trialign_torch.config import NUM_MATRICES, Scoring
 from trialign_torch.golden import align_planes_numpy, rescore_alignment
@@ -73,6 +104,7 @@ from trialign_torch.kernels import hetero as hk
 from trialign_torch.kernels import mosaic
 from trialign_torch.kernels import ref
 from trialign_torch.kernels import slab as sk
+from trialign_torch.kernels import vpu
 from trialign_torch.kernels import wavefront as wf
 from trialign_torch.kernels.plane_math import op_count
 from trialign_torch.native import score_native
@@ -114,16 +146,24 @@ SPLIT_SHAPE = (1024, 2048, 2048)
 # The repo's throughput workload (trialign/benchmarks.py bench_batch_mixed,
 # BASELINE config 3): 1024 triplets, each length uniform in [128, 512].
 BATCH_N, BATCH_LENS = 1024, (128, 512)
+# Samples on which the plain versions of K3's per-tile form and chain mode
+# finish in seconds: an n^3 problem, and npack slots of n^3.
+TILES_SAMPLE = 256
+CHAIN_SAMPLE = (128, 4)
+# The bench's chains (bench.py stages chain_512 and chain_1k): (n, slots).
+CHAIN_BENCH = ((512, 16), (1024, 8))
 # HBM bytes a second of one H100 SXM (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
-# INT32 lanes of one SM of Hopper (the CUDA programming guide's throughput
-# table: 64 results a clock for 32-bit integer add and min/max).
-INT32_LANES_PER_SM = 64
 
 CUDA = torch.device("cuda")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 
 
 def emit(**fields) -> None:
+    """One JSON line; a phase's line also gives the seconds since start."""
+    if "phase" in fields:
+        fields["t_s"] = time.perf_counter() - T0
     print(json.dumps(fields), flush=True)
 
 
@@ -151,6 +191,15 @@ def cpu_ints(t: torch.Tensor) -> list:
     return [int(v) for v in t.cpu().reshape(-1)]
 
 
+def plain_sweep(a, b, c) -> torch.Tensor:
+    """The seven final values of one triplet from the plain torch sweep
+    (ref.sweep), on the card."""
+    la, lb, lc = len(a), len(b), len(c)
+    return ref.sweep(ref.extend(a, la + 1, ref.PAD_A, CUDA),
+                     ref.extend(b, lb + 1, ref.PAD_B, CUDA),
+                     ref.extend(c, lc + 1, ref.PAD_C, CUDA), la, lb, lc)
+
+
 def smi(query: str) -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -159,18 +208,20 @@ def smi(query: str) -> str:
     return out.splitlines()[0]
 
 
+# Each kernel entry point's launch counter, by the name the summary gives it.
+COUNTERS = {"wavefront": wf.final_values, "blocked": bk.final_values,
+            "blocked_tiles": bk.sweep_tiles, "blocked_chain": bk.chain_values,
+            "hetero": hk.final_values, "slab": sk.slab_sweep,
+            "vpu": vpu.vpu_chains}
+
+
 def reset_launches() -> None:
-    wf.final_values.launches = 0
-    bk.final_values.launches = 0
-    hk.final_values.launches = 0
-    sk.slab_sweep.launches = 0
+    for fn in COUNTERS.values():
+        fn.launches = 0
 
 
 def read_launches() -> dict:
-    return {"wavefront": wf.final_values.launches,
-            "blocked": bk.final_values.launches,
-            "hetero": hk.final_values.launches,
-            "slab": sk.slab_sweep.launches}
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
 # ---------------------------------------------------------------- phases
@@ -193,8 +244,8 @@ def phase_device() -> dict:
          sms=sms, torch=torch.__version__, torch_cuda=torch.version.cuda,
          nvcc=[ln for ln in nvcc.splitlines() if "release" in ln][0],
          build_s=build_s, ptxas=ptxas)
-    return {"smi": name_power, "int32_ops_per_s":
-            sms * INT32_LANES_PER_SM * clock_mhz * 1e6}
+    # The vpu phase adds "int32_ops_per_s", the rate every bound uses.
+    return {"smi": name_power}
 
 
 def wavefront_pair(a, b, c, scoring, bits):
@@ -313,7 +364,7 @@ def slab_case(rng, shape, block_shape, name, variant, tiled_ref=True):
     """K5 against the torch engine (the assembled slab, and the final vector
     of a forward variant) and, if asked, against slab_ref (every capture
     entry, halo included, and the final vector) on one input; returns the
-    largest difference."""
+    largest difference and the engine's device milliseconds."""
     scoring, _, nsym = SLAB_VARIANTS[name]
     a, b, c = (x.astype(np.int32) for x in triplet(rng, shape, nsym))
     la, lb, lc = shape
@@ -333,15 +384,17 @@ def slab_case(rng, shape, block_shape, name, variant, tiled_ref=True):
         if variant != "bwd":
             pairs.append((f_k, f_r, "slab_ref final"))
     if variant == "bwd":
-        g = torch_engine.backward_slab_torch_async(
-            a[::-1].copy(), b[::-1].copy(), c[::-1].copy(), scoring,
-            end_v=ev, device=CUDA)()
-        pairs.append((slab_k, torch.from_numpy(g).to(CUDA).flip(1, 2),
+        engine_ms, fin = event_ms(functools.partial(
+            torch_engine.backward_slab_torch_async, a[::-1].copy(),
+            b[::-1].copy(), c[::-1].copy(), scoring, end_v=ev, device=CUDA))
+        pairs.append((slab_k, torch.from_numpy(fin()).to(CUDA).flip(1, 2),
                       "engine slab"))
     else:
-        f_e, s_e = torch_engine.forward_sweep_torch_async(
-            a, b, c, scoring, mode=variant,
-            v0=ev if variant == "pin" else None, capture_m=la, device=CUDA)()
+        engine_ms, fin = event_ms(functools.partial(
+            torch_engine.forward_sweep_torch_async, a, b, c, scoring,
+            mode=variant, v0=ev if variant == "pin" else None, capture_m=la,
+            device=CUDA))
+        f_e, s_e = fin()
         pairs += [(slab_k, torch.from_numpy(s_e).to(CUDA), "engine slab"),
                   (f_k, torch.from_numpy(f_e).to(CUDA), "engine final")]
     err = 0
@@ -349,7 +402,7 @@ def slab_case(rng, shape, block_shape, name, variant, tiled_ref=True):
         require(got.shape == want.shape and torch.equal(got, want),
                 f"{what}: kernel != {against}")
         err = max(err, _diff(got, want))
-    return err
+    return err, engine_ms
 
 
 def phase_slab(rng) -> int:
@@ -361,7 +414,7 @@ def phase_slab(rng) -> int:
     for name in ("default", "rtl", "nondefault", "sub4", "sub16"):
         for shape, block in shapes:
             for variant in sk.VARIANTS:
-                err = max(err, slab_case(rng, shape, block, name, variant))
+                err = max(err, slab_case(rng, shape, block, name, variant)[0])
             checked.append(f"{shape}/{block}/{name}")
     emit(phase="slab", cases=checked, variants=list(sk.VARIANTS),
          max_abs_err=err)
@@ -427,6 +480,7 @@ def phase_main_path(rng) -> dict:
     for n, backend in ((64, "wavefront"), (1024, "blocked")):
         a, b, c = triplet(rng, (n, n, n))
         r = trialign_torch.align(a, b, c)
+        headline = (a, b, c), r.score
         t0 = time.perf_counter()
         want = score_native(a, b, c)
         native_s = time.perf_counter() - t0
@@ -439,7 +493,7 @@ def phase_main_path(rng) -> dict:
     require(launches["wavefront"] and launches["blocked"],
             f"a kernel did not launch: {launches}")
     emit(phase="main_path", runs=runs, launches=launches)
-    return launches
+    return launches, headline
 
 
 class _Spy:
@@ -553,7 +607,7 @@ def timed_batch(trips, **kwargs):
 
 def phase_batch(rng) -> tuple:
     """The slice's path: the 1024-triplet batch on K4.  Returns K4's
-    launches in its first run and the batch, for the timings."""
+    launches in its first run, the batch and its scores."""
     trips = batch_triplets(rng)
     cells = batch_cells(trips)
     reset_launches()
@@ -621,7 +675,429 @@ def phase_batch(rng) -> tuple:
                  "seconds": s48, "launches": l48},
          alignments={"triplets": len(tb), "seconds": s16,
                      "backends": sorted({r.backend for r in res16})})
-    return launches["hetero"], trips
+    return launches["hetero"], trips, scores
+
+
+
+# ------------------------------------------------ checkpoint, chain, vpu, cli
+
+
+def in_runs(sweep, arrs, lens, dims, every, scoring=DEFAULT, bits=0):
+    """Sweep a whole grid from a fresh state through ``sweep``
+    (bk.sweep_tiles or bk.blocked_ref, which take the same state and tile
+    range) in runs of ``every`` tiles; the state."""
+    state = bk.new_state(dims, arrs[0].device)
+    n = bk.n_tiles(dims)
+    for idx in range(0, n, every):
+        sweep(*arrs, *lens, dims, state=state, idx0=idx,
+              count=min(every, n - idx), scoring=scoring, score_bits=bits)
+    return state
+
+
+def tiles_case(trip, block, every, scoring, bits=0) -> int:
+    """K3's per-tile form against blocked_ref in runs of ``every`` tiles,
+    which end in the middle of anti-diagonals: the whole state (faces and
+    output), exactly; the largest difference."""
+    lens = tuple(map(len, trip))
+    dims = bk.plan_dims(*lens, *block)
+    arrs = bk.prep_blocked(*trip, dims, CUDA)
+    got = in_runs(bk.sweep_tiles, arrs, lens, dims, every, scoring, bits)
+    want = in_runs(bk.blocked_ref, arrs, lens, dims, every, scoring, bits)
+    for g, w, name in zip(got, want, want._fields):
+        require(torch.equal(g, w), f"K3 per tile {lens} {block} runs of "
+                f"{every}: {name} != blocked_ref's")
+    return max(_diff(g, w) for g, w in zip(got, want))
+
+
+def event_ms(fn, *args):
+    """(device milliseconds of one call between two CUDA events, its
+    result)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def phase_checkpoint(rng, dev, headline, batch, batch_scores) -> dict:
+    """The slice's path for checkpoint/resume and the resilient entry
+    points, on K3's per-tile form; returns the form's summary row."""
+    from trialign_torch import checkpoint as ck
+    from trialign_torch import resilience
+
+    checked, err = [], 0
+    for name, every in zip(VARIANTS, (4, 5, 7, 10, 13)):
+        scoring, bits, nsym = VARIANTS[name]
+        err = max(err, tiles_case(triplet(rng, (37, 70, 45), nsym), (9, 17),
+                                  every, scoring, bits))
+        checked.append(f"(37, 70, 45)/(9, 17)/runs of {every}/{name}")
+
+    # The main path's 1024^3 triplet: a quarter of the grid a segment, two
+    # segments, a new aligner resumed from the file, to the end.
+    trip, want = headline
+    tmp = tempfile.mkdtemp(prefix="trialign_ckpt_")
+    path = os.path.join(tmp, "ck.npz")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    r1 = ck.CheckpointedAligner(*trip, ckpt_path=path)
+    every = r1.n_blocks // 4
+    r1.every = every
+    save_s = []
+    for _ in range(2):
+        state = ck._segment(r1.arrs, r1.lens, r1.dims,
+                            bk.BlockedState(r1.rf, r1.cf, r1.out),
+                            r1.next_idx, every, r1.scoring)
+        r1.rf, r1.cf, r1.out = state
+        r1.next_idx += every
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        r1.save()
+        save_s.append(time.perf_counter() - s0)
+    stopped_at = r1.next_idx
+    r2 = ck.CheckpointedAligner(*trip, ckpt_path=path, every=every)
+    require(r2.resume() and r2.next_idx == stopped_at,
+            f"resume found {r2.next_idx}, not {stopped_at}")
+    score = r2.run()
+    ckpt_s = time.perf_counter() - t0
+    launches = read_launches()
+    require(score == want, f"checkpointed 1024^3 {score} != main_path {want}")
+    require(launches["blocked_tiles"] > 0 and not launches["blocked"],
+            f"the checkpointed run did not take the per-tile form: {launches}")
+    plain = plain_sweep(*trip)
+    require(torch.equal(r2.out[0], plain), f"checkpointed 1024^3 "
+            f"{cpu_ints(r2.out[0])} != torch sweep {cpu_ints(plain)}")
+    err = max(err, _diff(r2.out[0], plain))
+    file_bytes = os.path.getsize(path)
+
+    # align_resilient with one failure, raised after the second segment.
+    real = ck._segment
+    calls = []
+
+    def flaky(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append(args[4])
+        if len(calls) == 2:
+            raise RuntimeError("injected failure")
+        return out
+
+    ck._segment = flaky
+    try:
+        t0 = time.perf_counter()
+        resilient = resilience.align_resilient(*trip, ckpt_path=path,
+                                               every=every, backoff_s=0.0)
+        resilient_s = time.perf_counter() - t0
+    finally:
+        ck._segment = real
+    require(resilient == want, f"align_resilient {resilient} != {want}")
+    # The failed segment runs again from the first save.
+    require(calls == [0, every, every, 2 * every, 3 * every],
+            f"align_resilient ran segments from {calls}")
+    require(not os.path.exists(path), "align_resilient left its file")
+    os.rmdir(tmp)
+
+    # align_batch_resilient: 256 of the batch's triplets in dispatches of
+    # 64, a failure raised once the second dispatch has drained.
+    sub = batch[:256]
+    sizes, drained = [], {"n": 0}
+
+    def batch_fn(trips, scoring, mesh=None, on_scores=None):
+        sizes.append(len(trips))
+
+        def record(i, s):
+            on_scores(i, s)
+            drained["n"] += 1
+            if drained["n"] == 128:
+                raise RuntimeError("injected failure after the second drain")
+
+        return mosaic.align_batch_mosaic(trips, scoring, mesh=mesh,
+                                         on_scores=record)
+
+    # K4 dispatches of 64 problems: the batch would fit one.
+    real_hetero = hk.align_hetero
+    hk.align_hetero = functools.partial(real_hetero, max_problems=64)
+    try:
+        t0 = time.perf_counter()
+        got = resilience.align_batch_resilient(sub, batch_fn=batch_fn,
+                                               backoff_s=0.0)
+        batch_s = time.perf_counter() - t0
+    finally:
+        hk.align_hetero = real_hetero
+    require(sizes == [256, 128], f"dispatched {sizes}, not [256, 128]")
+    require(got == batch_scores[:256], "align_batch_resilient != the batch")
+
+    # The summary row: the per-tile form and blocked_ref on one 256^3
+    # sample in runs of a quarter of its grid (blocked_ref would take
+    # minutes at 1024^3), and the kernel at the 1024^3 run's shape.
+    block = bk.choose_block_shape(0, 0, 0)
+
+    def inputs(trips):
+        out = []
+        for t in trips:
+            lens = tuple(map(len, t))
+            dims = bk.plan_dims(*lens, *block)
+            out.append((bk.sweep_tiles, bk.prep_blocked(*t, dims, CUDA), lens,
+                        dims, bk.n_tiles(dims) // 4))
+        return out
+
+    n = TILES_SAMPLE
+    sample = inputs([triplet(rng, (n, n, n)) for _ in range(3)])
+    ms = time_cuda_ms(in_runs, sample)
+    plain_ms, plain_state = event_ms(in_runs, bk.blocked_ref,
+                                     *sample[0][1:])
+    got_state = in_runs(*sample[0])
+    for g, w in zip(got_state, plain_state):
+        require(torch.equal(g, w), f"K3 per tile at {n}^3 != blocked_ref")
+        err = max(err, _diff(g, w))
+    # Inputs: the symbol vectors and the state, read once; the state
+    # written once.
+    state_ints = sum(t.numel() for t in plain_state)
+    bms, by = bound(n ** 3, 4 * (3 * n + 2 * state_ints), dev)
+    ms_main = time_cuda_ms(in_runs, inputs(
+        [trip] + [triplet(rng, tuple(map(len, trip))) for _ in range(2)]))
+    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "max_abs_err": err, "launches": launches["blocked_tiles"],
+           "sample": f"{n}^3 in runs of a quarter of its grid",
+           "main_path_ms_in_quarters": ms_main}
+    emit(phase="checkpoint", cases=checked, max_abs_err=err,
+         checkpointed_1024={
+             "score": score, "tiles": r2.n_blocks, "every": every,
+             "stopped_at": stopped_at, "saves": 4, "seconds": ckpt_s,
+             "save_s_first_two": save_s, "file_bytes": file_bytes,
+             "launches": launches},
+         align_resilient={"score": resilient, "segments_from": calls,
+                          "seconds": resilient_s},
+         align_batch_resilient={"triplets": len(sub), "dispatch_size": 64,
+                                "attempt_sizes": sizes, "seconds": batch_s},
+         per_tile=row)
+    return row
+
+
+def chain_case(rng, shape, npack, block, name):
+    """K3 in chain mode against blocked_ref, every slot's seven values
+    exactly; the largest difference."""
+    scoring, _, nsym = VARIANTS[name]
+    la, lb, lc = shape
+    a_list = [triplet(rng, (la,), nsym)[0] for _ in range(npack)]
+    b, c = triplet(rng, (lb, lc), nsym)
+    dims = bk.plan_dims_packed(la, lb, lc, npack, *block)
+    arrs = bk.prep_chain(a_list, b, c, dims, CUDA)
+    got = bk.chain_values(*arrs, la, lb, lc, dims, scoring)
+    want = bk.blocked_ref(*arrs, la, lb, lc, dims, scoring)
+    require(torch.equal(got, want), f"K3 chain {shape} x{npack} {block} "
+            f"{name}: kernel {cpu_ints(got)} != blocked_ref {cpu_ints(want)}")
+    return _diff(got, want)
+
+
+def phase_chain(rng, dev) -> dict:
+    """K3's chain mode: exact on small multi-tile shapes, then the bench's
+    chains; returns its summary row."""
+    checked, err = [], 0
+    names = list(VARIANTS)
+    for block, shape in (((9, 17), (12, 40, 50)), ((33, 33), (30, 70, 45))):
+        for npack, name in zip(range(1, 6), names):
+            err = max(err, chain_case(rng, shape, npack, block, name))
+            checked.append(f"{shape} x{npack}/{block}/{name}")
+    # score_bits=12 under WIDE scoring, where the wrap changes the score.
+    base = near_identical(rng, 40)
+    a_list, b, c = [base[0], base[1], base[0]], base[1], base[2]
+    dims = bk.plan_dims_packed(40, 40, 40, 3, 9, 17)
+    got = bk.chain_values(*bk.prep_chain(a_list, b, c, dims, CUDA), 40, 40,
+                          40, dims, WIDE, 12)
+    want = bk.blocked_ref(*bk.prep_chain(a_list, b, c, dims, CUDA), 40, 40,
+                          40, dims, WIDE, 12)
+    g12 = [align_planes_numpy(a, b, c, WIDE, score_bits=12) for a in a_list]
+    g0 = [align_planes_numpy(a, b, c, WIDE) for a in a_list]
+    require(g12 != g0, "no wrap in the score_bits chain case")
+    require(torch.equal(got, want) and
+            got.max(dim=1).values.tolist() == g12,
+            f"K3 chain score_bits=12: {cpu_ints(got)} vs {g12}")
+    err = max(err, _diff(got, want))
+    checked.append("(40, 40, 40) x3/(9, 17)/wide/score_bits=12")
+
+    # The bench's chains (bench.py chain_512 and chain_1k): every slot's
+    # seven values against the torch sweep of its own triplet, exactly.
+    runs = {}
+    for n, npack in CHAIN_BENCH:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        g, dt, values, (a_list, b, c) = benchmarks.bench_blocked_chain(
+            n, npack, return_values=True)
+        launches = read_launches()
+        seconds = time.perf_counter() - t0
+        require(launches["blocked_chain"] > 0,
+                f"chain mode did not launch: {launches}")
+        t0 = time.perf_counter()
+        want = ref.sweep(torch.stack([ref.extend(a, n + 1, ref.PAD_A, CUDA)
+                                      for a in a_list]),
+                         ref.extend(b, n + 1, ref.PAD_B, CUDA),
+                         ref.extend(c, n + 1, ref.PAD_C, CUDA), n, n, n)
+        for m in range(npack):
+            require(torch.equal(values[m], want[m]), f"chain {n}^3 x{npack} "
+                    f"slot {m}: {cpu_ints(values[m])} != torch sweep "
+                    f"{cpu_ints(want[m])}")
+        err = max(err, _diff(values, want))
+        scores = values.max(dim=1).values.tolist()
+        bms, _ = bound(n ** 3, 4 * (3 * n + NUM_MATRICES), dev)
+        runs[f"{n}x{npack}"] = {"ms_per_alignment": dt * 1e3, "gcups": g,
+                                "bound_ms_per_alignment": bms,
+                                "launches": launches["blocked_chain"],
+                                "seconds": seconds,
+                                "slots_equal_to_sweep": npack,
+                                "sweep_s": time.perf_counter() - t0}
+        if (n, npack) == CHAIN_BENCH[0]:
+            chain_launches = launches["blocked_chain"]
+            for m in (0, npack - 1):
+                r = trialign_torch.align(a_list[m], b, c)
+                require(r.score == scores[m], f"chain slot {m}: {scores[m]} "
+                        f"!= align() ({r.backend}) {r.score}")
+            t0 = time.perf_counter()
+            nat = score_native(a_list[1], b, c)
+            runs[f"{n}x{npack}"]["native_s"] = time.perf_counter() - t0
+            require(nat == scores[1], f"chain slot 1: {scores[1]} != native "
+                    f"{nat}")
+        else:
+            r = trialign_torch.align(a_list[0], b, c)
+            require(r.score == scores[0], f"chain 1024 slot 0: {scores[0]} "
+                    f"!= align() {r.score}")
+
+    # The summary row: kernel and blocked_ref on one chain of 4 slots of
+    # 128^3 (blocked_ref would take minutes at the bench's shapes).
+    la, npack = CHAIN_SAMPLE
+    block = bk.choose_block_shape(0, 0, 0)
+    dims = bk.plan_dims_packed(la, la, la, npack, *block)
+    sample = []
+    for _ in range(3):
+        a_list = [triplet(rng, (la,))[0] for _ in range(npack)]
+        b, c = triplet(rng, (la, la))
+        sample.append((*bk.prep_chain(a_list, b, c, dims, CUDA), la, la, la,
+                       dims))
+    ms = time_cuda_ms(bk.chain_values, sample)
+    plain_ms, want = event_ms(bk.blocked_ref, *sample[0])
+    got = bk.chain_values(*sample[0])
+    require(torch.equal(got, want), f"K3 chain {la}^3 x{npack} != blocked_ref")
+    err = max(err, _diff(got, want))
+    bms, by = bound(npack * la ** 3, 4 * (npack * la + 2 * la
+                                          + npack * NUM_MATRICES), dev)
+    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "max_abs_err": err, "launches": chain_launches,
+           "sample": f"{npack} slots of {la}^3",
+           **{f"ms_per_alignment_{k}": v["ms_per_alignment"]
+              for k, v in runs.items()}}
+    emit(phase="chain", cases=checked, max_abs_err=err, bench=runs,
+         summary=row)
+    return row
+
+
+class ClockSampler:
+    """Samples the SM clock with nvidia-smi while installed."""
+
+    def __enter__(self):
+        self.mhz, self.stop = [], threading.Event()
+
+        def poll():
+            while not self.stop.is_set():
+                self.mhz.append(float(smi("clocks.sm").split()[0]))
+                self.stop.wait(0.05)
+
+        self.thread = threading.Thread(target=poll, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+
+
+def phase_vpu(rng, dev) -> dict:
+    """K6 on its main path, ``benchmarks.roofline()``: the int32 and DPX
+    rates beside the rate int32_peak_ops() assumes.  The faster of the two
+    measured rates becomes ``dev["int32_ops_per_s"]``, the peak every later
+    bound divides by.  Then K6 against its plain version, exactly, on a
+    short sample that must take at least its bound; returns its summary
+    row."""
+    n = vpu.full_card_lanes(CUDA)
+    reset_launches()
+    with ClockSampler() as clocks:
+        roof = benchmarks.roofline()
+    launches = read_launches()["vpu"]
+    require(launches > 0, "K6 did not launch in roofline()")
+    peak = max(roof["vpu_int32_measured"], roof["vpu_dpx_measured"])
+    dev["int32_ops_per_s"] = peak
+    iters, ops = 16, 512
+    err, rows = 0, {}
+    for dpx in (False, True):
+        xs = [torch.from_numpy(rng.integers(-1000, 1000, n).astype(np.int32))
+              .to(CUDA) for _ in range(3)]
+        ms = time_cuda_ms(vpu.vpu_chains, [(x, iters, ops, dpx) for x in xs])
+        plain_ms, want = event_ms(vpu.vpu_ref, xs[0], iters, ops, dpx)
+        got = vpu.vpu_chains(xs[0], iters, ops, dpx)
+        require(torch.equal(got, want), f"K6 dpx={dpx} != vpu_ref")
+        err = max(err, _diff(got, want))
+        # Each lane's seed read and its result written: 8 bytes a lane.
+        ops_ms = n * iters * ops / peak * 1e3
+        bytes_ms = 8 * n / HBM_BYTES_PER_S * 1e3
+        bms = max(ops_ms, bytes_ms)
+        require(ms >= bms, f"K6 dpx={dpx} took {ms} ms, under its bound "
+                f"{bms} ms")
+        rows["dpx" if dpx else "int32"] = {
+            "ms": ms, "plain_ms": plain_ms, "ops": n * iters * ops,
+            "bound_ms": bms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    # roofline()'s own run: measure_vpu_rate's default iters and ops.
+    main_ops = n * benchmarks.VPU_ITERS * benchmarks.VPU_OPS
+    row = {**rows["int32"], "max_abs_err": err, "launches": launches,
+           "sample": f"{n} lanes x {iters} rounds x {ops} ops",
+           "dpx_ms": rows["dpx"]["ms"], "dpx_plain_ms": rows["dpx"]["plain_ms"],
+           "main_path_ms": main_ops / roof["vpu_int32_measured"] * 1e3,
+           "main_path_dpx_ms": main_ops / roof["vpu_dpx_measured"] * 1e3,
+           "main_path_bound_ms": main_ops / peak * 1e3}
+    emit(phase="vpu", lanes=n, samples=rows, max_abs_err=err,
+         roofline=roof, sm_clock_mhz_during={
+             "samples": len(clocks.mhz), "min": min(clocks.mhz),
+             "max": max(clocks.mhz)},
+         peak_ops_per_s=peak,
+         int32_vs_assumed=roof["vpu_int32_measured"]
+         / roof["int32_ops_per_s_assumed"],
+         dpx_vs_assumed=roof["vpu_dpx_measured"]
+         / roof["int32_ops_per_s_assumed"], launches=launches)
+    return row
+
+
+def run_cli(*args) -> tuple:
+    """Run the port's CLI in a subprocess from the repository's root; its
+    (stdout, seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "trialign_torch.cli", *args],
+                         capture_output=True, text=True, cwd=ROOT)
+    require(out.returncode == 0, f"cli {' '.join(args)} exited "
+            f"{out.returncode}: {out.stderr[-2000:]}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def phase_cli() -> None:
+    out, selftest_s = run_cli("selftest")
+    lines = out.strip().splitlines()
+    require(len(lines) == 8 and all(ln.endswith("OK") for ln in lines[:-1])
+            and lines[-1] == "backend: cuda  ->  PASS",
+            f"cli selftest: {out}")
+    data = os.path.join(ROOT, "trialign_torch", "io", "data")
+    out, align_s = run_cli("align", "--json", *(
+        x for n in "abc" for x in (f"--{n}-file",
+                                   os.path.join(data, f"{n.upper()}_seq.dat"))))
+    got = json.loads(out)
+    want = align_planes_numpy(*load_reference_triplet())
+    require(got["score"] == want, f"cli align {got} != golden {want}")
+    out, bench_s = run_cli("bench", "--size", "1024", "--json")
+    bench = json.loads(out)
+    require(bench["parity"] == "exact" and bench["mode"] == "blocked",
+            f"cli bench: {bench}")
+    emit(phase="cli", selftest=lines, selftest_s=selftest_s, align=got,
+         align_s=align_s, bench=bench, bench_s=bench_s)
 
 
 def _inputs(rng, shape, count=4):
@@ -642,14 +1118,11 @@ def time_blocked(trips, block_shape, threads=bk.THREADS):
     return time_cuda_ms(bk.final_values, args)
 
 
-def time_plain(trips):
-    args = []
-    for a, b, c in trips:
-        la, lb, lc = len(a), len(b), len(c)
-        args.append((ref.extend(a, la + 1, ref.PAD_A, CUDA),
-                     ref.extend(b, lb + 1, ref.PAD_B, CUDA),
-                     ref.extend(c, lc + 1, ref.PAD_C, CUDA), la, lb, lc))
-    return time_cuda_ms(ref.sweep, args)
+# The plain versions repeat their kernels' arithmetic and are no yardstick
+# of speed: each is timed in one run (CUDA events) on one of the kernel's
+# inputs, after earlier phases have run it.
+def time_plain(trip):
+    return event_ms(plain_sweep, *trip)[0]
 
 
 def time_slab(trips, variant):
@@ -661,17 +1134,6 @@ def time_slab(trips, variant):
         args.append((*sk.prep_blocked(a, b, c, dims, CUDA), la, lb, lc, dims,
                      variant, ev))
     return time_cuda_ms(sk.slab_sweep, args)
-
-
-def time_engine(trips, variant):
-    """The torch engine's sweep of the same work as K5 ``variant``."""
-    if variant == "bwd":
-        fn = lambda a, b, c: torch_engine.backward_slab_torch_async(  # noqa
-            a, b, c, end_v=np.zeros(NUM_MATRICES, np.int32), device=CUDA)
-    else:
-        fn = lambda a, b, c: torch_engine.forward_sweep_torch_async(  # noqa
-            a, b, c, capture_m=len(a), device=CUDA)
-    return time_cuda_ms(fn, trips)
 
 
 def hetero_dispatch(trips):
@@ -708,14 +1170,7 @@ def time_hetero(rng, trips, dev) -> dict:
     # The kernel is deterministic, so three trials of one dispatch.
     ms = time_cuda_ms(hk.final_values, [(sample,)] * 3)
     got = hk.final_values(sample)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    want = hk.hetero_ref(sample)
-    end.record()
-    end.synchronize()
-    plain_ms = start.elapsed_time(end)
+    plain_ms, want = event_ms(hk.hetero_ref, sample)
     require(torch.equal(got, want), f"K4 on the batch's problems "
             f"{[list(map(len, t)) for t in rot]}: kernel {cpu_ints(got)} != "
             f"hetero_ref {cpu_ints(want)}")
@@ -742,14 +1197,17 @@ def time_hetero(rng, trips, dev) -> dict:
 
 
 def phase_tuning(rng) -> None:
+    """K2's thread counts; K3's chosen tile at each thread count and its two
+    neighbouring tiles at the chosen count."""
     trips = _inputs(rng, (255, 255, 255))
     k2 = {t: time_wavefront(trips, t) for t in (256, 512, 1024)}
     trips = _inputs(rng, (1024, 1024, 1024))
-    k3 = {}
-    for shape in ((17, 17), (33, 33), (33, 65)):
-        for threads in (256, 512, 1024):
-            k3[f"{shape[0]}x{shape[1]}/{threads}"] = time_blocked(
-                trips, shape, threads)
+    chosen = bk.choose_block_shape(0, 0, 0)
+    cands = [(chosen, t) for t in (256, 512, 1024)]
+    cands += [(shape, bk.THREADS) for shape in ((17, 17), (33, 65))]
+    k3 = {f"{shape[0]}x{shape[1]}/{threads}": time_blocked(trips, shape,
+                                                           threads)
+          for shape, threads in cands}
     emit(phase="tuning", wavefront_255_ms_by_threads=k2,
          blocked_1024_ms_by_tile_threads=k3,
          chosen={"wavefront_threads": wf.THREADS,
@@ -759,8 +1217,8 @@ def phase_tuning(rng) -> None:
 
 def bound(cells, nbytes, dev) -> tuple:
     """(least ms the card could take, "bytes" or "operations") for a sweep
-    of ``cells`` cells at op_count(Scoring()) int32 operations a cell,
-    moving ``nbytes``."""
+    of ``cells`` cells at op_count(Scoring()) int32 operations a cell, at
+    the peak rate K6 measured in this run, moving ``nbytes``."""
     ops_ms = cells * op_count(DEFAULT) / dev["int32_ops_per_s"] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
@@ -777,7 +1235,7 @@ def phase_timings(rng, dev, batch) -> tuple:
             ms = time_wavefront(trips)
         else:
             ms = time_blocked(trips, bk.choose_block_shape(n, n, n))
-        plain_ms = time_plain(trips[:3])
+        plain_ms = time_plain(trips[0])
         cells = n ** 3
         # Inputs read once (3 symbol vectors), the final vector written.
         bms, by = bound(cells, 4 * (3 * n + NUM_MATRICES + 1), dev)
@@ -794,12 +1252,14 @@ def phase_timings(rng, dev, batch) -> tuple:
     bms, by = bound(la * lb * lc, nbytes, dev)
     # K5 against the torch engine at the shape the 2048^3 traceback gives
     # it (slab_ref would take too long there): the slab and final vector of
-    # "free", the slab of "bwd" with a pinned end state.
-    split_err = max(slab_case(rng, SPLIT_SHAPE, None, "default", variant,
-                              tiled_ref=False) for variant in ("free", "bwd"))
+    # "free", the slab of "bwd" with a pinned end state.  The engine's time
+    # is that of this comparison's run.
+    split = {v: slab_case(rng, SPLIT_SHAPE, None, "default", v,
+                          tiled_ref=False) for v in ("free", "bwd")}
+    split_err = max(e for e, _ in split.values())
     for variant in ("free", "bwd"):
         ms = time_slab(trips, variant)
-        plain_ms = time_engine(trips[:3], variant)
+        plain_ms = split[variant][1]
         rows[f"slab_{variant}_{la}x{lb}x{lc}"] = {
             "ms": ms, "gcups": gcups(la * lb * lc, ms),
             "plain": "torch engine", "plain_ms": plain_ms,
@@ -825,9 +1285,17 @@ def main() -> int:
     k3_err = phase_blocked(rng)
     k5_err = phase_slab(rng)
     k4_err = phase_hetero(rng)
-    launches = phase_main_path(rng)
+    launches, headline = phase_main_path(rng)
     launches["slab"] = phase_traceback(rng)
-    launches["hetero"], batch = phase_batch(rng)
+    launches["hetero"], batch, batch_scores = phase_batch(rng)
+    # K6's measured peak first: every bound below divides by it.
+    k6 = phase_vpu(rng, dev)
+    tiles = phase_checkpoint(rng, dev, headline, batch, batch_scores)
+    chain = phase_chain(rng, dev)
+    for name, row in (("blocked_tiles", tiles), ("blocked_chain", chain),
+                      ("vpu", k6)):
+        launches[name] = row.pop("launches")
+    phase_cli()
     phase_tuning(rng)
     rows, split_err = phase_timings(rng, dev, batch)
     k5_err = max(k5_err, split_err)
@@ -836,28 +1304,36 @@ def main() -> int:
     require("jax" not in sys.modules and "trialign" not in sys.modules,
             "JAX or the JAX package was imported")
     split = "x".join(map(str, SPLIT_SHAPE))
-    # K4's ms, plain_ms and bound_ms are of the sample dispatch (the plain
-    # version would take hours on the whole batch); the whole batch's
-    # kernel ms and bound stand beside them.
+    # K4's, the per-tile form's, chain mode's and K6's ms, plain_ms and
+    # bound_ms are of a sample on which the plain version finishes (it would
+    # take minutes to hours at the main path's shapes); the main path's
+    # kernel ms stand beside them.
     kernels = [
-        ("wavefront", "trialign/kernels/wavefront.py:112", k2_err,
-         rows["wavefront_255"], {}),
-        ("blocked", "trialign/kernels/blocked.py:225", k3_err,
+        ("wavefront", "wavefront", "trialign/kernels/wavefront.py:112",
+         k2_err, rows["wavefront_255"], {}),
+        ("blocked", "blocked", "trialign/kernels/blocked.py:225", k3_err,
          rows["blocked_1024"], {}),
-        ("hetero", "trialign/kernels/blocked.py:963", k4_err, k4,
+        ("blocked_tiles", "blocked", "trialign/kernels/blocked.py:859",
+         tiles.pop("max_abs_err"), tiles, tiles),
+        ("blocked_chain", "blocked", "trialign/kernels/blocked.py:906",
+         chain.pop("max_abs_err"), chain, chain),
+        ("hetero", "hetero", "trialign/kernels/blocked.py:963", k4_err, k4,
          {"cells": k4["cells"], "batch_ms": k4["batch"]["ms"],
           "batch_bound_ms": k4["batch"]["bound_ms"],
           "batch_cells": k4["batch"]["cells"]}),
-        ("slab", "trialign/kernels/slab.py:74", k5_err,
+        ("slab", "slab", "trialign/kernels/slab.py:74", k5_err,
          rows[f"slab_free_{split}"], {}),
+        ("vpu", "vpu", "trialign/benchmarks.py:286", k6.pop("max_abs_err"),
+         k6, k6),
     ]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     emit(kernels=[
         {"name": name, "route": "cuda",
-         "source": f"trialign_torch/csrc/{name}.cu", "replaces": replaces,
-         "launches": launches[name], "max_abs_err": err, "ms": row["ms"],
-         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-         "bound_by": row["bound_by"], "library_ms": None, **extra}
-        for name, replaces, err, row, extra in kernels
+         "source": f"trialign_torch/csrc/{src}.cu", "replaces": replaces,
+         "launches": launches[name], "max_abs_err": err,
+         **{k: row[k] for k in keys}, "library_ms": None,
+         **{k: v for k, v in extra.items() if k not in keys}}
+        for name, src, replaces, err, row, extra in kernels
     ])
     print(dev["smi"], flush=True)
     emit(ok=True, device={"platform": "gpu",

@@ -22,6 +22,7 @@ from trialign_torch.kernels import blocked as bk
 from trialign_torch.kernels import hetero
 from trialign_torch.kernels import ref
 from trialign_torch.kernels import slab as sk
+from trialign_torch.kernels import vpu
 from trialign_torch.kernels import wavefront as wf
 from trialign_torch.traceback.engine import NEG
 
@@ -154,3 +155,71 @@ def test_align_batch_on_card_matches_align(card):
     got = [r.score for r in api.align_batch(small)]
     assert got == [api.align(*t).score if min(map(len, t)) else 0
                    for t in small]
+
+
+@pytest.mark.parametrize("name", sorted(SCORINGS))
+@pytest.mark.parametrize("dims,block,cuts", [
+    ((10, 40, 50), (9, 17), (2, 3, 1, 4)),      # 5 x 3 tiles, cuts mid-diagonal
+    ((37, 70, 45), (17, 9), (5, 1, 7)),
+    ((20, 300, 280), None, (13, 30, 2)),
+])
+def test_per_tile_form_matches_plain(card, dims, block, cuts, name):
+    """K3's per-tile form run in segments that end in the middle of
+    anti-diagonals: the state (faces and output) after every segment equals
+    blocked_ref's over the same tiles, and the final values equal the
+    whole-grid sweep's."""
+    scoring, nsym = SCORINGS[name]
+    d = bk.plan_dims(*dims, *(block or bk.choose_block_shape(*dims)))
+    trip = triplet(8, dims, nsym)
+    arrs = bk.prep_blocked(*trip, d, card)
+    arrs_cpu = bk.prep_blocked(*trip, d, "cpu")
+    got, want = bk.new_state(d, card), bk.new_state(d, "cpu")
+    idx, before = 0, bk.sweep_tiles.launches
+    for cut in (*cuts, bk.n_tiles(d)):
+        count = min(cut, bk.n_tiles(d) - idx)
+        if count <= 0:
+            break
+        bk.sweep_tiles(*arrs, *dims, d, got, idx, count, scoring)
+        bk.blocked_ref(*arrs_cpu, *dims, d, scoring, 0, want, idx, count)
+        idx += count
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert bk.sweep_tiles.launches > before
+    assert got.out[0].cpu().tolist() == \
+        bk.final_values(*arrs, *dims, d, scoring).cpu().tolist()
+
+
+@pytest.mark.parametrize("name", sorted(SCORINGS))
+@pytest.mark.parametrize("dims,block", [((12, 40, 50), (9, 17)),
+                                        ((30, 70, 45), (33, 33)),
+                                        ((5, 20, 9), (9, 9))])
+def test_chain_kernel_matches_plain(card, dims, block, name):
+    """K3 in chain mode, 3 slots over multi-tile shapes (slot borders cross
+    the face exchange): every slot's final values equal blocked_ref's, and
+    each slot's score the golden model's."""
+    scoring, nsym = SCORINGS[name]
+    la, lb, lc = dims
+    rng = np.random.default_rng(9)
+    a_list = [rng.integers(0, nsym, la).astype(np.uint8) for _ in range(3)]
+    b, c = (rng.integers(0, nsym, n).astype(np.uint8) for n in (lb, lc))
+    d = bk.plan_dims_packed(la, lb, lc, 3, *block)
+    arrs = bk.prep_chain(a_list, b, c, d, card)
+    before = bk.chain_values.launches
+    got = bk.chain_values(*arrs, la, lb, lc, d, scoring)
+    assert bk.chain_values.launches > before
+    want = bk.blocked_ref(*bk.prep_chain(a_list, b, c, d, "cpu"), la, lb, lc,
+                          d, scoring)
+    assert torch.equal(got.cpu(), want)
+    assert got.max(dim=1).values.tolist() == \
+        [align_planes_numpy(a, b, c, scoring) for a in a_list]
+
+
+@pytest.mark.parametrize("dpx", [False, True])
+@pytest.mark.parametrize("ops", vpu.OPS)
+def test_vpu_kernel_matches_plain(card, ops, dpx):
+    x = torch.from_numpy(np.random.default_rng(10).integers(
+        -1000, 1000, 3000).astype(np.int32))
+    before = vpu.vpu_chains.launches
+    got = vpu.vpu_chains(x.to(card), 3, ops, dpx)
+    assert vpu.vpu_chains.launches == before + 1
+    assert torch.equal(got.cpu(), vpu.vpu_ref(x, 3, ops, dpx))

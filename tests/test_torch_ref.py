@@ -102,3 +102,21 @@ def test_ref_scores_are_int32(rng):
     final = sweep(extend(a, 6, PAD_A, "cpu"), extend(b, 5, PAD_B, "cpu"),
                   extend(c, 7, PAD_C, "cpu"), 5, 4, 6)
     assert final.dtype == torch.int32 and final.shape == (7,)
+
+
+@pytest.mark.parametrize("name", ["sop", "rtl"])
+def test_ref_sweep_of_a_batch_of_a(rng, name):
+    """A's stacked (S, n) against one B and C: each row equals the sweep of
+    that A alone, and its max equals golden."""
+    from trialign_torch.kernels.ref import PAD_A, PAD_B, PAD_C, extend, sweep
+
+    sc = SCORINGS[name]
+    a_list = [random_triplet(rng, 6, 1, 1)[0] for _ in range(3)]
+    _, b, c = random_triplet(rng, 1, 5, 7)
+    bx, cx = extend(b, 6, PAD_B, "cpu"), extend(c, 8, PAD_C, "cpu")
+    ax = [extend(a, 7, PAD_A, "cpu") for a in a_list]
+    got = sweep(torch.stack(ax), bx, cx, 6, 5, 7, sc)
+    assert got.dtype == torch.int32 and got.shape == (3, 7)
+    for row, a, x in zip(got, a_list, ax):
+        assert torch.equal(row, sweep(x, bx, cx, 6, 5, 7, sc))
+        assert int(row.max()) == align_planes_numpy(a, b, c, ref_scoring(sc))

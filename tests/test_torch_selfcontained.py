@@ -101,7 +101,8 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     names = out.stdout.split()
     assert len(names) >= 15
     for new in ("kernels.hetero", "kernels.chain", "kernels.mosaic",
-                "dist.batch"):
+                "dist.batch", "checkpoint", "resilience", "metrics", "cli",
+                "benchmarks", "kernels.vpu"):
         assert f"trialign_torch.{new}" in names
 
 

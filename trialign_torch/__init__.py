@@ -7,9 +7,13 @@ sweep for |B|, |C| <= 255 and the blocked, sliced sweep beyond.
 many triplets a launch, and smaller ones through the first two.
 ``align(..., return_alignment=True)`` recovers an alignment through the
 Hirschberg/direct engine (``traceback/``), whose biggest splits run on the
-slab kernel.  The package keeps its own copies of the scoring, encoding,
-golden models, datasets and host C++ oracle (``config``, ``golden``, ``io``,
-``native``): it imports neither JAX nor the JAX package ``trialign``.
+slab kernel.  ``align_resilient`` checkpoints a long blocked sweep and
+resumes it after a failure; ``align_batch_resilient`` re-dispatches only the
+unscored problems of a failed batch.  The package keeps its own copies of
+the scoring, encoding, golden models, datasets and host C++ oracle
+(``config``, ``golden``, ``io``, ``native``): it imports neither JAX nor the
+JAX package ``trialign``.  ``python -m trialign_torch.cli`` is its command
+line.
 """
 
 from trialign_torch.config import Scoring, decode, encode  # noqa: F401
@@ -21,4 +25,8 @@ def __getattr__(name):
         from trialign_torch import api
 
         return getattr(api, name)
+    if name in ("align_resilient", "align_batch_resilient"):
+        from trialign_torch import resilience
+
+        return getattr(resilience, name)
     raise AttributeError(f"module 'trialign_torch' has no attribute {name!r}")

@@ -55,7 +55,8 @@ class BlockedGeom(ctypes.Structure):
     """Mirror of ``trialign::BlockedGeom`` (csrc/blocked.cu)."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
-        "la", "hb", "wc", "n_jb", "n_kb", "nrows", "jlstar", "klstar")]
+        "la", "hb", "wc", "n_jb", "n_kb", "nrows", "jlstar", "klstar", "d",
+        "npack")]
 
 
 class SlabGeom(ctypes.Structure):
@@ -75,9 +76,9 @@ SIGNATURES = {
                  _P]),
     },
     "blocked": {
-        "trialign_blocked_diag": (
-            _I, [_P, _P, _P, BlockedGeom, _I, _P, StepScoring, _P, _P, _P, _I,
-                 _P]),
+        "trialign_blocked_tiles": (
+            _I, [_P, _P, _P, BlockedGeom, _I, _I, _I, _P, StepScoring, _P, _P,
+                 _P, _I, _P]),
     },
     "hetero": {
         "trialign_hetero_diag": (
@@ -89,6 +90,11 @@ SIGNATURES = {
         "trialign_slab_diag": (
             _I, [_P, _P, _P, SlabGeom, _I, _P, _P, StepScoring, _P, _P, _P,
                  _P, _P]),
+    },
+    "vpu": {
+        "trialign_vpu_threads": (_I, []),
+        "trialign_vpu_blocks_per_sm": (_I, []),
+        "trialign_vpu": (_I, [_P, _I, _I, _I, _I, _I, _P, _P]),
     },
 }
 SOURCES = tuple(SIGNATURES)

@@ -1,32 +1,47 @@
-"""The blocked (sliced) sweep (K3) for triplets past the wavefront's caps.
+"""The blocked (sliced) sweep (K3), its per-tile form and its chain mode.
 
-Port of ``trialign/kernels/blocked.py`` without chain mode: ``_block_sweep``
-as launched by ``make_grid_call``, and the host side ``plan_dims``,
-``choose_block_shape``, ``prep_blocked``, ``align_blocked`` and
-``align_blocked_async``.
+Port of ``trialign/kernels/blocked.py``: ``_block_sweep`` as launched by
+``make_grid_call`` (chain mode included) and by ``make_block_call`` (the
+per-block form that ``checkpoint.py`` drives), and the host side
+``plan_dims``, ``plan_dims_packed``, ``choose_block_shape``,
+``prep_blocked``, ``prep_chain``, ``align_blocked``, ``align_blocked_async``
+and ``align_blocked_chain``.
 
 The (j, k) plane is cut into tiles of tb x tc cells.  A tile's plane is
 (hb, wc) = (tb + 1, tc + 1): a halo row and column that come from the faces
 of its upper and left neighbours, then its own cells.  Each tile sweeps all
-of its local planes q = 1 .. |A| + tb + tc (cell (jl, kl) of local plane q
-holds global i = q - jl - kl), and tiles run one anti-diagonal jb + kb = d at
-a time.  Faces live in skewed slabs: the bottom row of local plane q goes to
-row q - tb of the row-face slab of its tile column, the right column to row
-q - tc of the column-face slab of its tile row (blocked.py:6-12).
+of its local planes q = 1 .. L + tb + tc (cell (jl, kl) of local plane q
+holds global i = q - jl - kl, L the swept |A|), and tiles run one
+anti-diagonal jb + kb = d at a time.  Faces live in skewed slabs: the bottom
+row of local plane q goes to row q - tb of the row-face slab of its tile
+column, the right column to row q - tc of the column-face slab of its tile
+row (blocked.py:6-12).
 
-On a CUDA tensor :func:`final_values` launches ``csrc/blocked.cu`` once per
-anti-diagonal.  On a CPU tensor it runs :func:`blocked_ref`, the plain torch
-version of the same tile schedule and face layout.
+A problem's tiles form a table in anti-diagonal order: d ascending, then jb
+ascending.  The sweep state (:class:`BlockedState`: the face slabs and the
+output rows) stays on the device from launch to launch, so
+:func:`sweep_tiles` can run any run of that table, and a sweep may stop and
+resume between any two tiles (the per-tile form).  :func:`final_values` is
+:func:`sweep_tiles` over the whole table on a fresh state.
+
+Chain mode (:func:`plan_dims_packed`): ``npack`` problems of equal |A|
+stacked along i at pitch d = |A| + 1, sharing B and C, swept as one problem
+of |A| = npack * d - 1 whose cells with i = 0 (mod d) are zero borders; the
+last tile captures slot m's seven values into output row m.
+
+On a CUDA tensor the wrappers launch ``csrc/blocked.cu`` once per run of a
+tile anti-diagonal.  On a CPU tensor they run :func:`blocked_ref`, the plain
+torch version of the same tile table, face layout and state.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from trialign_torch.config import Scoring
+from trialign_torch.config import NUM_MATRICES, Scoring
 from trialign_torch.kernels.plane_math import (
     fused_plane_update_m7, transition_groups,
 )
@@ -51,14 +66,32 @@ class Dims(NamedTuple):
     wc: int      # tile plane columns: halo column + tc cells
     n_jb: int    # tile rows, ceil(|B| / tb)
     n_kb: int    # tile columns, ceil(|C| / tc)
-    nq: int      # local planes a tile sweeps, |A| + tb + tc
+    nq: int      # local planes a tile sweeps, L + tb + tc (L the swept |A|)
     nrows: int   # rows of each face slab (local planes 0 .. nq)
+    d: int = 0       # chain mode: slot pitch |A| + 1; 0 for one problem
+    npack: int = 1   # chain mode: slots stacked along i
+
+
+class BlockedState(NamedTuple):
+    """What a sweep carries from tile to tile, on its device: the face slabs
+    and the final values of each slot.  Entries no tile has written hold
+    ``UNWRITTEN``; ``out`` starts at zero."""
+
+    rf: torch.Tensor   # (n_kb, nrows, 7, wc) int32 row faces
+    cf: torch.Tensor   # (n_jb, nrows, 7, hb) int32 column faces
+    out: torch.Tensor  # (npack, 7) int32
+
+
+# A face entry the sweep never wrote.  Large and positive, so that a read of
+# one would win a max and show up in the score.
+UNWRITTEN = 1 << 28
 
 
 def shared_bytes(hb: int, wc: int) -> int:
-    """Shared memory a tile's thread block takes, as csrc/blocked.cu
-    shared_bytes counts it: 25 ring planes (3 generations of 7 matrices, 4
-    of max7), the tile's B and C symbols and the 9 x 9 submatrix table."""
+    """Shared memory a tile's thread block takes, as csrc/pillar.cuh
+    pillar_shared_bytes counts it: 25 ring planes (3 generations of 7
+    matrices, 4 of max7), the tile's B and C symbols and the 9 x 9 submatrix
+    table."""
     return 4 * (25 * hb * wc + hb + wc + 81)
 
 
@@ -69,10 +102,7 @@ def choose_block_shape(la: int, lb: int, lc: int) -> Tuple[int, int]:
     return DEF_HB, DEF_WC
 
 
-def plan_dims(la: int, lb: int, lc: int, hb: int = DEF_HB,
-              wc: int = DEF_WC) -> Dims:
-    """Geometry for a blocked sweep of |A|, |B|, |C| >= 1 at tile plane
-    (hb, wc); raises ValueError for a tile the card cannot hold."""
+def _check_tile(hb: int, wc: int) -> None:
     if hb < 2 or wc < 2:
         raise ValueError(f"tile plane {hb}x{wc} needs at least one cell")
     if shared_bytes(hb, wc) > SMEM_CAP:
@@ -80,11 +110,39 @@ def plan_dims(la: int, lb: int, lc: int, hb: int = DEF_HB,
             f"tile plane {hb}x{wc} needs {shared_bytes(hb, wc)} bytes of "
             f"shared memory; a block has {SMEM_CAP}"
         )
+
+
+def plan_dims(la: int, lb: int, lc: int, hb: int = DEF_HB,
+              wc: int = DEF_WC) -> Dims:
+    """Geometry for a blocked sweep of |A|, |B|, |C| >= 1 at tile plane
+    (hb, wc); raises ValueError for a tile the card cannot hold."""
+    _check_tile(hb, wc)
     tb, tc = hb - 1, wc - 1
     n_jb = max(1, -(-lb // tb))
     n_kb = max(1, -(-lc // tc))
     nq = la + tb + tc
     return Dims(hb, wc, n_jb, n_kb, nq, nq + 1)
+
+
+def plan_dims_packed(la: int, lb: int, lc: int, npack: int,
+                     hb: int = DEF_HB, wc: int = DEF_WC) -> Dims:
+    """:func:`plan_dims` for a chain of ``npack`` problems of equal shape
+    (la, lb, lc), stacked at pitch d = la + 1 along the A axis inside one
+    sweep of |A| = npack * d - 1 (blocked.py plan_dims_packed).  Slot m's
+    symbols sit at i = m*d + 1 .. m*d + la, its zero border at i = m*d."""
+    if npack < 1:
+        raise ValueError(f"a chain needs npack >= 1, not {npack}")
+    d = la + 1
+    return plan_dims(npack * d - 1, lb, lc, hb, wc)._replace(d=d, npack=npack)
+
+
+def swept_length(dims: Dims) -> int:
+    """The |A| the tiles sweep: npack * d - 1 in chain mode."""
+    return dims.nq - (dims.hb - 1) - (dims.wc - 1)
+
+
+def n_tiles(dims: Dims) -> int:
+    return dims.n_jb * dims.n_kb
 
 
 def prep_blocked(a, b, c, dims: Dims, device):
@@ -96,6 +154,33 @@ def prep_blocked(a, b, c, dims: Dims, device):
         extend(a, len(a) + 1, PAD_A, device),
         extend(b, dims.n_jb * tb + 1, PAD_B, device),
         extend(c, dims.n_kb * tc + 1, PAD_C, device),
+    )
+
+
+def prep_chain(a_list: Sequence, b, c, dims: Dims, device):
+    """Symbol arrays for a chain (blocked.py prep_chain): the stacked A
+    (slot m's symbols at i = m*d + 1 .. m*d + |A|, the sentinel at every
+    border i = m*d) and the shared B and C arrays of :func:`prep_blocked`."""
+    tb, tc = dims.hb - 1, dims.wc - 1
+    a_ext = np.full(dims.npack * dims.d, PAD_A, dtype=np.int32)
+    for m, a in enumerate(a_list):
+        a_ext[m * dims.d + 1:m * dims.d + 1 + len(a)] = np.asarray(a)
+    return (
+        torch.from_numpy(a_ext).to(device),
+        extend(b, dims.n_jb * tb + 1, PAD_B, device),
+        extend(c, dims.n_kb * tc + 1, PAD_C, device),
+    )
+
+
+def new_state(dims: Dims, device) -> BlockedState:
+    """A fresh sweep state on ``device``."""
+    return BlockedState(
+        torch.full((dims.n_kb, dims.nrows, NUM_MATRICES, dims.wc), UNWRITTEN,
+                   dtype=torch.int32, device=device),
+        torch.full((dims.n_jb, dims.nrows, NUM_MATRICES, dims.hb), UNWRITTEN,
+                   dtype=torch.int32, device=device),
+        torch.zeros((dims.npack, NUM_MATRICES), dtype=torch.int32,
+                    device=device),
     )
 
 
@@ -111,79 +196,198 @@ def _diagonal(d: int, dims: Dims):
     return range(max(0, d - dims.n_kb + 1), min(d, dims.n_jb - 1) + 1)
 
 
-# A face entry the sweep never wrote.  Large and positive, so that a read of
-# one would win a max and show up in the score.
-_UNWRITTEN = 1 << 28
+def tile_table(dims: Dims) -> List[Tuple[int, int]]:
+    """Every tile (jb, kb) of the grid in sweep order: anti-diagonals d
+    ascending, jb ascending within one."""
+    return [(jb, d - jb) for d in range(dims.n_jb + dims.n_kb - 1)
+            for jb in _diagonal(d, dims)]
+
+
+def _runs(dims: Dims, idx0: int, count: int) -> Iterator[Tuple[int, int, int]]:
+    """Tiles idx0 .. idx0 + count - 1 of :func:`tile_table` as runs of one
+    anti-diagonal each: (d, first jb, tiles)."""
+    if idx0 < 0 or count < 0 or idx0 + count > n_tiles(dims):
+        raise ValueError(f"tiles {idx0} .. {idx0 + count - 1} are not in a "
+                         f"grid of {n_tiles(dims)}")
+    run = None
+    for jb, kb in tile_table(dims)[idx0:idx0 + count]:
+        if run is not None and run[0] == jb + kb:
+            run[2] += 1
+            continue
+        if run is not None:
+            yield tuple(run)
+        run = [jb + kb, jb, 1]
+    if run is not None:
+        yield tuple(run)
 
 
 def blocked_ref(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
-                scoring: Scoring = Scoring(),
-                score_bits: int = 0) -> torch.Tensor:
-    """Plain torch version of K3: the seven final-cell values (int32, (7,)).
+                scoring: Scoring = Scoring(), score_bits: int = 0,
+                state: Optional[BlockedState] = None, idx0: int = 0,
+                count: Optional[int] = None) -> torch.Tensor:
+    """Plain torch version of K3: sweeps tiles idx0 .. idx0 + count - 1 of
+    :func:`tile_table` (all by default) from ``state`` (a fresh one by
+    default), updating it in place, and returns its final values: (7,) for
+    one problem, (npack, 7) for a chain.
 
-    Same tile schedule, face slabs, halo install order and capture as the
-    kernel; the tiles of one anti-diagonal run as one batch."""
+    Same tile table, face slabs, halo install order, face entries written
+    and capture as the kernel; the tiles of one anti-diagonal run as one
+    batch.  ``la`` is the problem's |A| (a slot's in chain mode)."""
     dev = a_ext.device
+    if state is None:
+        state = new_state(dims, dev)
+    if count is None:
+        count = n_tiles(dims) - idx0
+    rf, cf, out = state
     hb, wc = dims.hb, dims.wc
     tb, tc = hb - 1, wc - 1
+    sweep_la = swept_length(dims)
+    pitch = dims.d or sweep_la + 1
     groups = transition_groups(scoring.weight_matrix())
     pair = pair_fn(scoring, dev)
     jl = torch.arange(hb, device=dev)
     kl = torch.arange(wc, device=dev)
     jk = jl.view(hb, 1) + kl.view(1, wc)
     edge = (jl.view(hb, 1) >= 1) & (kl.view(1, wc) >= 1)
-    # Row faces [n_kb][row][7][wc], column faces [n_jb][row][7][hb].
-    rf = torch.full((dims.n_kb, dims.nrows, 7, wc), _UNWRITTEN,
-                    dtype=torch.int32, device=dev)
-    cf = torch.full((dims.n_jb, dims.nrows, 7, hb), _UNWRITTEN,
-                    dtype=torch.int32, device=dev)
     jlstar, klstar = _target(lb, lc, dims)
-    qstar = la + jlstar + klstar
-    final = None
 
-    for d in range(dims.n_jb + dims.n_kb - 1):
-        jbs = torch.tensor(list(_diagonal(d, dims)), device=dev)
+    def inside(i):
+        """Cells the kernel writes: 1 <= i <= L."""
+        return (i >= 1) & (i <= sweep_la)
+
+    for d, jb_lo, n in _runs(dims, idx0, count):
+        jbs = torch.arange(jb_lo, jb_lo + n, device=dev)
         kbs = d - jbs
-        n = len(jbs)
         bsym = b_ext[jbs.view(n, 1) * tb + jl.view(1, hb)].view(n, hb, 1)
         csym = c_ext[kbs.view(n, 1) * tc + kl.view(1, wc)].view(n, 1, wc)
         s_bc = pair(bsym, csym)
         has_row = (jbs > 0).view(1, n, 1)
         has_col = (kbs > 0).view(1, n, 1)
-        target = d == dims.n_jb + dims.n_kb - 2  # the last tile, alone
+        # The last tile, the only one of its diagonal, holds the final cell.
+        target = d == dims.n_jb + dims.n_kb - 2
 
         zeros = torch.zeros((7, n, hb, wc), dtype=torch.int32, device=dev)
         p1, p2 = zeros, zeros
         m7p2, m7p3 = zeros[0], zeros[0]
         for q in range(1, dims.nq + 1):
             i = q - jk
-            valid = edge & (i >= 1) & (i <= la)
-            ai = a_ext[i.clamp(0, la)]
+            valid = edge & inside(i) & (i % pitch != 0)
+            ai = a_ext[i.clamp(0, sweep_la)]
             subs = substitution(ai, bsym, csym, s_bc, scoring, pair)
             cands, m7p1 = fused_plane_update_m7(
                 p1, p2, m7p3, subs, groups, torch.maximum, roll1
             )
+            # Invalid cells, chain borders i = 0 (mod d) included, are 0.
             new = torch.where(valid, wrap(torch.stack(cands), score_bits), 0)
             # Halo: column 0 from the column face, then row 0 from the row
             # face, which wins at the corner.  A halo cell outside
-            # 1 <= i <= |A| is 0 and its face row is not read.
+            # 1 <= i <= L, or on a border, is 0 and its face row is not read.
             icol, irow = q - jl, q - kl
-            col_ok = has_col & ((icol >= 1) & (icol <= la)).view(1, 1, hb)
-            row_ok = has_row & ((irow >= 1) & (irow <= la)).view(1, 1, wc)
+            col_ok = has_col & (inside(icol) & (icol % pitch != 0)).view(
+                1, 1, hb)
+            row_ok = has_row & (inside(irow) & (irow % pitch != 0)).view(
+                1, 1, wc)
             new[:, :, :, 0] = torch.where(
                 col_ok, cf[jbs, q].permute(1, 0, 2), 0)
             new[:, :, 0, :] = torch.where(
                 row_ok, rf[kbs, q].permute(1, 0, 2), 0)
             # Faces, corners included: bottom row to row q - tb of the row
-            # slab, right column to row q - tc of the column slab.
+            # slab, right column to row q - tc of the column slab; only the
+            # entries whose cell has 1 <= i <= L, as the kernel writes them.
             if q - tb >= 0:
-                rf[kbs, q - tb] = new[:, :, tb, :].permute(1, 0, 2)
+                w = inside(q - tb - kl).view(1, 1, wc)
+                rf[kbs, q - tb] = torch.where(
+                    w, new[:, :, tb, :].permute(1, 0, 2), rf[kbs, q - tb])
             if q - tc >= 0:
-                cf[jbs, q - tc] = new[:, :, :, tc].permute(1, 0, 2)
-            if target and q == qstar:
-                final = new[:, 0, jlstar, klstar]
+                w = inside(q - tc - jl).view(1, 1, hb)
+                cf[jbs, q - tc] = torch.where(
+                    w, new[:, :, :, tc].permute(1, 0, 2), cf[jbs, q - tc])
+            # Slot m's final cell: i = m * d + d - 1 at (jl*, kl*).
+            it = q - jlstar - klstar
+            if target and 1 <= it <= sweep_la and (it + 1) % pitch == 0:
+                out[(it + 1) // pitch - 1] = new[:, 0, jlstar, klstar]
             p1, p2, m7p2, m7p3 = new, p1, m7p1, m7p2
-    return final
+    return out if dims.d else out[0]
+
+
+def _check(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
+           scoring: Scoring) -> None:
+    _build.check_submatrix(scoring)
+    if min(la, lb, lc) < 1:
+        raise ValueError("the blocked sweep needs |A|, |B|, |C| >= 1")
+    hb, wc = dims.hb, dims.wc
+    want = (plan_dims_packed(la, lb, lc, dims.npack, hb, wc) if dims.d
+            else plan_dims(la, lb, lc, hb, wc))
+    if dims != want:
+        raise ValueError(f"dims {dims} were not planned for {la, lb, lc}")
+    tb, tc = hb - 1, wc - 1
+    for t, n in ((a_ext, swept_length(dims) + 1), (b_ext, dims.n_jb * tb + 1),
+                 (c_ext, dims.n_kb * tc + 1)):
+        if t.dtype != torch.int32 or t.shape != (n,) or \
+                not t.is_contiguous() or t.device != a_ext.device:
+            raise ValueError(
+                "a, b, c must be contiguous int32 vectors on one device, "
+                "shaped as prep_blocked (prep_chain) makes them"
+            )
+
+
+def _check_state(state: BlockedState, dims: Dims, device) -> None:
+    shapes = ((dims.n_kb, dims.nrows, NUM_MATRICES, dims.wc),
+              (dims.n_jb, dims.nrows, NUM_MATRICES, dims.hb),
+              (dims.npack, NUM_MATRICES))
+    for t, shape in zip(state, shapes):
+        if t.dtype != torch.int32 or t.shape != shape or \
+                not t.is_contiguous() or t.device != device:
+            raise ValueError("the state must be new_state(dims)'s, on the "
+                             "device of the symbol arrays")
+
+
+def _sweep(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, state, idx0,
+           count, scoring, score_bits, threads) -> BlockedState:
+    """Tiles idx0 .. idx0 + count - 1 on ``state``: blocked_ref on a CPU
+    tensor, K3 (one launch a run of one anti-diagonal, counted on
+    ``counter``) on a CUDA tensor, never a fallback."""
+    dev = a_ext.device
+    _check_state(state, dims, dev)
+    if dev.type == "cpu":
+        blocked_ref(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring,
+                    score_bits, state, idx0, count)
+        return state
+    if dev.type != "cuda":
+        raise ValueError(f"no blocked kernel for device {dev}")
+    lib = _build.load("blocked")
+    step, table = _build.kernel_scoring(scoring, score_bits, dev)
+    jlstar, klstar = _target(lb, lc, dims)
+    sweep_la = swept_length(dims)
+    geom = _build.BlockedGeom(sweep_la, dims.hb, dims.wc, dims.n_jb,
+                              dims.n_kb, dims.nrows, jlstar, klstar,
+                              dims.d or sweep_la + 1, dims.npack)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for d, jb_lo, n in _runs(dims, idx0, count):
+            code = lib.trialign_blocked_tiles(
+                a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(), geom, d,
+                jb_lo, n, table.data_ptr(), step, state.rf.data_ptr(),
+                state.cf.data_ptr(), state.out.data_ptr(), threads, stream,
+            )
+            _build.check(lib, code, f"blocked kernel launch (diagonal {d})")
+            counter.launches += 1
+    return state
+
+
+def sweep_tiles(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
+                state: BlockedState, idx0: int, count: int,
+                scoring: Scoring = Scoring(), score_bits: int = 0,
+                threads: int = THREADS) -> BlockedState:
+    """The per-tile form (blocked.py make_block_call): runs tiles idx0 ..
+    idx0 + count - 1 of :func:`tile_table` on ``state`` in place and returns
+    it; ``state.out`` holds the final values once the last tile has run.  A
+    run may end in the middle of an anti-diagonal.  On a CPU tensor this is
+    :func:`blocked_ref`; on a CUDA tensor it launches K3 once per run of one
+    anti-diagonal and never falls back.  Nothing waits for the card."""
+    _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
+    return _sweep(sweep_tiles, a_ext, b_ext, c_ext, la, lb, lc, dims, state,
+                  idx0, count, scoring, score_bits, threads)
 
 
 def final_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
@@ -193,51 +397,36 @@ def final_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
     |A|, |B|, |C| >= 1, from the arrays of :func:`prep_blocked`.  On a CPU
     tensor this is :func:`blocked_ref`; on a CUDA tensor it launches K3 once
     per tile anti-diagonal and never falls back."""
-    _build.check_submatrix(scoring)
-    if min(la, lb, lc) < 1:
-        raise ValueError("the blocked sweep needs |A|, |B|, |C| >= 1")
-    if dims != plan_dims(la, lb, lc, dims.hb, dims.wc):
-        raise ValueError(f"dims {dims} were not planned for {la, lb, lc}")
-    tb, tc = dims.hb - 1, dims.wc - 1
-    for t, n in ((a_ext, la + 1), (b_ext, dims.n_jb * tb + 1),
-                 (c_ext, dims.n_kb * tc + 1)):
-        if t.dtype != torch.int32 or t.shape != (n,) or \
-                not t.is_contiguous() or t.device != a_ext.device:
-            raise ValueError(
-                "a, b, c must be contiguous int32 vectors on one device, "
-                "shaped as prep_blocked makes them"
-            )
-    if a_ext.device.type == "cpu":
-        return blocked_ref(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring,
-                           score_bits)
-    if a_ext.device.type != "cuda":
-        raise ValueError(f"no blocked kernel for device {a_ext.device}")
-    lib = _build.load("blocked")
-    dev = a_ext.device
-    step, table = _build.kernel_scoring(scoring, score_bits, dev)
-    jlstar, klstar = _target(lb, lc, dims)
-    geom = _build.BlockedGeom(la, dims.hb, dims.wc, dims.n_jb, dims.n_kb,
-                              dims.nrows, jlstar, klstar)
-    rf = torch.empty(dims.n_kb * dims.nrows * 7 * dims.wc, dtype=torch.int32,
-                     device=dev)
-    cf = torch.empty(dims.n_jb * dims.nrows * 7 * dims.hb, dtype=torch.int32,
-                     device=dev)
-    out = torch.empty(7, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for d in range(dims.n_jb + dims.n_kb - 1):
-            code = lib.trialign_blocked_diag(
-                a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(), geom, d,
-                table.data_ptr(), step, rf.data_ptr(), cf.data_ptr(),
-                out.data_ptr(), threads, stream,
-            )
-            _build.check(lib, code, f"blocked kernel launch (diagonal {d})")
-            final_values.launches += 1
-    return out
+    _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
+    if dims.d:
+        raise ValueError("chain dims: use chain_values")
+    state = new_state(dims, a_ext.device)
+    return _sweep(final_values, a_ext, b_ext, c_ext, la, lb, lc, dims, state,
+                  0, n_tiles(dims), scoring, score_bits, threads).out[0]
 
 
-# Launches of the CUDA kernel since the count was last set to 0.
+def chain_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
+                 scoring: Scoring = Scoring(), score_bits: int = 0,
+                 threads: int = THREADS) -> torch.Tensor:
+    """Chain mode: the seven final values of every slot, (npack, 7) int32,
+    from the arrays of :func:`prep_chain` under
+    :func:`plan_dims_packed`'s ``dims``; ``la`` is one slot's |A|.  On a CPU
+    tensor this is :func:`blocked_ref`; on a CUDA tensor it launches K3 in
+    chain mode once per tile anti-diagonal and never falls back."""
+    _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
+    if not dims.d:
+        raise ValueError("chain_values needs plan_dims_packed's dims")
+    state = new_state(dims, a_ext.device)
+    return _sweep(chain_values, a_ext, b_ext, c_ext, la, lb, lc, dims, state,
+                  0, n_tiles(dims), scoring, score_bits, threads).out
+
+
+# Launches of the CUDA kernel since the count was last set to 0, for each
+# entry point: the whole-grid sweep (final_values), the per-tile form
+# (sweep_tiles) and chain mode (chain_values).
 final_values.launches = 0
+sweep_tiles.launches = 0
+chain_values.launches = 0
 
 
 def align_blocked_async(a, b, c, scoring: Scoring = Scoring(),
@@ -264,3 +453,34 @@ def align_blocked(a, b, c, scoring: Scoring = Scoring(),
     (hb, wc), as in the reference; the default is :func:`choose_block_shape`."""
     return int(align_blocked_async(a, b, c, scoring, block_shape, score_bits,
                                    device))
+
+
+def align_blocked_chain(a_list: Sequence, b, c, scoring: Scoring = Scoring(),
+                        block_shape: Optional[Tuple[int, int]] = None,
+                        score_bits: int = 0, device="cuda") -> List[int]:
+    """Scores of a chain of equal-length A sequences against shared B and C
+    in one sweep (blocked.py align_blocked_chain): the problems stack along
+    the A axis at pitch |A| + 1, so the tile ramp (tb + tc planes) and every
+    launch amortise over the chain.  One exact score per A, in order.
+
+    ``score_bits`` nonzero wraps stored values as signed registers of that
+    width, and a slot's score is the max of its seven wrapped values, as the
+    reference's capture of the carried max7.  ``block_shape`` is the tile
+    plane (hb, wc); there is no ``interpret``: ``device="cpu"`` runs the
+    plain version.  Raises ValueError for A's of unequal length; an empty
+    list gives [], an empty sequence a score of 0 for every slot."""
+    a_list = [np.asarray(a) for a in a_list]
+    b, c = np.asarray(b), np.asarray(c)
+    if not a_list:
+        return []
+    la = len(a_list[0])
+    if any(len(a) != la for a in a_list):
+        raise ValueError("align_blocked_chain requires equal-length A's")
+    lb, lc = len(b), len(c)
+    if min(la, lb, lc) == 0:
+        return [0] * len(a_list)
+    hb, wc = block_shape or choose_block_shape(la, lb, lc)
+    dims = plan_dims_packed(la, lb, lc, len(a_list), hb, wc)
+    out = chain_values(*prep_chain(a_list, b, c, dims, device), la, lb, lc,
+                       dims, scoring, score_bits)
+    return [int(s) for s in out.max(dim=1).values.tolist()]

@@ -91,10 +91,13 @@ def roll1(x: torch.Tensor, axis: int) -> torch.Tensor:
 
 def sweep(a_ext, b_ext, c_ext, la: int, lb: int, lc: int,
           scoring: Scoring = Scoring(), score_bits: int = 0) -> torch.Tensor:
-    """The seven final-cell values (int32, shape (7,)) of one triplet.
+    """The seven final-cell values (int32, shape (7,)) of one triplet, or
+    (S, 7) of S triplets that share B and C when ``a_ext`` is (S, n): one
+    sweep of the S planes at once.
 
-    ``a_ext[i]``, ``b_ext[j]``, ``c_ext[k]`` hold the 1-based symbols, with
-    at least la+1, lb+1 and lc+1 entries on one device; every length >= 1."""
+    ``a_ext[..., i]``, ``b_ext[j]``, ``c_ext[k]`` hold the 1-based symbols,
+    with at least la+1, lb+1 and lc+1 entries on one device; every length
+    >= 1."""
     dev = a_ext.device
     hb, wc = lb + 1, lc + 1
     groups = transition_groups(scoring.weight_matrix())
@@ -113,15 +116,18 @@ def sweep(a_ext, b_ext, c_ext, la: int, lb: int, lc: int,
     for q in range(1, la + lb + lc + 1):
         i = q - jk
         valid = edge & (i >= 1) & (i <= la)
-        ai = a_ext[i.clamp(0, la)]
+        ai = a_ext[..., i.clamp(0, la)]
         subs = substitution(ai, b, c, s_bc, scoring, pair)
         cands, m7p1 = fused_plane_update_m7(
             p1, p2, m7p3, subs, groups, torch.maximum, roll1
         )
+        # Gap matrices take no A symbol, so only a batch's others have S.
+        cands = torch.broadcast_tensors(*cands)
         new = torch.where(valid, wrap(torch.stack(cands), score_bits), 0)
         # m7p1 (max7 of plane q-1) is max7(q-2) for the next step.
         p1, p2, m7p2, m7p3 = new, p1, m7p1, m7p2
-    return p1[:, lb, lc]
+    final = p1[..., lb, lc]
+    return final if a_ext.dim() == 1 else final.T
 
 
 def align_ref(a, b, c, scoring: Scoring = Scoring(), score_bits: int = 0,
