@@ -16,14 +16,16 @@ per source, all at once) and prints one JSON line per phase:
    the torch sweep), exactly;
 4. ``slab``: K5 against its plain versions (the tiled ``slab_ref`` and the
    torch engine), exactly: the captured plane and the final vector of every
-   variant, on multi-tile and ragged shapes, under five scorings (one a
-   16-symbol submatrix, which only K5 takes);
+   variant, on multi-tile and ragged shapes and the default tile plane,
+   under five scorings (one a 16-symbol submatrix, which only K5 takes);
 5. ``hetero``: K4 against its plain version ``hetero_ref``, exactly: the
    final vector of every problem of ragged batches (a 1 x 1-tile problem,
-   an empty sequence, one batch cut into several dispatches) under four
-   scorings;
+   an empty sequence, one batch cut into several dispatches) at 9 x 17
+   tiles and the default tile plane, under four scorings;
 6. ``main_path``: ``trialign_torch.align`` with backend "auto" against the
-   golden model and the C++ oracle, with the kernels' launch counts;
+   golden model (the ``dat`` triplet), the C++ oracle (64^3 and 512^3) and
+   the torch sweep (1024^3, all seven values), with the kernels' launch
+   counts;
 7. ``traceback``: ``trialign_torch.align(..., return_alignment=True)`` at
    512^3 and 1024^3 (the direct engine), 2048^3 (K5 for the top split) and
    768^3 with lowered caps (K5 on pin nodes); each alignment rescores to the
@@ -51,25 +53,52 @@ per source, all at once) and prints one JSON line per phase:
     ``align_batch_resilient`` on 256 of the batch's triplets in dispatches
     of 64 with a failure after the second drain (only the unscored 128
     dispatched again, scores equal to the batch's); the per-tile form's
-    time on a 256^3 sample beside ``blocked_ref``'s;
+    time on a 192^3 sample beside ``blocked_ref``'s;
 11. ``chain``: K3's chain mode against ``blocked_ref`` on multi-tile shapes
     (9 x 17 and 33 x 33 tiles, 1 to 5 slots, five scorings, and
     ``score_bits=12``); then the bench's chains, 16 slots of 512^3 and 8 of
     1024^3 (ms per alignment, GCUPS, bound, launches): every slot's seven
     values equal the torch sweep of its triplet, two slots' scores equal
     ``align()`` and one the C++ oracle;
-12. ``cli``: ``python -m trialign_torch.cli`` as a subprocess: ``selftest``
-    (every row OK), ``align --json`` on the bundled ``dat`` files (equal to
-    golden), ``bench --size 1024 --json`` (parity ``exact``);
-13. ``tuning``: K2's thread counts; K3's tile at each thread count and the
+12. ``halo``: the halo (``dist/halo.py``) on stripes that share the card,
+    each on its own CUDA stream: K3's per-tile form in 2 and 3 stripes with
+    uneven columns against ``blocked_ref`` (the whole state); the main
+    path's 1024^3 triplet in 1, 2 and 4 stripes under both schedules, all
+    seven values equal to K3's whole-grid sweep; ms beside K3's, launches,
+    the measured face-copy rate and the model's time on separate cards;
+13. ``halo_tb``: K5's per-tile form against ``slab_ref`` (capture and final
+    vector) in runs that end mid-diagonal and in 2 and 3 stripes, every
+    variant, default and 16-symbol scoring; ``hirschberg_align_sharded`` on
+    the traceback phase's 1024^3 triplet in 2 stripes with two levels of
+    splits on them, rescoring to the score path's score; that run's top
+    split (512 x 1024 x 1024, 2 stripes) against the torch engine, capture
+    and final vector exactly, and timed beside it;
+14. ``sharded_batch``: K4's per-tile form against ``hetero_ref`` in runs
+    that end mid-diagonal under two scorings; ``align_batch_sharded`` on
+    the 1024-triplet batch over 2 data slots sharing the card, equal to the
+    batch phase's scores; ``align_batch_resilient(mesh=...)`` in dispatches
+    of 64 with a failure as a slot packs its second (the dispatches swept
+    by then drain; only the rest is dispatched again);
+15. ``cli``: ``python -m trialign_torch.cli`` in four subprocesses at once:
+    ``selftest`` (every row OK), ``align --json`` on the bundled ``dat``
+    files (equal to golden), ``bench --size 1024 --json`` (parity
+    ``exact``; its time shares the card), ``batch --sharded`` on 70
+    triplets (equal to ``align_batch``);
+16. ``multihost``: two processes (``python -m trialign_torch.dist.worker``,
+    ``gloo``) on the card, started with the cli phase's:
+    ``align_batch_multihost``, a halo whose model axis spans both processes
+    and the sharded traceback across them, each equal to this process's
+    run of the same functions;
+17. ``tuning``: K2's thread counts; K3's tile at each thread count and the
     neighbouring tiles;
-14. ``timings``: each kernel (minimum over distinct inputs after a
+18. ``timings``: each kernel (minimum over distinct inputs after a
     warm-up) beside its plain version (one run) at the main path's
     sizes, and beside its bound; K5 against the torch engine, exactly and
-    timed, at the shape the 2048^3 traceback gives it; K4 against
-    hetero_ref, exactly and timed, on a dispatch of three of the
-    1024-triplet batch's problems (its largest, its smallest, one at
-    random), and K4 at the whole batch.
+    timed, at the shape the 2048^3 traceback gives it; K4 and its per-tile
+    form (one diagonal a run, and runs of a quarter of the table) against
+    hetero_ref, exactly and timed, on a dispatch of two of the
+    1024-triplet batch's problems (its largest and its smallest), and K4 at
+    the whole batch.
 
 Then a summary of the kernels, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any mismatch or error exits
@@ -83,6 +112,7 @@ import argparse
 import functools
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -94,9 +124,12 @@ import numpy as np
 import torch
 
 import trialign_torch
-from trialign_torch import _build, benchmarks
+from trialign_torch import _build, benchmarks, resilience
 from trialign_torch.benchmarks import gcups, time_cuda_ms
 from trialign_torch.config import NUM_MATRICES, Scoring
+from trialign_torch.dist import halo as dh
+from trialign_torch.dist import halo_tb
+from trialign_torch.dist import mesh as dmesh
 from trialign_torch.golden import align_planes_numpy, rescore_alignment
 from trialign_torch.io import load_reference_triplet
 from trialign_torch.kernels import blocked as bk
@@ -148,7 +181,7 @@ SPLIT_SHAPE = (1024, 2048, 2048)
 BATCH_N, BATCH_LENS = 1024, (128, 512)
 # Samples on which the plain versions of K3's per-tile form and chain mode
 # finish in seconds: an n^3 problem, and npack slots of n^3.
-TILES_SAMPLE = 256
+TILES_SAMPLE = 192
 CHAIN_SAMPLE = (128, 4)
 # The bench's chains (bench.py stages chain_512 and chain_1k): (n, slots).
 CHAIN_BENCH = ((512, 16), (1024, 8))
@@ -211,7 +244,8 @@ def smi(query: str) -> str:
 # Each kernel entry point's launch counter, by the name the summary gives it.
 COUNTERS = {"wavefront": wf.final_values, "blocked": bk.final_values,
             "blocked_tiles": bk.sweep_tiles, "blocked_chain": bk.chain_values,
-            "hetero": hk.final_values, "slab": sk.slab_sweep,
+            "hetero": hk.final_values, "hetero_tiles": hk.sweep_tiles,
+            "slab": sk.slab_sweep, "slab_tiles": sk.sweep_tiles,
             "vpu": vpu.vpu_chains}
 
 
@@ -423,13 +457,13 @@ def phase_slab(rng) -> int:
 
 def hetero_case(trips, scoring, block):
     """K4 against hetero_ref on one dispatch, exactly; the largest
-    difference."""
+    difference and hetero_ref's scores."""
     batch = hk.prep_hetero(trips, *block, CUDA)
     got = hk.final_values(batch, scoring)
     want = hk.hetero_ref(batch, scoring)
     require(torch.equal(got, want), f"K4 {[list(map(len, t)) for t in trips]}"
             f" {block}: kernel {cpu_ints(got)} != hetero_ref {cpu_ints(want)}")
-    return _diff(got, want)
+    return _diff(got, want), want.max(dim=1).values.tolist()
 
 
 def phase_hetero(rng) -> int:
@@ -442,7 +476,7 @@ def phase_hetero(rng) -> int:
         scoring, _, nsym = VARIANTS[name]
         trips = [triplet(rng, n, nsym) for n in lens]
         for block in ((9, 17), bk.choose_block_shape(0, 0, 0)):
-            err = max(err, hetero_case(trips, scoring, block))
+            err = max(err, hetero_case(trips, scoring, block)[0])
             checked.append(f"{len(trips)} problems/{block}/{name}")
         # One batch cut into dispatches by a small face budget: each
         # dispatch against hetero_ref, and the scores of align_hetero.
@@ -452,11 +486,9 @@ def phase_hetero(rng) -> int:
         require(len(plan) >= 2, f"one dispatch under budget {budget}")
         want = [0] * len(trips)
         for idx in plan:
-            err = max(err, hetero_case([trips[i] for i in idx], scoring,
-                                       block))
-            batch = hk.prep_hetero([trips[i] for i in idx], *block, CUDA)
-            for i, v in zip(idx, hk.hetero_ref(batch, scoring).max(dim=1)
-                            .values.tolist()):
+            e, scores = hetero_case([trips[i] for i in idx], scoring, block)
+            err = max(err, e)
+            for i, v in zip(idx, scores):
                 want[i] = v
         got = hk.align_hetero(trips, scoring, CUDA, block,
                               budget_bytes=budget)
@@ -477,18 +509,24 @@ def phase_main_path(rng) -> dict:
             f"dat triplet: {r.backend} {r.score} != golden {want}")
     runs.append({"input": "dat", "backend": r.backend, "score": r.score,
                  "oracle": "golden"})
-    for n, backend in ((64, "wavefront"), (1024, "blocked")):
+    # The C++ oracle up to 512^3; the 1024^3 headline against the torch
+    # sweep, all seven values (the oracle would take ~26 s there).
+    for n, backend in ((64, "wavefront"), (512, "blocked"), (1024, "blocked")):
         a, b, c = triplet(rng, (n, n, n))
         r = trialign_torch.align(a, b, c)
-        headline = (a, b, c), r.score
         t0 = time.perf_counter()
-        want = score_native(a, b, c)
-        native_s = time.perf_counter() - t0
+        if n < 1024:
+            oracle, want = "native", score_native(a, b, c)
+        else:
+            plain = plain_sweep(a, b, c)
+            oracle, want = "torch sweep", max(cpu_ints(plain))
+            headline = (a, b, c), r.score, plain
+        oracle_s = time.perf_counter() - t0
         require(r.backend == backend and r.score == want,
-                f"{n}^3: {r.backend} {r.score} != native {want}")
+                f"{n}^3: {r.backend} {r.score} != {oracle} {want}")
         runs.append({"input": f"random {n}^3", "backend": r.backend,
-                     "score": r.score, "oracle": "native",
-                     "oracle_s": native_s, "align_s": r.seconds})
+                     "score": r.score, "oracle": oracle,
+                     "oracle_s": oracle_s, "align_s": r.seconds})
     launches = read_launches()
     require(launches["wavefront"] and launches["blocked"],
             f"a kernel did not launch: {launches}")
@@ -556,9 +594,10 @@ def traceback_case(a, b, c, label, native):
     return rec
 
 
-def phase_traceback(rng) -> int:
+def phase_traceback(rng) -> tuple:
     """The slice's path; returns K5's launches in the run of the 2048^3 case,
-    the one size whose default route reaches K5."""
+    the one size whose default route reaches K5, and the 1024^3 triplet with
+    its record."""
     recs = []
     for n in (512, 1024, 2048):
         trip = triplet(rng, (n, n, n))
@@ -569,6 +608,8 @@ def phase_traceback(rng) -> int:
         require(n < 2048 or rec["launches"]["slab"] > 0,
                 f"K5 did not launch at 2048^3: {rec['launches']}")
         recs.append(rec)
+        if n == 1024:
+            case_1024 = trip, rec
     slab_launches = rec["launches"]["slab"]
     # Pin nodes on K5: the direct cap lowered to 16 Mi cells and the slab
     # kernel's to 8 Mi, so that the right half of the 768^3 split (a pin
@@ -585,7 +626,7 @@ def phase_traceback(rng) -> int:
     recs.append(rec)
     emit(phase="traceback", runs=recs, slab_launches_2048=slab_launches,
          slab_launches_pin_splits=rec["launches"]["slab"])
-    return slab_launches
+    return slab_launches, case_1024
 
 
 def batch_triplets(rng, n=BATCH_N, lens=BATCH_LENS):
@@ -737,7 +778,7 @@ def phase_checkpoint(rng, dev, headline, batch, batch_scores) -> dict:
 
     # The main path's 1024^3 triplet: a quarter of the grid a segment, two
     # segments, a new aligner resumed from the file, to the end.
-    trip, want = headline
+    trip, want, plain = headline
     tmp = tempfile.mkdtemp(prefix="trialign_ckpt_")
     path = os.path.join(tmp, "ck.npz")
     torch.cuda.synchronize()
@@ -767,7 +808,6 @@ def phase_checkpoint(rng, dev, headline, batch, batch_scores) -> dict:
     require(score == want, f"checkpointed 1024^3 {score} != main_path {want}")
     require(launches["blocked_tiles"] > 0 and not launches["blocked"],
             f"the checkpointed run did not take the per-tile form: {launches}")
-    plain = plain_sweep(*trip)
     require(torch.equal(r2.out[0], plain), f"checkpointed 1024^3 "
             f"{cpu_ints(r2.out[0])} != torch sweep {cpu_ints(plain)}")
     err = max(err, _diff(r2.out[0], plain))
@@ -829,7 +869,7 @@ def phase_checkpoint(rng, dev, headline, batch, batch_scores) -> dict:
     require(sizes == [256, 128], f"dispatched {sizes}, not [256, 128]")
     require(got == batch_scores[:256], "align_batch_resilient != the batch")
 
-    # The summary row: the per-tile form and blocked_ref on one 256^3
+    # The summary row: the per-tile form and blocked_ref on one 192^3
     # sample in runs of a quarter of its grid (blocked_ref would take
     # minutes at 1024^3), and the kernel at the 1024^3 run's shape.
     block = bk.choose_block_shape(0, 0, 0)
@@ -1068,6 +1108,444 @@ def phase_vpu(rng, dev) -> dict:
     return row
 
 
+# ------------------------------------------------------------- multi-device
+
+
+def card_mesh(data, model):
+    """A (data, model) mesh whose slots all share the one card."""
+    return dmesh.make_mesh(data, model, devices=[CUDA] * (data * model))
+
+
+def halo_state_case(trip, block, ndev, overlap, scoring=DEFAULT) -> int:
+    """K3's per-tile form in ``ndev`` stripes sharing the card against
+    blocked_ref's whole sweep: the last stripe's column faces and output,
+    and each stripe's row faces of its own columns, exactly; the largest
+    difference."""
+    lens = tuple(map(len, trip))
+    dims, stripes = dh.sweep_stripes(*trip, scoring,
+                                     dh.model_row(card_mesh(1, ndev)), block,
+                                     overlap)
+    torch.cuda.synchronize()
+    want = bk.new_state(dims, CUDA)
+    bk.blocked_ref(*bk.prep_blocked(*trip, dims, CUDA), *lens, dims, scoring,
+                   0, want)
+    last = stripes[-1].state
+    pairs = [(last.cf, want.cf), (last.out, want.out)]
+    pairs += [(s.state.rf[s.kb0:s.kb1], want.rf[s.kb0:s.kb1])
+              for s in stripes]
+    what = f"halo {lens} {block} {ndev} stripes overlap={overlap}"
+    for got, w in pairs:
+        require(torch.equal(got, w), f"{what}: != blocked_ref's state")
+    return max(_diff(g, w) for g, w in pairs)
+
+
+def face_copy_rate(dims) -> dict:
+    """Device-to-device bytes a second of one column face (nrows x 7 x hb
+    int32) copied between two tensors on the card: 50 copies between two
+    CUDA events."""
+    src = torch.zeros((dims.nrows, NUM_MATRICES, dims.hb), dtype=torch.int32,
+                      device=CUDA)
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    ms, _ = event_ms(lambda: [dst.copy_(src) for _ in range(50)])
+    nbytes = src.numel() * 4
+    return {"face_bytes": nbytes, "copies": 50, "ms": ms,
+            "bytes_per_s": 50 * nbytes / (ms / 1e3)}
+
+
+def phase_halo(rng, headline) -> dict:
+    """The halo (dist/halo.py) on stripes sharing the card: K3's per-tile
+    form in 2 and 3 stripes against blocked_ref, whole state; the main
+    path's 1024^3 triplet in 1, 2 and 4 stripes under both schedules, all
+    seven values equal to K3's whole-grid sweep; ms beside K3's, launches,
+    the measured face-copy rate and the model's time."""
+    checked, err = [], 0
+    for shape, block, ndev in (((37, 70, 45), (9, 17), 2),
+                               ((37, 70, 45), (9, 17), 3),
+                               ((20, 100, 150), (9, 17), 3),
+                               ((30, 60, 300), (17, 33), 2)):
+        for name, overlap in (("default", True), ("sub4", False)):
+            scoring, _, nsym = VARIANTS[name]
+            err = max(err, halo_state_case(triplet(rng, shape, nsym), block,
+                                           ndev, overlap, scoring))
+            checked.append(f"{shape}/{block}/{ndev} stripes/{name}/"
+                           f"overlap={overlap}")
+
+    trip = headline[0]
+    lens = tuple(map(len, trip))
+    block = bk.choose_block_shape(*lens)
+    dims = bk.plan_dims(*lens, *block)
+    want = bk.final_values(*bk.prep_blocked(*trip, dims, CUDA), *lens, dims)
+    k3_ms = time_blocked([trip] * 3, block)
+    rate = face_copy_rate(dims)
+    runs = {}
+    for ndev in (1, 2, 4):
+        for overlap in (True, False):
+            m = card_mesh(1, ndev)
+            reset_launches()
+            got = dh.halo_values(*trip, mesh=m, block_shape=block,
+                                 overlap=overlap)
+            launches = read_launches()
+            require(torch.equal(got, want.cpu()),
+                    f"halo 1024^3 on {ndev} stripes overlap={overlap}: "
+                    f"{cpu_ints(got)} != K3 {cpu_ints(want)}")
+            err = max(err, _diff(got, want.cpu()))
+            require(launches["blocked_tiles"] > 0 and not launches["blocked"],
+                    f"the halo did not run K3's per-tile form: {launches}")
+            ms = min(event_ms(dh.halo_values, *trip, DEFAULT, m, block,
+                              overlap)[0] for _ in range(2))
+            model = dh.halo_efficiency(*lens, ndev, block, overlap,
+                                       rate["bytes_per_s"])
+            runs[f"{ndev}/{'overlap' if overlap else 'tight'}"] = {
+                "ms": ms, "launches": launches["blocked_tiles"],
+                "model_s_on_separate_cards": model["seconds"],
+                "model_pipeline": model["pipeline"]}
+    emit(phase="halo", cases=checked, max_abs_err=err, k3_1024_ms=k3_ms,
+         stripes_sharing_one_card=runs, face_copy=rate,
+         values=cpu_ints(want))
+    return {"max_abs_err": err, "rate": rate["bytes_per_s"]}
+
+
+def slab_tiles_case(rng, name, variant, shape=(10, 30, 40), block=(9, 9)):
+    """K5's per-tile form against slab_ref's whole sweep: in runs of 3 and 7
+    tiles (most end mid-diagonal) and in 2 and 3 stripes sharing the card
+    (a stripe past column 0 reads the face it is handed); capture and final
+    vector exactly.  The largest difference."""
+    scoring, _, nsym = SLAB_VARIANTS[name]
+    seqs = tuple(x.astype(np.int32) for x in triplet(rng, shape, nsym))
+    ev = onehot(int(rng.integers(0, NUM_MATRICES)))
+    dims = sk._plan(*shape, block)
+    arrs = sk.prep_blocked(*seqs, dims, CUDA)
+    f_r, cap_r = sk.slab_ref(*arrs, *shape, dims, variant, ev, scoring)
+    got = []
+    n = bk.n_tiles(dims)
+    for every in (3, 7):
+        state = sk.new_state(*shape, dims, ev, CUDA)
+        for idx in range(0, n, every):
+            sk.sweep_tiles(*arrs, *shape, dims, variant, state, idx,
+                           min(every, n - idx), scoring)
+        got.append((state.out, state.cap, f"runs of {every}"))
+    for ndev, overlap in ((2, True), (3, False)):
+        _, stripes = halo_tb._sharded_sweep(
+            *seqs, scoring, dh.model_row(card_mesh(1, ndev)), variant, ev,
+            block, overlap)
+        cap = halo_tb._gather_caps(dims, stripes, stripes[0], 0)
+        got.append((stripes[-1].state.out, cap, f"{ndev} stripes"))
+    err = 0
+    for out, cap, how in got:
+        what = f"K5 per tile {shape} {block} {name} {variant} {how}"
+        require(torch.equal(cap, cap_r), f"{what}: capture != slab_ref's")
+        err = max(err, _diff(cap, cap_r))
+        if variant != "bwd":
+            require(torch.equal(out, f_r), f"{what}: final != slab_ref's")
+            err = max(err, _diff(out, f_r))
+    return err
+
+
+def slab_split_tiles(trip, dev) -> dict:
+    """K5's per-tile form at the main path's shape: both slab sweeps of the
+    top split (m = |A| / 2) of the sharded 1024^3 traceback, in 2 stripes
+    sharing the card at the halo's tile plane and schedule, as
+    sharded_split_point runs them.  The gathered F capture and final vector
+    and the G capture against the torch engine, exactly; ms of the F sweep
+    in stripes beside the engine's and the bound."""
+    a, b, c = (np.asarray(x, np.int32) for x in trip)
+    m, lb, lc = len(a) // 2, len(b), len(c)
+    row = dh.model_row(card_mesh(1, 2))
+    end_v = np.zeros(NUM_MATRICES, np.int32)
+
+    def forward(a_half):
+        return halo_tb._sharded_sweep(a_half, b, c, DEFAULT, row, "free",
+                                      None, None, None)
+
+    fdims, fst = forward(a[:m])
+    f_slab = sk._assemble(halo_tb._gather_caps(fdims, fst, fst[0], 0), fdims,
+                          lb, lc)
+    gdims, gst = halo_tb._sharded_sweep(
+        a[m:][::-1].copy(), b[::-1].copy(), c[::-1].copy(), DEFAULT, row,
+        "bwd", end_v, None, None)
+    g_slab = sk._assemble(halo_tb._gather_caps(gdims, gst, gst[0], 0), gdims,
+                          lb, lc)
+    plain_ms, fin = event_ms(functools.partial(
+        torch_engine.forward_sweep_torch_async, a[:m], b, c, DEFAULT,
+        mode="free", capture_m=m, device=CUDA))
+    f_e, s_e = fin()
+    g_e = torch_engine.backward_slab_torch_async(a[m:], b, c, DEFAULT,
+                                                 end_v=end_v, device=CUDA)()
+    err = 0
+    for got, want, what in (
+            (f_slab, torch.from_numpy(s_e).to(CUDA), "F capture"),
+            (fst[-1].state.out, torch.from_numpy(f_e).to(CUDA), "F final"),
+            (g_slab, torch.from_numpy(g_e).to(CUDA).flip(1, 2), "G capture")):
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"K5 per tile in 2 stripes, 1024^3 top split: {what} != the "
+                "torch engine's")
+        err = max(err, _diff(got, want))
+    # Three distinct halves of |A| = 512 against the same B and C.
+    ms = time_cuda_ms(forward, [(a[:m],), (a[m:].copy(),),
+                                (a[:m][::-1].copy(),)])
+    nbytes = 4 * (m + lb + lc + fst[0].state.cap.numel() + NUM_MATRICES)
+    bms, by = bound(m * lb * lc, nbytes, dev)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": err,
+            "sample": f"the 1024^3 sharded traceback's top split, "
+                      f"{m}x{lb}x{lc} free, 2 stripes; plain: torch engine"}
+
+
+def phase_halo_tb(rng, dev, tb_case) -> dict:
+    """The sharded traceback (dist/halo_tb.py) on K5's per-tile form: exact
+    against slab_ref in runs and stripes for every variant under default
+    and 16-symbol scoring; then hirschberg_align_sharded on the traceback
+    phase's 1024^3 triplet in 2 stripes, with single_cells lowered so that
+    two levels split on the stripes: it rescores to the score path's score
+    and holds the inputs; its top split's two slab sweeps in stripes
+    against the torch engine (slab_split_tiles).  Returns K5's per-tile
+    summary row."""
+    checked, err = [], 0
+    for name in ("default", "sub16"):
+        for variant in sk.VARIANTS:
+            err = max(err, slab_tiles_case(rng, name, variant))
+        checked.append(f"(10, 30, 40)/(9, 9)/{name}/runs of 3, 7/2, 3 "
+                       "stripes")
+
+    trip, rec = tb_case
+    splits = []
+    real = halo_tb.sharded_split_point
+
+    def spy(a, b, c, m, *args, **kwargs):
+        splits.append([len(a), kwargs.get("mode")])
+        return real(a, b, c, m, *args, **kwargs)
+
+    halo_tb.sharded_split_point = spy
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        score, rows = halo_tb.hirschberg_align_sharded(
+            *trip, mesh=card_mesh(1, 2), single_cells=64 << 20)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        halo_tb.sharded_split_point = real
+    require(len(splits) >= 2 and splits[0][0] == len(trip[0]),
+            f"fewer than two levels split on the stripes: {splits}")
+    require(launches["slab_tiles"] > 0 and not launches["slab"],
+            f"the sharded traceback did not run K5's per-tile form: "
+            f"{launches}")
+    require(score == rec["score"], f"sharded traceback {score} != "
+            f"{rec['score']}")
+    rescored = rescore_alignment(rows)
+    require(rescored == score, f"sharded alignment rescores {rescored}")
+    for row, seq in zip(rows, trip):
+        require([v for v in row if v != -1] == [int(x) for x in seq],
+                "a sharded alignment row without its gaps is not its input")
+    row = slab_split_tiles(trip, dev)
+    err = max(err, row.pop("max_abs_err"))
+    row.update(max_abs_err=err, launches=launches["slab_tiles"],
+               main_path_s=seconds)
+    emit(phase="halo_tb", cases=checked, max_abs_err=err,
+         sharded_1024={"stripes": 2, "single_cells": 64 << 20,
+                       "score": score, "seconds": seconds,
+                       "splits": splits, "launches": launches,
+                       "columns": len(rows[0])},
+         align_return_alignment_1024_s=rec["seconds"], per_tile=row)
+    return row
+
+
+def hetero_tiles_case(trips, scoring, block) -> int:
+    """K4's per-tile form in runs of 2 and 11 table entries against
+    hetero_ref's whole sweep: faces and final values, exactly."""
+    batch = hk.prep_hetero(trips, *block, CUDA)
+    want = hk.new_state(batch)
+    hk.hetero_ref(batch, scoring, want)
+    err = 0
+    n = len(batch.tiles)
+    for every in (2, 11):
+        got = hk.new_state(batch)
+        for idx in range(0, n, every):
+            hk.sweep_tiles(batch, got, idx, min(every, n - idx), scoring)
+        for g, w, f in zip(got, want, want._fields):
+            require(torch.equal(g, w), f"K4 per tile {block} runs of "
+                    f"{every}: {f} != hetero_ref's")
+            err = max(err, _diff(g, w))
+    return err
+
+
+def hetero_in_runs(batch, step=None):
+    """K4's per-tile form over a whole dispatch from a fresh state: runs of
+    ``step`` table entries, or one diagonal a run (as the sharded mosaic
+    sweeps) if None; the final values."""
+    state = hk.new_state(batch)
+    if step is None:
+        bounds = batch.diag_start
+    else:
+        bounds = list(range(0, len(batch.tiles), step)) + [len(batch.tiles)]
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        hk.sweep_tiles(batch, state, int(lo), int(hi - lo))
+    return state.out
+
+
+def phase_sharded_batch(rng, batch, batch_scores) -> dict:
+    """The data axis: K4's per-tile form against hetero_ref in runs that end
+    mid-diagonal (default and sub4 scoring; the hetero phase holds K4 under
+    four); align_batch_sharded on the 1024-triplet batch over 2 data
+    slots sharing the card (K4's per-tile form, one diagonal a slot in
+    turn), equal to the batch phase's scores; align_batch_resilient(mesh=)
+    with a failure as a slot packs its second dispatch.  Returns K4's
+    per-tile summary row without its times, which the timings phase takes
+    at the batch's scale (time_hetero)."""
+    lens = [(20, 30, 12), (3, 5, 4), (0, 4, 3), (7, 17, 40), (1, 1, 1),
+            (25, 9, 26), (60, 70, 50)]
+    checked, err = [], 0
+    for name in ("default", "sub4"):
+        scoring, _, nsym = VARIANTS[name]
+        trips = [triplet(rng, n, nsym) for n in lens]
+        for block in ((9, 17), bk.choose_block_shape(0, 0, 0)):
+            err = max(err, hetero_tiles_case(trips, scoring, block))
+            checked.append(f"{len(trips)} problems/{block}/{name}")
+
+    m = card_mesh(2, 1)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    scores = trialign_torch.align_batch_sharded(batch, mesh=m)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    require(scores == batch_scores, "align_batch_sharded != align_batch")
+    err = max(err, max(abs(a - b) for a, b in zip(scores, batch_scores)))
+    require(launches["hetero_tiles"] > 0 and not launches["hetero"],
+            f"the sharded batch did not run K4's per-tile form: {launches}")
+    runs_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = trialign_torch.align_batch_sharded(batch, mesh=m)
+        torch.cuda.synchronize()
+        runs_s.append(time.perf_counter() - t0)
+        require(again == scores, "a sharded rerun disagrees")
+
+    # align_batch_resilient on 256 of the batch over the 2 slots in K4
+    # dispatches of 64 (two a slot), a failure raised as a slot packs its
+    # second dispatch: the dispatches swept by then drain, and only the
+    # rest is dispatched again.
+    sub = batch[:256]
+    sizes, fired, preps = [], [], {"n": 0}
+    real_plan, real_prep = hk.plan_dispatches, hk.prep_hetero
+
+    def flaky_prep(*args, **kwargs):
+        preps["n"] += 1
+        if preps["n"] == 3:
+            raise RuntimeError("injected failure packing a second dispatch")
+        return real_prep(*args, **kwargs)
+
+    def batch_fn(trips, scoring, mesh=None, on_scores=None):
+        sizes.append(len(trips))
+        require(mesh is m, "align_batch_resilient dropped the mesh")
+
+        def record(i, s):
+            fired.append(len(sizes))
+            on_scores(i, s)
+
+        return mosaic.align_batch_mosaic(trips, scoring, mesh=mesh,
+                                         on_scores=record)
+
+    hk.plan_dispatches = functools.partial(real_plan, max_problems=64)
+    hk.prep_hetero = flaky_prep
+    try:
+        got = resilience.align_batch_resilient(sub, mesh=m,
+                                               batch_fn=batch_fn,
+                                               backoff_s=0.0)
+    finally:
+        hk.plan_dispatches, hk.prep_hetero = real_plan, real_prep
+    first = fired.count(1)
+    require(first >= 64 and sizes == [256, 256 - first],
+            f"dispatched {sizes} with {first} scores drained before the "
+            "failure")
+    require(got == batch_scores[:256], "align_batch_resilient(mesh) != batch")
+
+    row = {"max_abs_err": err, "launches": launches["hetero_tiles"],
+           "main_path_s": min(runs_s)}
+    best = row["main_path_s"]
+    emit(phase="sharded_batch", cases=checked, max_abs_err=err,
+         batch={"triplets": len(batch), "data_slots": 2, "first_s": first_s,
+                "runs_s": runs_s, "best_s": best,
+                "gcups": batch_cells(batch) / best / 1e9,
+                "triplets_per_s": len(batch) / best, "launches": launches},
+         resilient={"triplets": len(sub), "dispatch_size": 64,
+                    "attempt_sizes": sizes, "drained_before_failure": first},
+         per_tile=row)
+    return row
+
+
+# The multihost phase's striped triplet, tile plane and split gate.
+MH_HALO, MH_BLOCK, MH_SINGLE = (64, 400, 600), (33, 33), 2 << 20
+
+
+def start_multihost() -> list:
+    """Start the multihost phase's two worker processes (``python -m
+    trialign_torch.dist.worker``, gloo, both on the one card)."""
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    args = ["--device", CUDA.type, "--halo", ",".join(map(str, MH_HALO)),
+            "--block", ",".join(map(str, MH_BLOCK)),
+            "--single-cells", str(MH_SINGLE)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "trialign_torch.dist.worker",
+         f"tcp://localhost:{port}", "2", str(rank), *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+        for rank in range(2)]
+    return procs, time.perf_counter()
+
+
+def phase_multihost(procs, t0) -> None:
+    """The two workers of :func:`start_multihost`: align_batch_multihost
+    over a data axis across them, a halo whose model axis spans them and
+    the sharded traceback across them, each equal to this process's run of
+    the same functions."""
+    from trialign_torch.dist.worker import inputs
+
+    try:
+        trips, halo_trip = inputs(MH_HALO)
+        one = card_mesh(1, 1)
+        want = {
+            "scores": trialign_torch.align_batch_sharded(
+                trips, mesh=card_mesh(4, 1)),
+            "halo_values": cpu_ints(dh.halo_values(
+                *halo_trip, mesh=one, block_shape=MH_BLOCK))}
+        score, rows = halo_tb.hirschberg_align_sharded(
+            *halo_trip, mesh=one, single_cells=MH_SINGLE,
+            block_shape=MH_BLOCK)
+        want.update(tb_score=score, tb_rescore=rescore_alignment(rows),
+                    tb_rows=rows)
+        require(want["tb_score"] == want["tb_rescore"]
+                == max(want["halo_values"])
+                == trialign_torch.align(*halo_trip, device=CUDA).score,
+                f"one-process multihost references disagree: {want}")
+        outs = []
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            require(p.returncode == 0, f"worker exited {p.returncode}: "
+                    f"{err[-2000:]}")
+            outs.append(json.loads([ln for ln in out.splitlines()
+                                    if ln.startswith("{")][-1]))
+    finally:
+        for p in procs:
+            p.kill()
+    seconds = time.perf_counter() - t0
+    for rank, rec in enumerate(outs):
+        for key, value in want.items():
+            require(rec[key] == value, f"rank {rank}: {key} differs from the "
+                    "one-process run")
+    emit(phase="multihost", processes=2, backend="gloo",
+         batch_scores=want["scores"], halo=list(MH_HALO),
+         halo_values=want["halo_values"], tb_score=want["tb_score"],
+         seconds=seconds)
+
+
 def run_cli(*args) -> tuple:
     """Run the port's CLI in a subprocess from the repository's root; its
     (stdout, seconds)."""
@@ -1079,25 +1557,47 @@ def run_cli(*args) -> tuple:
     return out.stdout, time.perf_counter() - t0
 
 
-def phase_cli() -> None:
-    out, selftest_s = run_cli("selftest")
+def phase_cli(rng) -> None:
+    """selftest, align, bench and batch --sharded run at once (each process
+    spends most of its seconds starting), so bench's ms shares the card and
+    is no measurement: the timings phase times K3 alone."""
+    from trialign_torch.config import decode
+
+    data = os.path.join(ROOT, "trialign_torch", "io", "data")
+    # batch --sharded: 70 triplets (the mosaic route over the card's data
+    # slot), equal to align_batch.
+    trips = batch_triplets(rng, 70, (16, 200))
+    with tempfile.NamedTemporaryFile("w", suffix=".tsv", delete=False) as f:
+        for t in trips:
+            f.write(" ".join(decode(x) for x in t) + "\n")
+    runs = {"selftest": ("selftest",),
+            "align": ("align", "--json", *(
+                x for n in "abc" for x in (
+                    f"--{n}-file", os.path.join(data, f"{n.upper()}_seq.dat")))),
+            "batch_sharded": ("batch", "--tsv", f.name, "--sharded"),
+            "bench": ("bench", "--size", "1024", "--json")}
+    with ThreadPoolExecutor(len(runs)) as ex:
+        done = dict(zip(runs, ex.map(lambda a: run_cli(*a), runs.values())))
+    os.remove(f.name)
+    out = done["selftest"][0]
     lines = out.strip().splitlines()
     require(len(lines) == 8 and all(ln.endswith("OK") for ln in lines[:-1])
             and lines[-1] == "backend: cuda  ->  PASS",
             f"cli selftest: {out}")
-    data = os.path.join(ROOT, "trialign_torch", "io", "data")
-    out, align_s = run_cli("align", "--json", *(
-        x for n in "abc" for x in (f"--{n}-file",
-                                   os.path.join(data, f"{n.upper()}_seq.dat"))))
-    got = json.loads(out)
+    got = json.loads(done["align"][0])
     want = align_planes_numpy(*load_reference_triplet())
     require(got["score"] == want, f"cli align {got} != golden {want}")
-    out, bench_s = run_cli("bench", "--size", "1024", "--json")
-    bench = json.loads(out)
+    want = [f"{i}\t{r.score}" for i, r in
+            enumerate(trialign_torch.align_batch(trips))]
+    require(done["batch_sharded"][0].strip().splitlines() == want,
+            "cli batch --sharded != align_batch")
+    bench = json.loads(done["bench"][0])
     require(bench["parity"] == "exact" and bench["mode"] == "blocked",
             f"cli bench: {bench}")
-    emit(phase="cli", selftest=lines, selftest_s=selftest_s, align=got,
-         align_s=align_s, bench=bench, bench_s=bench_s)
+    emit(phase="cli", selftest=lines, align=got,
+         bench={k: bench[k] for k in ("size", "mode", "parity", "device")},
+         batch_sharded={"triplets": len(trips)},
+         seconds={k: v[1] for k, v in done.items()})
 
 
 def _inputs(rng, shape, count=4):
@@ -1156,15 +1656,14 @@ def hetero_bound(trips, dev) -> tuple:
 
 
 def time_hetero(rng, trips, dev) -> dict:
-    """K4 and hetero_ref on one sample dispatch of the batch's problems (the
-    one with the most cells, the one with the fewest and one at random), held
-    equal and timed on that same dispatch; then K4 at the whole 1024-triplet
-    batch (that batch and two more like it), the host's packing of its
-    dispatch and its bound."""
+    """K4, its per-tile form and hetero_ref on one sample dispatch of the
+    batch's problems (the one with the most cells and the one with the
+    fewest; the third, random one of earlier runs cost ~25 s of
+    hetero_ref), held equal and timed on that same dispatch; then K4 at the
+    whole 1024-triplet batch (that batch and two more like it), the host's
+    packing of its dispatch and its bound."""
     sizes = [len(a) * len(b) * len(c) for a, b, c in trips]
     pick = [int(np.argmax(sizes)), int(np.argmin(sizes))]
-    pick.append(int(rng.choice([i for i in range(len(trips))
-                                if i not in pick])))
     rot = [mosaic._rotate(trips[i], DEFAULT) for i in pick]
     sample = hk.prep_hetero(rot, *bk.choose_block_shape(0, 0, 0), CUDA)
     # The kernel is deterministic, so three trials of one dispatch.
@@ -1176,6 +1675,17 @@ def time_hetero(rng, trips, dev) -> dict:
             f"hetero_ref {cpu_ints(want)}")
     cells = batch_cells(rot)
     bms, by = hetero_bound(rot, dev)
+    # K4's per-tile form on the same dispatch: one diagonal a run, as the
+    # sharded mosaic sweeps (timed), and runs of a quarter of the table,
+    # which end mid-diagonal; each against the same hetero_ref result.
+    tiles_ms = time_cuda_ms(hetero_in_runs, [(sample,)] * 3)
+    tiles_err = 0
+    for step in (None, max(1, len(sample.tiles) // 4)):
+        tiles_got = hetero_in_runs(sample, step)
+        require(torch.equal(tiles_got, want), f"K4 per tile in runs of "
+                f"{step or 'one diagonal'} on the batch's problems: "
+                f"{cpu_ints(tiles_got)} != hetero_ref {cpu_ints(want)}")
+        tiles_err = max(tiles_err, _diff(tiles_got, want))
 
     batches = [trips] + [batch_triplets(rng) for _ in range(2)]
     t0 = time.perf_counter()
@@ -1189,6 +1699,12 @@ def time_hetero(rng, trips, dev) -> dict:
             "plain": "hetero_ref on the same dispatch, one run",
             "plain_ms": plain_ms, "plain_gcups": gcups(cells, plain_ms),
             "bound_ms": bms, "bound_by": by, "max_abs_err": _diff(got, want),
+            "tiles": {"ms": tiles_ms, "plain_ms": plain_ms, "bound_ms": bms,
+                      "bound_by": by, "max_abs_err": tiles_err,
+                      "cells": cells,
+                      "sample": "the batch's largest and smallest problems, "
+                                "one diagonal a run; plain: the same "
+                                "hetero_ref run as K4's"},
             "batch": {"ms": batch_ms, "gcups": gcups(batch_cells(trips),
                                                      batch_ms),
                       "triplets": len(trips), "cells": batch_cells(trips),
@@ -1286,28 +1802,48 @@ def main() -> int:
     k5_err = phase_slab(rng)
     k4_err = phase_hetero(rng)
     launches, headline = phase_main_path(rng)
-    launches["slab"] = phase_traceback(rng)
+    launches["slab"], tb_case = phase_traceback(rng)
     launches["hetero"], batch, batch_scores = phase_batch(rng)
     # K6's measured peak first: every bound below divides by it.
     k6 = phase_vpu(rng, dev)
     tiles = phase_checkpoint(rng, dev, headline, batch, batch_scores)
     chain = phase_chain(rng, dev)
+    halo = phase_halo(rng, headline)
+    tiles["max_abs_err"] = max(tiles["max_abs_err"], halo["max_abs_err"])
+    slab_tiles = phase_halo_tb(rng, dev, tb_case)
+    hetero_tiles = phase_sharded_batch(rng, batch, batch_scores)
     for name, row in (("blocked_tiles", tiles), ("blocked_chain", chain),
-                      ("vpu", k6)):
+                      ("vpu", k6), ("slab_tiles", slab_tiles),
+                      ("hetero_tiles", hetero_tiles)):
         launches[name] = row.pop("launches")
-    phase_cli()
+    # The two worker processes and the four CLI processes spend most of
+    # their seconds starting: they start together.
+    workers, t0 = start_multihost()
+    try:
+        phase_cli(rng)
+        phase_multihost(workers, t0)
+    finally:
+        for p in workers:
+            p.kill()
     phase_tuning(rng)
     rows, split_err = phase_timings(rng, dev, batch)
     k5_err = max(k5_err, split_err)
     k4 = rows["hetero_sample"]
     k4_err = max(k4_err, k4["max_abs_err"])
+    tiles_at_scale = k4.pop("tiles")
+    hetero_tiles["max_abs_err"] = max(hetero_tiles["max_abs_err"],
+                                      tiles_at_scale.pop("max_abs_err"))
+    hetero_tiles.update(tiles_at_scale)
     require("jax" not in sys.modules and "trialign" not in sys.modules,
             "JAX or the JAX package was imported")
     split = "x".join(map(str, SPLIT_SHAPE))
-    # K4's, the per-tile form's, chain mode's and K6's ms, plain_ms and
-    # bound_ms are of a sample on which the plain version finishes (it would
-    # take minutes to hours at the main path's shapes); the main path's
-    # kernel ms stand beside them.
+    # K3's per-tile form's, chain mode's and K6's ms, plain_ms and bound_ms
+    # are of a sample on which the plain version finishes (it would take
+    # minutes to hours at the main path's shapes), with the main path's
+    # kernel ms beside them; K4's and its per-tile form's are of two of the
+    # batch's problems, its largest and its smallest; K5's per-tile form's
+    # are at the 1024^3 sharded traceback's top split.  Eight pallas_call
+    # sites, nine rows: K3's chain mode keeps a row of its own.
     kernels = [
         ("wavefront", "wavefront", "trialign/kernels/wavefront.py:112",
          k2_err, rows["wavefront_255"], {}),
@@ -1321,8 +1857,12 @@ def main() -> int:
          {"cells": k4["cells"], "batch_ms": k4["batch"]["ms"],
           "batch_bound_ms": k4["batch"]["bound_ms"],
           "batch_cells": k4["batch"]["cells"]}),
+        ("hetero_tiles", "hetero", "trialign/kernels/blocked.py:1075",
+         hetero_tiles.pop("max_abs_err"), hetero_tiles, hetero_tiles),
         ("slab", "slab", "trialign/kernels/slab.py:74", k5_err,
          rows[f"slab_free_{split}"], {}),
+        ("slab_tiles", "slab", "trialign/kernels/slab.py:587",
+         slab_tiles.pop("max_abs_err"), slab_tiles, slab_tiles),
         ("vpu", "vpu", "trialign/benchmarks.py:286", k6.pop("max_abs_err"),
          k6, k6),
     ]

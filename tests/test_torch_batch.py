@@ -79,9 +79,14 @@ def test_mosaic_on_scores_and_residue_route(rng, route):
 
 
 def test_mosaic_refuses_mesh_and_unknown_route(rng):
+    """A mesh is taken now: a CPU mesh of 2 data slots gives the scores of
+    no mesh.  An unknown residue route is still refused."""
+    from trialign_torch.dist.mesh import make_mesh
+
     trips = mixed(rng, 3)
-    with pytest.raises(NotImplementedError):
-        mosaic.align_batch_mosaic(trips, mesh=object(), device="cpu")
+    cpu2 = make_mesh(2, 1, devices=[torch.device("cpu")] * 2)
+    assert mosaic.align_batch_mosaic(trips, mesh=cpu2) == \
+        mosaic.align_batch_mosaic(trips, device="cpu")
     with pytest.raises(ValueError, match="residue_route"):
         mosaic.align_batch_mosaic(trips, residue_route="tall", device="cpu")
 

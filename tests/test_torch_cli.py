@@ -94,11 +94,16 @@ def test_batch_matches_reference(tmp_path, capsys):
     assert got[:4] == ["0\t12", "  A: ACGT", "  B: ACGT", "  C: ACGT"]
 
 
-def test_batch_sharded_names_the_multi_device_slice(tmp_path):
+def test_batch_sharded_names_the_multi_device_slice(tmp_path, capsys):
+    """batch --sharded (align_batch_sharded on one CPU slot) prints what
+    batch prints; --sharded --alignment is refused, as in the reference."""
     f = tmp_path / "trips.tsv"
-    f.write_text("ACGT ACGT ACGT\n")
-    with pytest.raises(SystemExit, match="multi-device slice"):
-        cli.main(["--cpu", "batch", "--tsv", str(f), "--sharded"])
+    f.write_text("ACGT ACGT ACGT\nAAAA TTTT CCCC\n\nACGTTGCA ACGTGCA "
+                 "CGTTGCA\n")
+    argv = ["batch", "--tsv", str(f)]
+    assert port(argv + ["--sharded"], capsys).out == port(argv, capsys).out
+    assert port(argv + ["--sharded"], capsys).out == \
+        reference(argv + ["--sharded"], capsys).out
     with pytest.raises(SystemExit, match="without --sharded"):
         cli.main(["--cpu", "batch", "--tsv", str(f), "--sharded",
                   "--alignment"])

@@ -223,3 +223,81 @@ def test_vpu_kernel_matches_plain(card, ops, dpx):
     got = vpu.vpu_chains(x.to(card), 3, ops, dpx)
     assert vpu.vpu_chains.launches == before + 1
     assert torch.equal(got.cpu(), vpu.vpu_ref(x, 3, ops, dpx))
+
+
+@pytest.mark.parametrize("variant", sorted(sk.VARIANTS))
+@pytest.mark.parametrize("name", ["sop", "sub16"])
+def test_slab_per_tile_form_matches_plain(card, name, variant):
+    """K5's per-tile form in runs of 3 and 7 tiles (4 x 5 tiles, most runs
+    ending mid-diagonal): the capture and final vector after the last run
+    equal slab_ref's whole sweep."""
+    scoring, nsym = SLAB_SCORINGS[name]
+    dims = (10, 30, 40)
+    a, b, c = (x.astype(np.int32) for x in triplet(11, dims, nsym))
+    ev = np.full(7, NEG, np.int32)
+    ev[3] = 0
+    d = sk._plan(*dims, (9, 9))
+    arrs = sk.prep_blocked(a, b, c, d, card)
+    f_r, cap_r = sk.slab_ref(*arrs, *dims, d, variant, ev, scoring)
+    before = sk.sweep_tiles.launches
+    for every in (3, 7):
+        state = sk.new_state(*dims, d, ev, card)
+        n = bk.n_tiles(d)
+        for idx in range(0, n, every):
+            sk.sweep_tiles(*arrs, *dims, d, variant, state, idx,
+                           min(every, n - idx), scoring)
+        assert torch.equal(state.cap, cap_r)
+        if variant != "bwd":
+            assert torch.equal(state.out, f_r)
+    assert sk.sweep_tiles.launches > before
+
+
+@pytest.mark.parametrize("name", sorted(SCORINGS))
+def test_hetero_per_tile_form_matches_plain(card, name):
+    """K4's per-tile form in runs of 2 and 11 table entries: the faces and
+    final values equal hetero_ref's whole sweep."""
+    scoring, nsym = SCORINGS[name]
+    rng = np.random.default_rng(12)
+    trips = [tuple(rng.integers(0, nsym, n).astype(np.uint8) for n in lens)
+             for lens in ((20, 30, 12), (3, 5, 4), (0, 4, 3), (7, 17, 40),
+                          (1, 1, 1), (25, 9, 26))]
+    batch = hetero.prep_hetero(trips, 9, 9, card)
+    want = hetero.new_state(batch)
+    hetero.hetero_ref(batch, scoring, want)
+    before = hetero.sweep_tiles.launches
+    for every in (2, 11):
+        got = hetero.new_state(batch)
+        n = len(batch.tiles)
+        for idx in range(0, n, every):
+            hetero.sweep_tiles(batch, got, idx, min(every, n - idx), scoring)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert hetero.sweep_tiles.launches > before
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_halo_on_card_matches_whole_sweep(card, overlap):
+    """Two stripes sharing the card, each on its own stream, the face copy
+    on a copy stream or on the stripe's: K3's whole-grid values."""
+    from trialign_torch.dist import halo, mesh
+
+    dims = (40, 200, 300)
+    trip = triplet(13, dims)
+    d = bk.plan_dims(*dims, 33, 33)
+    want = bk.final_values(*bk.prep_blocked(*trip, d, card), *dims, d)
+    m = mesh.make_mesh(1, 2, devices=[card, card])
+    got = halo.halo_values(*trip, mesh=m, block_shape=(33, 33),
+                           overlap=overlap)
+    assert torch.equal(got, want.cpu())
+
+
+def test_sharded_traceback_on_card_rescores(card):
+    """Splits swept in 2 stripes on the card: the golden score and an
+    alignment that rescores to it."""
+    from trialign_torch.dist import halo_tb, mesh
+
+    a, b, c = triplet(14, (40, 50, 60))
+    m = mesh.make_mesh(1, 2, devices=[card, card])
+    score, rows = halo_tb.hirschberg_align_sharded(
+        a, b, c, mesh=m, single_cells=20000, block_shape=(9, 17))
+    assert score == align_planes_numpy(a, b, c) == rescore_alignment(rows)

@@ -68,8 +68,9 @@ def test_no_module_of_the_port_imports_the_jax_package():
 
 def test_port_imports_with_jax_and_the_jax_package_blocked():
     """Every module of the port and chip_smoke.py import, and align()
-    recovers an alignment on the CPU, with ``jax`` and ``trialign``
-    unimportable.  A subprocess, since this one has imported both."""
+    recovers an alignment, a batch scores and a 2-stripe halo runs (score
+    and alignment) on the CPU, with ``jax`` and ``trialign`` unimportable.
+    A subprocess, since this one has imported both."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -90,6 +91,13 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "rs = trialign_torch.align_batch([(s, s, s), (s, s[:0], s)],\n"
         "                                device='cpu')\n"
         "assert [x.score for x in rs] == [15, 0], rs\n"
+        "from trialign_torch.dist import halo, mesh\n"
+        "m = mesh.make_mesh(1, 2, devices=[torch.device('cpu')] * 2)\n"
+        "assert halo.align_sharded_triplet(s, s, s, mesh=m,\n"
+        "                                  block_shape=(3, 3)) == 15\n"
+        "sc, rows = halo.align_sharded_triplet(s, s, s, mesh=m,\n"
+        "    block_shape=(3, 3), return_alignment=True)\n"
+        "assert sc == 15, sc\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
         "       m.split('.')[0] in ('jax', 'trialign')]\n"
         "assert not bad, bad\n"
@@ -102,7 +110,8 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert len(names) >= 15
     for new in ("kernels.hetero", "kernels.chain", "kernels.mosaic",
                 "dist.batch", "checkpoint", "resilience", "metrics", "cli",
-                "benchmarks", "kernels.vpu"):
+                "benchmarks", "kernels.vpu", "dist.mesh", "dist.halo",
+                "dist.halo_tb", "dist.worker"):
         assert f"trialign_torch.{new}" in names
 
 

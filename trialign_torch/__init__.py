@@ -9,11 +9,13 @@ many triplets a launch, and smaller ones through the first two.
 Hirschberg/direct engine (``traceback/``), whose biggest splits run on the
 slab kernel.  ``align_resilient`` checkpoints a long blocked sweep and
 resumes it after a failure; ``align_batch_resilient`` re-dispatches only the
-unscored problems of a failed batch.  The package keeps its own copies of
-the scoring, encoding, golden models, datasets and host C++ oracle
-(``config``, ``golden``, ``io``, ``native``): it imports neither JAX nor the
-JAX package ``trialign``.  ``python -m trialign_torch.cli`` is its command
-line.
+unscored problems of a failed batch.  ``dist/`` spreads a batch over a
+mesh of devices and processes (``align_batch_sharded``) and one long
+triplet over stripes of its tile grid (``dist.halo``, ``dist.halo_tb``).
+The package keeps its own copies of the scoring, encoding, golden models,
+datasets and host C++ oracle (``config``, ``golden``, ``io``, ``native``):
+it imports neither JAX nor the JAX package ``trialign``.
+``python -m trialign_torch.cli`` is its command line.
 """
 
 from trialign_torch.config import Scoring, decode, encode  # noqa: F401
@@ -29,4 +31,8 @@ def __getattr__(name):
         from trialign_torch import resilience
 
         return getattr(resilience, name)
+    if name in ("align_batch_bucketed", "align_batch_sharded"):
+        from trialign_torch.dist import batch
+
+        return getattr(batch, name)
     raise AttributeError(f"module 'trialign_torch' has no attribute {name!r}")

@@ -87,9 +87,9 @@ SIGNATURES = {
     },
     "slab": {
         "trialign_slab_shared_bytes": (_I, [_I, _I]),
-        "trialign_slab_diag": (
-            _I, [_P, _P, _P, SlabGeom, _I, _P, _P, StepScoring, _P, _P, _P,
-                 _P, _P]),
+        "trialign_slab_tiles": (
+            _I, [_P, _P, _P, SlabGeom, _I, _I, _I, _P, _P, StepScoring, _P,
+                 _P, _P, _P, _P]),
     },
     "vpu": {
         "trialign_vpu_threads": (_I, []),

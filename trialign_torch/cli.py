@@ -14,7 +14,7 @@ Examples:
   python -m trialign_torch.cli align --a ACGTACGT --b ACGACGT --c ACTTACG --alignment
   python -m trialign_torch.cli align --a-file dat/A_seq.dat --b-file dat/B_seq.dat \\
       --c-file dat/C_seq.dat --backend golden
-  python -m trialign_torch.cli batch --tsv triplets.tsv
+  python -m trialign_torch.cli batch --tsv triplets.tsv [--sharded]
   python -m trialign_torch.cli --cpu selftest
 """
 
@@ -175,12 +175,17 @@ def cmd_batch(args) -> int:
         raise SystemExit("--alignment is score+path recovery on the host "
                          "path; run it without --sharded")
     if args.sharded:
-        raise SystemExit(
-            "--sharded spreads a batch over several devices "
-            "(align_batch_sharded), which the port gains in its "
-            "multi-device slice (ROADMAP queue 1, item 2); run without "
-            "--sharded for the one-device batch path"
-        )
+        import torch
+
+        from trialign_torch.dist.batch import align_batch_sharded
+        from trialign_torch.dist.mesh import default_mesh, make_mesh
+
+        mesh = (default_mesh() if args.device == "cuda"
+                else make_mesh(devices=[torch.device("cpu")]))
+        for i, s in enumerate(align_batch_sharded(trips, _scoring(args),
+                                                  mesh)):
+            print(f"{i}\t{s}")
+        return 0
     results = align_batch(trips, scoring=_scoring(args),
                           return_alignment=args.alignment,
                           device=args.device)
@@ -315,8 +320,8 @@ def main(argv=None) -> int:
     p = sub.add_parser("batch", help="align triplets from a TSV (a b c per line)")
     p.add_argument("--tsv", required=True)
     p.add_argument("--sharded", action="store_true",
-                   help="data-parallel across devices: not in the port yet "
-                        "(its multi-device slice); exits with an error")
+                   help="data-parallel across this process's devices "
+                        "(align_batch_sharded; with --cpu one CPU slot)")
     p.add_argument("--alignment", action="store_true",
                    help="recover every alignment (threaded C++ engine / "
                         "Hirschberg engine; incompatible with --sharded)")

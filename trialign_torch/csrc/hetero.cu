@@ -23,6 +23,11 @@
 // problem with an empty sequence has no tiles and keeps the zeros the
 // wrapper put in out[p].
 //
+// Per-tile form (trialign/kernels/blocked.py:make_hetero_block_call, which
+// the reference's interpret fallback runs one block a call): the host passes
+// any run of one diagonal's table entries, so a sweep may stop and resume
+// between two entries with its faces and outputs left in device memory.
+//
 // Bound on the card: as K3, a pillar is bound by shared-memory loads (43 a
 // cell) and one barrier a plane (csrc/pillar.cuh); with many problems a
 // launch holds thousands of tiles, so the SMs stay busy and the batch is
@@ -82,8 +87,8 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// Launch K4 for the `ntiles` (problem, jb) pairs of global tile
-// anti-diagonal d on `stream`.  syms: every problem's symbol arrays, laid
+// Launch K4 for `ntiles` (problem, jb) pairs of global tile anti-diagonal d
+// (all of them, or any run of them) on `stream`.  syms: every problem's symbol arrays, laid
 // out as K3's (A_i at a_off + i, B_j at b_off + j with sentinels past |B|,
 // C likewise); geom: kGeomFields int64 per problem; tiles: 2 ints a tile;
 // rf, cf: the face slabs of every problem at their offsets; out: 7 ints a

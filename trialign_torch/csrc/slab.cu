@@ -1,9 +1,10 @@
 // K5: the slab sweep of alignment recovery, with capture of the plane i = |A|.
 //
 // Replaces trialign/kernels/slab.py:_slab_sweep as launched by
-// make_slab_grid_call.  It is K3's tiled sweep (csrc/blocked.cu: tiles of
-// tb x tc cells with a one-cell halo, faces in skewed global slabs, one launch
-// per tile anti-diagonal) plus three things the Hirschberg split needs:
+// make_slab_grid_call and by make_slab_block_call.  It is K3's tiled sweep
+// (csrc/blocked.cu: tiles of tb x tc cells with a one-cell halo, faces in
+// skewed global slabs, one launch per tile anti-diagonal) plus three things
+// the Hirschberg split needs:
 //
 // * Capture.  Every position (jl, kl) of a tile, halo included, is written
 //   once to cap[blk][t][jl][kl] on the plane where its global i equals |A|.
@@ -24,6 +25,13 @@
 // reads 43 values a cell from the plane ring in shared memory, and a barrier
 // ends each plane; the grid is bound by the tiles of one anti-diagonal.  The
 // capture adds one write of 7 ints for each cell of the i = |A| plane.
+//
+// Per-tile form (trialign/kernels/slab.py:make_slab_block_call, which the
+// halo-sharded traceback runs one block a call): a launch runs any run of
+// one anti-diagonal's tiles, (jb_lo .. jb_lo + ntiles - 1, d - jb).  Tile
+// indices are always global, so borders, the variant's fill, the target
+// tile and the symbols are decided as in the whole sweep; the per-tile scalar
+// table names the face slabs a tile reads and writes.
 //
 // Design: the tile plane carries a guard row and column (index -1) that are
 // set to the variant's fill and never written, so an edge cell's
@@ -275,18 +283,20 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 int launch(const int* a, const int* b, const int* c, const SlabGeom& g, int d,
-           const int* scal, const int* sub, StepScoring s, int* rf, int* cf,
-           int* out, int* cap, cudaStream_t stream) {
-  const int jb_lo = d - (g.n_kb - 1) > 0 ? d - (g.n_kb - 1) : 0;
-  const int jb_hi = d < g.n_jb - 1 ? d : g.n_jb - 1;
-  if (d < 0 || jb_hi < jb_lo || g.variant < kFree || g.variant > kBwd ||
-      s.nsym < 0 || s.nsym > kSlabMaxSym)
+           int jb_lo, int ntiles, const int* scal, const int* sub,
+           StepScoring s, int* rf, int* cf, int* out, int* cap,
+           cudaStream_t stream) {
+  const int lo = d - (g.n_kb - 1) > 0 ? d - (g.n_kb - 1) : 0;
+  const int hi = d < g.n_jb - 1 ? d : g.n_jb - 1;
+  if (d < 0 || ntiles < 1 || jb_lo < lo || jb_lo + ntiles - 1 > hi ||
+      g.variant < kFree || g.variant > kBwd || s.nsym < 0 ||
+      s.nsym > kSlabMaxSym)
     return (int)cudaErrorInvalidValue;
   const size_t smem = shared_bytes(g.hb, g.wc);
   cudaError_t err = cudaFuncSetAttribute(
       slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  slab_kernel<<<jb_hi - jb_lo + 1, kThreads, smem, stream>>>(
+  slab_kernel<<<ntiles, kThreads, smem, stream>>>(
       a, b, c, g, d, jb_lo, scal, sub, s, rf, cf, out, cap);
   return (int)cudaGetLastError();
 }
@@ -301,20 +311,24 @@ int trialign_slab_shared_bytes(int hb, int wc) {
   return (int)trialign::shared_bytes(hb, wc);
 }
 
-// Launch K5 for the tiles of anti-diagonal d on `stream`.  a: A_i at index i
-// for 0 <= i <= |A| (index 0 a sentinel); b: n_jb * tb + 1 symbols (B_j at
-// index j), c likewise with n_kb * tc + 1; scal: (n_jb * n_kb, 16) ints, one
-// row per tile (row jb * n_kb + kb); rf: n_kb * nrows * 7 * wc ints; cf:
-// n_jb * nrows * 7 * hb ints; out: 7 ints, written by the forward variants'
-// target tile; cap: (n_jb * n_kb, 7, hb, wc) ints, every entry written.
-// Diagonals must be launched in order 0 .. n_jb + n_kb - 2 on one stream.
-// Returns cudaGetLastError() (or the error of cudaFuncSetAttribute).
-int trialign_slab_diag(const int* a, const int* b, const int* c,
-                       trialign::SlabGeom g, int d, const int* scal,
-                       const int* sub, trialign::StepScoring s, int* rf,
-                       int* cf, int* out, int* cap, void* stream) {
-  return trialign::launch(a, b, c, g, d, scal, sub, s, rf, cf, out, cap,
-                          (cudaStream_t)stream);
+// Launch K5 for tiles (jb_lo .. jb_lo + ntiles - 1, d - jb) of tile
+// anti-diagonal d on `stream`.  a: A_i at index i for 0 <= i <= |A| (index 0
+// a sentinel); b: n_jb * tb + 1 symbols (B_j at index j), c likewise with
+// n_kb * tc + 1; scal: (n_jb * n_kb, 16) ints, one row per tile (row
+// jb * n_kb + kb), whose columns 13 and 14 name the tile's row- and
+// column-face slabs; rf: 7 * wc ints a row, nrows rows a slab; cf: 7 * hb
+// ints a row, nrows rows a slab; out: 7 ints, written by the forward
+// variants' target tile; cap: (n_jb * n_kb, 7, hb, wc) ints, each tile's
+// entries written.  A tile runs after its upper and left neighbours on one
+// stream, or after an event that orders them.  Returns cudaGetLastError()
+// (or the error of cudaFuncSetAttribute).
+int trialign_slab_tiles(const int* a, const int* b, const int* c,
+                        trialign::SlabGeom g, int d, int jb_lo, int ntiles,
+                        const int* scal, const int* sub,
+                        trialign::StepScoring s, int* rf, int* cf, int* out,
+                        int* cap, void* stream) {
+  return trialign::launch(a, b, c, g, d, jb_lo, ntiles, scal, sub, s, rf, cf,
+                          out, cap, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,2 +1,3 @@
-"""Batches of independent triplets (the port of ``trialign/dist``); the
-multi-device parts wait for their slice."""
+"""Batches and long triplets over several devices and processes (the port
+of ``trialign/dist``): meshes, the halo and its traceback, sharded and
+multi-process batches."""

@@ -203,6 +203,12 @@ def tile_table(dims: Dims) -> List[Tuple[int, int]]:
             for jb in _diagonal(d, dims)]
 
 
+def tile_index(dims: Dims, d: int, jb: int) -> int:
+    """Index of tile (jb, d - jb) in :func:`tile_table`."""
+    return sum(len(_diagonal(e, dims)) for e in range(d)) + \
+        jb - _diagonal(d, dims).start
+
+
 def _runs(dims: Dims, idx0: int, count: int) -> Iterator[Tuple[int, int, int]]:
     """Tiles idx0 .. idx0 + count - 1 of :func:`tile_table` as runs of one
     anti-diagonal each: (d, first jb, tiles)."""

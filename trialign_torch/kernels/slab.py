@@ -24,11 +24,17 @@ kernels/blocked.py), :func:`_scal_table`, :func:`_assemble`,
 on ``device`` and returns a fetch closure.  On a CUDA tensor
 :func:`slab_sweep` launches K5; on a CPU tensor it runs :func:`slab_ref`,
 the plain torch version of the same tile schedule, faces and capture.
+
+The sweep state (:class:`SlabState`) stays on the device between launches,
+so :func:`sweep_tiles` runs any run of the tile table with global tile
+indices: K5's per-tile form, the port of ``make_slab_block_call``, on which
+the stripes of ``dist/halo_tb.py`` run.  :func:`slab_sweep` is that over the
+whole table.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -107,17 +113,59 @@ def _shifted(x: torch.Tensor, dj: int, dk: int, hb: int, wc: int):
     return x[..., 1 - dj : 1 - dj + hb, 1 - dk : 1 - dk + wc]
 
 
+class SlabState(NamedTuple):
+    """What a slab sweep carries from tile to tile, on its device: the face
+    slabs, the final vector, every tile's capture and the per-tile scalar
+    table the kernel reads (:func:`_scal_table`, which holds ``ev``).
+    Entries that no tile has written hold ``_UNWRITTEN``."""
+
+    rf: torch.Tensor    # (n_kb, nrows, 7, wc) int32 row faces
+    cf: torch.Tensor    # (n_jb, nrows, 7, hb) int32 column faces
+    out: torch.Tensor   # (7,) int32 final vector (forward variants)
+    cap: torch.Tensor   # (n_jb * n_kb, 7, hb, wc) int32 capture at i = |A|
+    scal: torch.Tensor  # (n_jb * n_kb, SCAL_COLS) int32
+
+
+def new_state(la: int, lb: int, lc: int, dims: Dims, ev,
+              device) -> SlabState:
+    """A fresh slab sweep state on ``device``; ``ev`` is the origin vector
+    of "pin" and "bwd" (ignored by "free" and "free_jk")."""
+    i32 = dict(dtype=torch.int32, device=device)
+    n_blocks = dims.n_jb * dims.n_kb
+    return SlabState(
+        torch.full((dims.n_kb, dims.nrows, NUM_MATRICES, dims.wc), _UNWRITTEN,
+                   **i32),
+        torch.full((dims.n_jb, dims.nrows, NUM_MATRICES, dims.hb), _UNWRITTEN,
+                   **i32),
+        torch.full((NUM_MATRICES,), _UNWRITTEN, **i32),
+        torch.full((n_blocks, NUM_MATRICES, dims.hb, dims.wc), _UNWRITTEN,
+                   **i32),
+        torch.from_numpy(_scal_table(la, lb, lc, ev, dims)).to(device),
+    )
+
+
 def slab_ref(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
-             variant: str, ev, scoring: Scoring = Scoring()):
-    """Plain torch version of K5: (final (7,), cap (n_blocks, 7, hb, wc)),
-    both int32 on the inputs' device.
+             variant: str, ev, scoring: Scoring = Scoring(),
+             state: Optional[SlabState] = None, idx0: int = 0,
+             count: Optional[int] = None):
+    """Plain torch version of K5: sweeps tiles idx0 .. idx0 + count - 1 of
+    ``blocked.tile_table`` (all by default) from ``state`` (a fresh one with
+    origin vector ``ev`` by default; ``ev`` is ignored when a state is
+    given), updating it in place, and returns its (final (7,), cap
+    (n_blocks, 7, hb, wc)), both int32 on the inputs' device.
 
     The same tile schedule, guarded plane ring, face slabs, categories of
     position (row face, column face, zero face, origin, step) and capture
-    as the kernel; the tiles of one anti-diagonal run as one batch.  Face and
-    capture entries that no tile wrote hold a large positive poison, so a
-    read of one shows."""
+    as the kernel, read from the same scalar table; the tiles of one run
+    go as one batch.  Tile indices are global, so a run may be any part of
+    the grid (a stripe of tile columns, a segment that ends mid-diagonal)."""
     dev = a_ext.device
+    if state is None:
+        state = new_state(la, lb, lc, dims, ev, dev)
+    if count is None:
+        count = bk.n_tiles(dims) - idx0
+    rf, cf, out, cap, scal_t = state
+    scal = scal_t.cpu().numpy()
     hb, wc = dims.hb, dims.wc
     tb, tc = hb - 1, wc - 1
     fwd = variant != "bwd"
@@ -128,24 +176,23 @@ def slab_ref(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
     i32 = dict(dtype=torch.int32, device=dev)
     negt = torch.tensor(NEG, **i32)
     zero = torch.tensor(0, **i32)
-    ev_t = torch.as_tensor(np.asarray(ev, np.int32), device=dev)
-    scal = _scal_table(la, lb, lc, ev, dims)
     jl = torch.arange(hb, device=dev).view(hb, 1)
     kl = torch.arange(wc, device=dev).view(1, wc)
     jk = jl + kl
-    nrows, n_blocks = dims.nrows, dims.n_jb * dims.n_kb
-    rf = torch.full((dims.n_kb, nrows, NUM_MATRICES, wc), _UNWRITTEN, **i32)
-    cf = torch.full((dims.n_jb, nrows, NUM_MATRICES, hb), _UNWRITTEN, **i32)
-    cap = torch.full((n_blocks, NUM_MATRICES, hb, wc), _UNWRITTEN, **i32)
-    final = torch.full((NUM_MATRICES,), _UNWRITTEN, **i32)
     ilo = 0 if walls else 1
     nq = la + tb + tc
 
-    for d in range(dims.n_jb + dims.n_kb - 1):
-        jbs = torch.tensor(list(bk._diagonal(d, dims)), device=dev)
+    for d, jb_lo, n in bk._runs(dims, idx0, count):
+        jb_np = np.arange(jb_lo, jb_lo + n)
+        blk_np = jb_np * dims.n_kb + (d - jb_np)
+        jbs = torch.from_numpy(jb_np).to(dev)
         kbs = d - jbs
-        n = len(jbs)
-        blks = jbs * dims.n_kb + kbs
+        blks = torch.from_numpy(blk_np).to(dev)
+        # The face slabs each tile reads and writes (scal columns 13, 14).
+        rsl = torch.from_numpy(scal[blk_np, 13].astype(np.int64)).to(dev)
+        csl = torch.from_numpy(scal[blk_np, 14].astype(np.int64)).to(dev)
+        ev_t = torch.from_numpy(scal[blk_np, 6:13]).to(dev).view(
+            n, NUM_MATRICES, 1, 1)
         jbv, kbv = jbs.view(n, 1, 1), kbs.view(n, 1, 1)
         bsym = b_ext[jbs.view(n, 1) * tb + jl.view(1, hb)].view(n, hb, 1)
         csym = c_ext[kbs.view(n, 1) * tc + kl.view(1, wc)].view(n, 1, wc)
@@ -157,7 +204,7 @@ def slab_ref(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
         zero_face = ((jl == 0) | (kl == 0)) & ~row_face & ~col_face & \
             (not walls)
         origin = (jl == 0) & (kl == 0) & (jbv == 0) & (kbv == 0) & walls
-        tgt = [p for p in range(n) if scal[int(blks[p]), 3] >= 0]
+        tgt = [p for p in range(n) if scal[blk_np[p], 3] >= 0]
 
         # Guarded ring: 3 slots of 7 planes and 4 slots of one plane (max7
         # forward, the M row backward), all at the value below plane 1.
@@ -213,13 +260,12 @@ def slab_ref(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                     [target_update(e, groups[t], torch.maximum)
                      for t in range(NUM_MATRICES)], 1), negt)
 
-            rowv = rf[kbs, q].view(n, NUM_MATRICES, 1, wc)
-            colv = cf[jbs, q].view(n, NUM_MATRICES, hb, 1)
+            rowv = rf[rsl, q].view(n, NUM_MATRICES, 1, wc)
+            colv = cf[csl, q].view(n, NUM_MATRICES, hb, 1)
             new = torch.where(row_face[:, None], rowv, new)
             new = torch.where(col_face[:, None], colv, new)
             new = torch.where(zero_face[:, None], zero, new)
-            new = torch.where((origin & (i == 0))[:, None],
-                              ev_t.view(1, NUM_MATRICES, 1, 1), new)
+            new = torch.where((origin & (i == 0))[:, None], ev_t, new)
 
             on = active.view(1, 1, hb, wc)
             cur = ring[q % 3][:, :, 1:, 1:]
@@ -228,20 +274,100 @@ def slab_ref(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
             mcur = m4[q % 4][:, 1:, 1:]
             mcur.copy_(torch.where(active, m, mcur))
             if q - tb >= 0:
-                old = rf[kbs, q - tb]
-                rf[kbs, q - tb] = torch.where(active[tb].view(1, 1, wc),
+                old = rf[rsl, q - tb]
+                rf[rsl, q - tb] = torch.where(active[tb].view(1, 1, wc),
                                               new[:, :, tb, :], old)
             if q - tc >= 0:
-                old = cf[jbs, q - tc]
-                cf[jbs, q - tc] = torch.where(active[:, tc].view(1, 1, hb),
+                old = cf[csl, q - tc]
+                cf[csl, q - tc] = torch.where(active[:, tc].view(1, 1, hb),
                                               new[:, :, :, tc], old)
             hit = (i == la).view(1, 1, hb, wc)
             cap[blks] = torch.where(hit, new, cap[blks])
             for p in tgt:
-                if fwd and q == int(scal[int(blks[p]), 3]):
-                    final = new[p, :, int(scal[int(blks[p]), 4]),
-                                int(scal[int(blks[p]), 5])].clone()
-    return final, cap
+                if fwd and q == int(scal[blk_np[p], 3]):
+                    out.copy_(new[p, :, int(scal[blk_np[p], 4]),
+                                  int(scal[blk_np[p], 5])])
+    return out, cap
+
+
+def _check(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
+           variant: str) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {tuple(VARIANTS)}")
+    if min(la, lb, lc) < 1:
+        raise ValueError("the slab sweep needs |A|, |B|, |C| >= 1")
+    if dims != bk.plan_dims(la, lb, lc, dims.hb, dims.wc):
+        raise ValueError(f"dims {dims} were not planned for {la, lb, lc}")
+    if shared_bytes(dims.hb, dims.wc) > bk.SMEM_CAP:
+        raise ValueError(f"tile plane {dims.hb}x{dims.wc} is too large")
+    tb, tc = dims.hb - 1, dims.wc - 1
+    for t, n in ((a_ext, la + 1), (b_ext, dims.n_jb * tb + 1),
+                 (c_ext, dims.n_kb * tc + 1)):
+        if t.dtype != torch.int32 or t.shape != (n,) or \
+                not t.is_contiguous() or t.device != a_ext.device:
+            raise ValueError(
+                "a, b, c must be contiguous int32 vectors on one device, "
+                "shaped as prep_blocked makes them"
+            )
+
+
+def _check_state(state: SlabState, dims: Dims, device) -> None:
+    n_blocks = dims.n_jb * dims.n_kb
+    shapes = ((dims.n_kb, dims.nrows, NUM_MATRICES, dims.wc),
+              (dims.n_jb, dims.nrows, NUM_MATRICES, dims.hb),
+              (NUM_MATRICES,), (n_blocks, NUM_MATRICES, dims.hb, dims.wc),
+              (n_blocks, SCAL_COLS))
+    for t, shape in zip(state, shapes):
+        if t.dtype != torch.int32 or t.shape != shape or \
+                not t.is_contiguous() or t.device != device:
+            raise ValueError("the state must be new_state(dims)'s, on the "
+                             "device of the symbol arrays")
+
+
+def _run(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, variant, state,
+           idx0, count, scoring) -> SlabState:
+    """Tiles idx0 .. idx0 + count - 1 on ``state``: slab_ref on a CPU
+    tensor, K5 (one launch a run of one anti-diagonal, counted on
+    ``counter``) on a CUDA tensor, never a fallback."""
+    dev = a_ext.device
+    _check_state(state, dims, dev)
+    if dev.type == "cpu":
+        slab_ref(a_ext, b_ext, c_ext, la, lb, lc, dims, variant, None,
+                 scoring, state, idx0, count)
+        return state
+    if dev.type != "cuda":
+        raise ValueError(f"no slab kernel for device {dev}")
+    lib = _build.load("slab")
+    step, table = _build.kernel_scoring(scoring, 0, dev, SUBMATRIX_NSYM_CAP)
+    geom = _build.SlabGeom(la, dims.hb, dims.wc, dims.n_jb, dims.n_kb,
+                           dims.nrows, VARIANTS[variant])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for d, jb_lo, n in bk._runs(dims, idx0, count):
+            code = lib.trialign_slab_tiles(
+                a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(), geom, d,
+                jb_lo, n, state.scal.data_ptr(), table.data_ptr(), step,
+                state.rf.data_ptr(), state.cf.data_ptr(),
+                state.out.data_ptr(), state.cap.data_ptr(), stream,
+            )
+            _build.check(lib, code, f"slab kernel launch (diagonal {d})")
+            counter.launches += 1
+    return state
+
+
+def sweep_tiles(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
+                variant: str, state: SlabState, idx0: int, count: int,
+                scoring: Scoring = Scoring()) -> SlabState:
+    """The per-tile form (slab.py make_slab_block_call): runs tiles idx0 ..
+    idx0 + count - 1 of ``blocked.tile_table`` on ``state`` (from
+    :func:`new_state`) in place and returns it.  A run may end in the
+    middle of an anti-diagonal, or hold only some of a diagonal's tiles (a
+    stripe's); tile indices stay global.  On a CPU tensor this is
+    :func:`slab_ref`; on a CUDA tensor it launches K5 once per run of one
+    anti-diagonal and never falls back.  Nothing waits for the card."""
+    _check(a_ext, b_ext, c_ext, la, lb, lc, dims, variant)
+    return _run(sweep_tiles, a_ext, b_ext, c_ext, la, lb, lc, dims, variant,
+                  state, idx0, count, scoring)
 
 
 def slab_sweep(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
@@ -252,59 +378,20 @@ def slab_sweep(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
     CPU tensor this is :func:`slab_ref`; on a CUDA tensor it launches K5
     once per tile anti-diagonal and never falls back.  ``final`` is
     meaningful for the forward variants only."""
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {tuple(VARIANTS)}")
-    if min(la, lb, lc) < 1:
-        raise ValueError("the slab sweep needs |A|, |B|, |C| >= 1")
-    if dims != bk.plan_dims(la, lb, lc, dims.hb, dims.wc):
-        raise ValueError(f"dims {dims} were not planned for {la, lb, lc}")
-    if shared_bytes(dims.hb, dims.wc) > bk.SMEM_CAP:
-        raise ValueError(f"tile plane {dims.hb}x{dims.wc} is too large")
+    _check(a_ext, b_ext, c_ext, la, lb, lc, dims, variant)
     if len(ev) != NUM_MATRICES:
         raise ValueError("ev holds one value per matrix")
-    tb, tc = dims.hb - 1, dims.wc - 1
-    for t, n in ((a_ext, la + 1), (b_ext, dims.n_jb * tb + 1),
-                 (c_ext, dims.n_kb * tc + 1)):
-        if t.dtype != torch.int32 or t.shape != (n,) or \
-                not t.is_contiguous() or t.device != a_ext.device:
-            raise ValueError(
-                "a, b, c must be contiguous int32 vectors on one device, "
-                "shaped as prep_blocked makes them"
-            )
-    if a_ext.device.type == "cpu":
-        return slab_ref(a_ext, b_ext, c_ext, la, lb, lc, dims, variant, ev,
-                        scoring)
-    if a_ext.device.type != "cuda":
-        raise ValueError(f"no slab kernel for device {a_ext.device}")
-    lib = _build.load("slab")
-    dev = a_ext.device
-    step, table = _build.kernel_scoring(scoring, 0, dev, SUBMATRIX_NSYM_CAP)
-    scal = torch.from_numpy(_scal_table(la, lb, lc, ev, dims)).to(dev)
-    geom = _build.SlabGeom(la, dims.hb, dims.wc, dims.n_jb, dims.n_kb,
-                           dims.nrows, VARIANTS[variant])
-    n_blocks = dims.n_jb * dims.n_kb
-    rf = torch.empty(dims.n_kb * dims.nrows * 7 * dims.wc, dtype=torch.int32,
-                     device=dev)
-    cf = torch.empty(dims.n_jb * dims.nrows * 7 * dims.hb, dtype=torch.int32,
-                     device=dev)
-    out = torch.empty(NUM_MATRICES, dtype=torch.int32, device=dev)
-    cap = torch.empty((n_blocks, NUM_MATRICES, dims.hb, dims.wc),
-                      dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for d in range(dims.n_jb + dims.n_kb - 1):
-            code = lib.trialign_slab_diag(
-                a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(), geom, d,
-                scal.data_ptr(), table.data_ptr(), step, rf.data_ptr(),
-                cf.data_ptr(), out.data_ptr(), cap.data_ptr(), stream,
-            )
-            _build.check(lib, code, f"slab kernel launch (diagonal {d})")
-            slab_sweep.launches += 1
-    return out, cap
+    state = new_state(la, lb, lc, dims, ev, a_ext.device)
+    _run(slab_sweep, a_ext, b_ext, c_ext, la, lb, lc, dims, variant, state,
+           0, bk.n_tiles(dims), scoring)
+    return state.out, state.cap
 
 
-# Launches of the CUDA kernel since the count was last set to 0.
+# Launches of the CUDA kernel since the count was last set to 0, for each
+# entry point: the whole-grid sweep (slab_sweep) and the per-tile form
+# (sweep_tiles).
 slab_sweep.launches = 0
+sweep_tiles.launches = 0
 
 
 def _assemble(cap: torch.Tensor, dims: Dims, lb: int, lc: int):
