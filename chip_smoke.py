@@ -18,33 +18,40 @@ per source, all at once) and prints one JSON line per phase:
    torch engine), exactly: the captured plane and the final vector of every
    variant, on multi-tile and ragged shapes and the default tile plane,
    under five scorings (one a 16-symbol submatrix, which only K5 takes);
-5. ``hetero``: K4 against its plain version ``hetero_ref``, exactly: the
+5. ``schedule``: the persistent sweeps of K3 (whole grid and chain mode)
+   and K5 (one launch a sweep, tiles started by per-plane readiness)
+   against the diagonal schedule (each per-tile form over the whole tile
+   table), exactly, at the occupancy's grid and capped at 1 and 3 blocks:
+   K3 at 512^3 on 10 inputs and at 1024^3, every slot of the 16 x 512^3
+   chain, K5 "free" and "bwd" (capture and final vector) on a multi-tile
+   shape under five scorings and at the 2048^3 top split's shape;
+6. ``hetero``: K4 against its plain version ``hetero_ref``, exactly: the
    final vector of every problem of ragged batches (a 1 x 1-tile problem,
    an empty sequence, one batch cut into several dispatches) at 9 x 17
    tiles and the default tile plane, under four scorings;
-6. ``main_path``: ``trialign_torch.align`` with backend "auto" against the
+7. ``main_path``: ``trialign_torch.align`` with backend "auto" against the
    golden model (the ``dat`` triplet), the C++ oracle (64^3 and 512^3) and
    the torch sweep (1024^3, all seven values), with the kernels' launch
-   counts;
-7. ``traceback``: ``trialign_torch.align(..., return_alignment=True)`` at
+   counts (K3 once a sweep: 2);
+8. ``traceback``: ``trialign_torch.align(..., return_alignment=True)`` at
    512^3 and 1024^3 (the direct engine), 2048^3 (K5 for the top split) and
    768^3 with lowered caps (K5 on pin nodes); each alignment rescores to the
    score path's score and holds the inputs; seconds, peak memory, the top
    node's route and K5's launches (those of the 2048^3 run go to the
    summary);
-8. ``batch``: ``trialign_torch.align_batch`` on 1024 triplets with every
+9. ``batch``: ``trialign_torch.align_batch`` on 1024 triplets with every
    length uniform in [128, 512] (K4, by its launches; seconds, GCUPS and
    triplets/s, best of 3 after a warm-up; the card's busy share under
    ``torch.profiler``), 64 of its scores against
    ``align()`` and 8 against the C++ oracle; a 48-triplet batch (one K2
    launch and K3) against ``align()``; 16 alignments that rescore exactly;
-9. ``vpu``: ``benchmarks.roofline()`` (K6's main path): the int32 and
-   DPX rates beside the rate ``int32_peak_ops()`` assumes, with the SM
-   clock read during the run.  The faster measured rate is the peak that
-   every later bound divides by.  Then K6 against its plain version,
-   exactly, in both op mixes, on a sample that must take at least its
-   bound;
-10. ``checkpoint``: K3's per-tile form against ``blocked_ref`` (the whole
+10. ``vpu``: ``benchmarks.roofline()`` (K6's main path): the int32 and
+    DPX rates beside the rate ``int32_peak_ops()`` assumes, with the SM
+    clock read during the run.  The faster measured rate is the peak that
+    every later bound divides by.  Then K6 against its plain version,
+    exactly, in both op mixes, on a sample that must take at least its
+    bound;
+11. ``checkpoint``: K3's per-tile form against ``blocked_ref`` (the whole
     state, in runs of tiles that end mid-diagonal, under five scorings);
     the main path's 1024^3 triplet checkpointed a quarter of its grid at a
     time, stopped after two segments and resumed by a new aligner from the
@@ -54,46 +61,50 @@ per source, all at once) and prints one JSON line per phase:
     of 64 with a failure after the second drain (only the unscored 128
     dispatched again, scores equal to the batch's); the per-tile form's
     time on a 192^3 sample beside ``blocked_ref``'s;
-11. ``chain``: K3's chain mode against ``blocked_ref`` on multi-tile shapes
+12. ``chain``: K3's chain mode against ``blocked_ref`` on multi-tile shapes
     (9 x 17 and 33 x 33 tiles, 1 to 5 slots, five scorings, and
     ``score_bits=12``); then the bench's chains, 16 slots of 512^3 and 8 of
     1024^3 (ms per alignment, GCUPS, bound, launches): every slot's seven
     values equal the torch sweep of its triplet, two slots' scores equal
     ``align()`` and one the C++ oracle;
-12. ``halo``: the halo (``dist/halo.py``) on stripes that share the card,
+13. ``halo``: the halo (``dist/halo.py``) on stripes that share the card,
     each on its own CUDA stream: K3's per-tile form in 2 and 3 stripes with
     uneven columns against ``blocked_ref`` (the whole state); the main
     path's 1024^3 triplet in 1, 2 and 4 stripes under both schedules, all
     seven values equal to K3's whole-grid sweep; ms beside K3's, launches,
     the measured face-copy rate and the model's time on separate cards;
-13. ``halo_tb``: K5's per-tile form against ``slab_ref`` (capture and final
+14. ``halo_tb``: K5's per-tile form against ``slab_ref`` (capture and final
     vector) in runs that end mid-diagonal and in 2 and 3 stripes, every
     variant, default and 16-symbol scoring; ``hirschberg_align_sharded`` on
     the traceback phase's 1024^3 triplet in 2 stripes with two levels of
     splits on them, rescoring to the score path's score; that run's top
     split (512 x 1024 x 1024, 2 stripes) against the torch engine, capture
     and final vector exactly, and timed beside it;
-14. ``sharded_batch``: K4's per-tile form against ``hetero_ref`` in runs
+15. ``sharded_batch``: K4's per-tile form against ``hetero_ref`` in runs
     that end mid-diagonal under two scorings; ``align_batch_sharded`` on
     the 1024-triplet batch over 2 data slots sharing the card, equal to the
     batch phase's scores; ``align_batch_resilient(mesh=...)`` in dispatches
     of 64 with a failure as a slot packs its second (the dispatches swept
     by then drain; only the rest is dispatched again);
-15. ``cli``: ``python -m trialign_torch.cli`` in four subprocesses at once:
+16. ``cli``: ``python -m trialign_torch.cli`` in four subprocesses at once:
     ``selftest`` (every row OK), ``align --json`` on the bundled ``dat``
     files (equal to golden), ``bench --size 1024 --json`` (parity
     ``exact``; its time shares the card), ``batch --sharded`` on 70
     triplets (equal to ``align_batch``);
-16. ``multihost``: two processes (``python -m trialign_torch.dist.worker``,
+17. ``multihost``: two processes (``python -m trialign_torch.dist.worker``,
     ``gloo``) on the card, started with the cli phase's:
     ``align_batch_multihost``, a halo whose model axis spans both processes
     and the sharded traceback across them, each equal to this process's
     run of the same functions;
-17. ``tuning``: K2's thread counts; K3's tile at each thread count and the
-    neighbouring tiles;
-18. ``timings``: each kernel (minimum over distinct inputs after a
+18. ``tuning``: K2's thread counts; the persistent K3 at 1024^3 over
+    three tile planes, two thread counts and four chunks; K5 "free" at the
+    2048^3 top split's shape over the chunks;
+19. ``timings``: each kernel (minimum over distinct inputs after a
     warm-up) beside its plain version (one run) at the main path's
-    sizes, and beside its bound; K5 against the torch engine, exactly and
+    sizes, and beside its bound; K3 at 512^3 and 1024^3, both bench chains
+    and K5 "free" and "bwd" at the split under both schedules in turns
+    (diagonal, persistent, persistent, diagonal); K5 against the torch
+    engine, exactly and
     timed, at the shape the 2048^3 traceback gives it; K4 and its per-tile
     form (one diagonal a run, and runs of a quarter of the table) against
     hetero_ref, exactly and timed, on a dispatch of two of the
@@ -455,6 +466,109 @@ def phase_slab(rng) -> int:
     return err
 
 
+def diagonal_k3(a, b, c, la, lb, lc, dims, scoring=DEFAULT):
+    """What final_values (chain_values for chain dims) computes, under the
+    diagonal schedule: K3's per-tile form over the whole tile table, one
+    launch a diagonal."""
+    state = bk.sweep_tiles(a, b, c, la, lb, lc, dims,
+                           bk.new_state(dims, CUDA), 0, bk.n_tiles(dims),
+                           scoring)
+    return state.out if dims.d else state.out[0]
+
+
+def diagonal_k5(a, b, c, la, lb, lc, dims, variant, ev, scoring=DEFAULT):
+    """What slab_sweep computes, (final, capture), under the diagonal
+    schedule: K5's per-tile form over the whole tile table."""
+    state = sk.new_state(la, lb, lc, dims, ev, CUDA)
+    sk.sweep_tiles(a, b, c, la, lb, lc, dims, variant, state, 0,
+                   bk.n_tiles(dims), scoring)
+    return state.out, state.cap
+
+
+# The grid caps the schedule phase runs beside the occupancy's grid: one
+# block sweeps the table alone, three interleave few tiles.
+GRID_CAPS = (None, 1, 3)
+
+
+def schedule_k3(what, arrs, lens, dims, want, **kwargs) -> int:
+    """The persistent K3 (final_values, or chain_values for chain dims) at
+    every grid cap against the diagonal schedule's values; the largest
+    difference."""
+    fn = bk.chain_values if dims.d else bk.final_values
+    err = 0
+    for blocks in GRID_CAPS:
+        got = fn(*arrs, *lens, dims, blocks=blocks, **kwargs)
+        require(torch.equal(got, want), f"K3 persistent {what} blocks="
+                f"{blocks}: {cpu_ints(got)} != diagonal {cpu_ints(want)}")
+        err = max(err, _diff(got, want))
+    return err
+
+
+def schedule_k5(rng, shape, name, variant) -> int:
+    """The persistent K5 at every grid cap against the diagonal schedule:
+    capture and final vector bit for bit; the largest difference."""
+    scoring, _, nsym = SLAB_VARIANTS[name]
+    a, b, c = (x.astype(np.int32) for x in triplet(rng, shape, nsym))
+    ev = onehot(int(rng.integers(0, NUM_MATRICES)))
+    dims = sk._plan(*shape)
+    arrs = sk.prep_blocked(a, b, c, dims, CUDA)
+    f_w, cap_w = diagonal_k5(*arrs, *shape, dims, variant, ev, scoring)
+    err = 0
+    for blocks in GRID_CAPS:
+        f, cap = sk.slab_sweep(*arrs, *shape, dims, variant, ev, scoring,
+                               blocks=blocks)
+        require(torch.equal(cap, cap_w) and torch.equal(f, f_w),
+                f"K5 persistent {shape} {name} {variant} blocks={blocks} != "
+                f"the diagonal schedule")
+        err = max(err, _diff(cap, cap_w), _diff(f, f_w))
+    return err
+
+
+def phase_schedule(rng) -> dict:
+    """The persistent sweeps (one launch a sweep, tiles started by per-plane
+    readiness) against the diagonal schedule (the per-tile forms over the
+    whole table), at the occupancy's grid and capped at 1 and 3 blocks:
+    K3 at 512^3 on 10 inputs (races are intermittent) and at 1024^3, every
+    slot of the 16 x 512^3 chain, K5 "free" and "bwd" on a small multi-tile
+    shape under five scorings and at the 2048^3 top split's shape.  Returns
+    the largest difference of K3, its chain mode and K5."""
+    checked, err = [], {"blocked": 0, "blocked_chain": 0, "slab": 0}
+    for n, count in ((512, 10), (1024, 1)):
+        dims = bk.plan_dims(n, n, n)
+        for _ in range(count):
+            arrs = bk.prep_blocked(*triplet(rng, (n, n, n)), dims, CUDA)
+            want = diagonal_k3(*arrs, n, n, n, dims)
+            err["blocked"] = max(err["blocked"], schedule_k3(
+                f"{n}^3", arrs, (n, n, n), dims, want))
+        checked.append(f"K3 {n}^3 x{count}")
+    n, npack = CHAIN_BENCH[0]
+    a_list = [triplet(rng, (n,))[0] for _ in range(npack)]
+    b, c = triplet(rng, (n, n))
+    chain_dims = bk.plan_dims_packed(n, n, n, npack)
+    arrs = bk.prep_chain(a_list, b, c, chain_dims, CUDA)
+    err["blocked_chain"] = schedule_k3(
+        f"chain {n}^3 x{npack}", arrs, (n, n, n), chain_dims,
+        diagonal_k3(*arrs, n, n, n, chain_dims))
+    checked.append(f"K3 chain {n}^3 x{npack}, every slot")
+    for name in SLAB_VARIANTS:
+        for variant in ("free", "bwd"):
+            err["slab"] = max(err["slab"], schedule_k5(
+                rng, (60, 200, 170), name, variant))
+        checked.append(f"K5 (60, 200, 170) free, bwd/{name}")
+    for variant in ("free", "bwd"):
+        err["slab"] = max(err["slab"], schedule_k5(rng, SPLIT_SHAPE,
+                                                   "default", variant))
+    checked.append(f"K5 {SPLIT_SHAPE} free, bwd/default")
+    emit(phase="schedule", cases=checked, grid_caps=GRID_CAPS,
+         blocks_per_sm={
+             "blocked": bk.blocks_per_sm(bk.plan_dims(1024, 1024, 1024)),
+             "blocked_chain": bk.blocks_per_sm(chain_dims),
+             "slab": sk.blocks_per_sm(sk._plan(*SPLIT_SHAPE))},
+         sms=torch.cuda.get_device_properties(0).multi_processor_count,
+         chunk=bk.CHUNK, max_abs_err=err)
+    return err
+
+
 def hetero_case(trips, scoring, block):
     """K4 against hetero_ref on one dispatch, exactly; the largest
     difference and hetero_ref's scores."""
@@ -528,8 +642,8 @@ def phase_main_path(rng) -> dict:
                      "score": r.score, "oracle": oracle,
                      "oracle_s": oracle_s, "align_s": r.seconds})
     launches = read_launches()
-    require(launches["wavefront"] and launches["blocked"],
-            f"a kernel did not launch: {launches}")
+    require(launches["wavefront"] and launches["blocked"] == 2,
+            f"a kernel did not launch, or K3 not once a sweep: {launches}")
     emit(phase="main_path", runs=runs, launches=launches)
     return launches, headline
 
@@ -1609,13 +1723,29 @@ def time_wavefront(trips, threads=wf.THREADS):
     return time_cuda_ms(wf.final_values, args)
 
 
-def time_blocked(trips, block_shape, threads=bk.THREADS):
-    args = []
+def blocked_inputs(trips, block_shape=None):
+    out = []
     for a, b, c in trips:
-        dims = bk.plan_dims(len(a), len(b), len(c), *block_shape)
-        args.append((*bk.prep_blocked(a, b, c, dims, CUDA), len(a), len(b),
-                     len(c), dims, DEFAULT, 0, threads))
-    return time_cuda_ms(bk.final_values, args)
+        dims = bk.plan_dims(len(a), len(b), len(c),
+                            *(block_shape or bk.choose_block_shape(0, 0, 0)))
+        out.append((*bk.prep_blocked(a, b, c, dims, CUDA), len(a), len(b),
+                    len(c), dims))
+    return out
+
+
+def time_blocked(trips, block_shape, threads=bk.THREADS, chunk=bk.CHUNK):
+    return time_cuda_ms(functools.partial(bk.final_values, threads=threads,
+                                          chunk=chunk),
+                        blocked_inputs(trips, block_shape))
+
+
+def in_turns(old, new, inputs) -> dict:
+    """Both schedules of one sweep timed in turns, old, new, new, old (each
+    the minimum over ``inputs``): the new schedule's ms, the old one's
+    (``diagonal_ms``) and the four in order."""
+    turns = [time_cuda_ms(f, inputs) for f in (old, new, new, old)]
+    return {"ms": min(turns[1:3]), "diagonal_ms": min(turns[0], turns[3]),
+            "turns_ms": turns}
 
 
 # The plain versions repeat their kernels' arithmetic and are no yardstick
@@ -1625,7 +1755,7 @@ def time_plain(trip):
     return event_ms(plain_sweep, *trip)[0]
 
 
-def time_slab(trips, variant):
+def slab_inputs(trips, variant):
     ev = np.zeros(NUM_MATRICES, np.int32)
     args = []
     for a, b, c in trips:
@@ -1633,7 +1763,7 @@ def time_slab(trips, variant):
         dims = sk._plan(la, lb, lc)
         args.append((*sk.prep_blocked(a, b, c, dims, CUDA), la, lb, lc, dims,
                      variant, ev))
-    return time_cuda_ms(sk.slab_sweep, args)
+    return args
 
 
 def hetero_dispatch(trips):
@@ -1712,23 +1842,37 @@ def time_hetero(rng, trips, dev) -> dict:
                       "bound_by": batch_by}}
 
 
+# The candidates of the persistent K3 at 1024^3: tile planes (hb, wc),
+# threads a block and planes a chunk.
+TUNE_TILES = ((17, 17), (33, 33), (33, 65))
+TUNE_THREADS = (256, 512)
+TUNE_CHUNKS = (4, 8, 32, 128)
+
+
 def phase_tuning(rng) -> None:
-    """K2's thread counts; K3's chosen tile at each thread count and its two
-    neighbouring tiles at the chosen count."""
+    """K2's thread counts; the persistent K3 at 1024^3 over every tile
+    plane, thread count and chunk of TUNE_*; K5 "free" at the 2048^3 top
+    split's shape over the chunks."""
     trips = _inputs(rng, (255, 255, 255))
     k2 = {t: time_wavefront(trips, t) for t in (256, 512, 1024)}
     trips = _inputs(rng, (1024, 1024, 1024))
-    chosen = bk.choose_block_shape(0, 0, 0)
-    cands = [(chosen, t) for t in (256, 512, 1024)]
-    cands += [(shape, bk.THREADS) for shape in ((17, 17), (33, 65))]
-    k3 = {f"{shape[0]}x{shape[1]}/{threads}": time_blocked(trips, shape,
-                                                           threads)
-          for shape, threads in cands}
+    k3 = {}
+    for tile in TUNE_TILES:
+        inputs = blocked_inputs(trips, tile)
+        for threads in TUNE_THREADS:
+            for chunk in TUNE_CHUNKS:
+                k3[f"{tile[0]}x{tile[1]}/{threads}/{chunk}"] = time_cuda_ms(
+                    functools.partial(bk.final_values, threads=threads,
+                                      chunk=chunk), inputs)
+    inputs = slab_inputs(_inputs(rng, SPLIT_SHAPE, 3), "free")
+    k5 = {chunk: time_cuda_ms(functools.partial(sk.slab_sweep, chunk=chunk),
+                              inputs) for chunk in TUNE_CHUNKS}
     emit(phase="tuning", wavefront_255_ms_by_threads=k2,
-         blocked_1024_ms_by_tile_threads=k3,
+         blocked_1024_ms_by_tile_threads_chunk=k3,
+         slab_free_split_ms_by_chunk=k5,
          chosen={"wavefront_threads": wf.THREADS,
                  "blocked_tile": bk.choose_block_shape(0, 0, 0),
-                 "blocked_threads": bk.THREADS})
+                 "blocked_threads": bk.THREADS, "chunk": bk.CHUNK})
 
 
 def bound(cells, nbytes, dev) -> tuple:
@@ -1743,22 +1887,44 @@ def bound(cells, nbytes, dev) -> tuple:
 
 def phase_timings(rng, dev, batch) -> tuple:
     """The timing rows, and K5's largest difference from the torch engine at
-    the split's shape; ``batch`` is the batch phase's 1024 triplets."""
+    the split's shape; ``batch`` is the batch phase's 1024 triplets.  K3,
+    its chains and K5 are timed under both schedules in turns (old, new,
+    new, old): ``ms`` is the persistent sweep's, ``diagonal_ms`` the
+    diagonal schedule's (the per-tile form over the whole table)."""
     rows = {}
-    for name, n in (("wavefront", 255), ("blocked", 512), ("blocked", 1024)):
+    trips = _inputs(rng, (255, 255, 255))
+    ms = time_wavefront(trips)
+    plain_ms = time_plain(trips[0])
+    bms, by = bound(255 ** 3, 4 * (3 * 255 + NUM_MATRICES + 1), dev)
+    rows["wavefront_255"] = {"ms": ms, "gcups": gcups(255 ** 3, ms),
+                             "plain_ms": plain_ms,
+                             "plain_gcups": gcups(255 ** 3, plain_ms),
+                             "bound_ms": bms, "bound_by": by}
+    for n in (512, 1024):
         trips = _inputs(rng, (n, n, n))
-        if name == "wavefront":
-            ms = time_wavefront(trips)
-        else:
-            ms = time_blocked(trips, bk.choose_block_shape(n, n, n))
+        row = in_turns(diagonal_k3, bk.final_values, blocked_inputs(trips))
         plain_ms = time_plain(trips[0])
         cells = n ** 3
         # Inputs read once (3 symbol vectors), the final vector written.
         bms, by = bound(cells, 4 * (3 * n + NUM_MATRICES + 1), dev)
-        rows[f"{name}_{n}"] = {"ms": ms, "gcups": gcups(cells, ms),
-                               "plain_ms": plain_ms,
-                               "plain_gcups": gcups(cells, plain_ms),
-                               "bound_ms": bms, "bound_by": by}
+        rows[f"blocked_{n}"] = {**row, "gcups": gcups(cells, row["ms"]),
+                                "plain_ms": plain_ms,
+                                "plain_gcups": gcups(cells, plain_ms),
+                                "bound_ms": bms, "bound_by": by}
+    for n, npack in CHAIN_BENCH:
+        dims = bk.plan_dims_packed(n, n, n, npack)
+        inputs = []
+        for _ in range(3):
+            a_list = [triplet(rng, (n,))[0] for _ in range(npack)]
+            b, c = triplet(rng, (n, n))
+            inputs.append((*bk.prep_chain(a_list, b, c, dims, CUDA), n, n, n,
+                           dims))
+        row = in_turns(diagonal_k3, bk.chain_values, inputs)
+        bms, by = bound(n ** 3, 4 * (3 * n + NUM_MATRICES), dev)
+        rows[f"chain_{n}x{npack}"] = {
+            **row, "ms_per_alignment": row["ms"] / npack,
+            "diagonal_ms_per_alignment": row["diagonal_ms"] / npack,
+            "bound_ms_per_alignment": bms, "bound_by": by}
     la, lb, lc = SPLIT_SHAPE
     trips = _inputs(rng, SPLIT_SHAPE)
     dims = sk._plan(la, lb, lc)
@@ -1774,10 +1940,11 @@ def phase_timings(rng, dev, batch) -> tuple:
                           tiled_ref=False) for v in ("free", "bwd")}
     split_err = max(e for e, _ in split.values())
     for variant in ("free", "bwd"):
-        ms = time_slab(trips, variant)
+        row = in_turns(diagonal_k5, sk.slab_sweep,
+                       slab_inputs(trips, variant))
         plain_ms = split[variant][1]
         rows[f"slab_{variant}_{la}x{lb}x{lc}"] = {
-            "ms": ms, "gcups": gcups(la * lb * lc, ms),
+            **row, "gcups": gcups(la * lb * lc, row["ms"]),
             "plain": "torch engine", "plain_ms": plain_ms,
             "plain_gcups": gcups(la * lb * lc, plain_ms),
             "bound_ms": bms, "bound_by": by}
@@ -1800,6 +1967,9 @@ def main() -> int:
     k2_err = phase_wavefront(rng)
     k3_err = phase_blocked(rng)
     k5_err = phase_slab(rng)
+    sched_err = phase_schedule(rng)
+    k3_err = max(k3_err, sched_err["blocked"])
+    k5_err = max(k5_err, sched_err["slab"])
     k4_err = phase_hetero(rng)
     launches, headline = phase_main_path(rng)
     launches["slab"], tb_case = phase_traceback(rng)
@@ -1808,6 +1978,8 @@ def main() -> int:
     k6 = phase_vpu(rng, dev)
     tiles = phase_checkpoint(rng, dev, headline, batch, batch_scores)
     chain = phase_chain(rng, dev)
+    chain["max_abs_err"] = max(chain["max_abs_err"],
+                               sched_err["blocked_chain"])
     halo = phase_halo(rng, headline)
     tiles["max_abs_err"] = max(tiles["max_abs_err"], halo["max_abs_err"])
     slab_tiles = phase_halo_tb(rng, dev, tb_case)
@@ -1843,24 +2015,34 @@ def main() -> int:
     # kernel ms beside them; K4's and its per-tile form's are of two of the
     # batch's problems, its largest and its smallest; K5's per-tile form's
     # are at the 1024^3 sharded traceback's top split.  Eight pallas_call
-    # sites, nine rows: K3's chain mode keeps a row of its own.
+    # sites, nine rows: K3's chain mode keeps a row of its own.  K3, its
+    # chain mode and K5 give the diagonal schedule's time of the same run
+    # beside the persistent sweep's.
+    k3_row = rows["blocked_1024"]
+    chain_times = {f"{k}_{n}x{p}": rows[f"chain_{n}x{p}"][k]
+                   for n, p in CHAIN_BENCH
+                   for k in ("ms_per_alignment", "diagonal_ms_per_alignment")}
+    k5_free, k5_bwd = rows[f"slab_free_{split}"], rows[f"slab_bwd_{split}"]
     kernels = [
         ("wavefront", "wavefront", "trialign/kernels/wavefront.py:112",
          k2_err, rows["wavefront_255"], {}),
         ("blocked", "blocked", "trialign/kernels/blocked.py:225", k3_err,
-         rows["blocked_1024"], {}),
+         k3_row, {"diagonal_ms": k3_row["diagonal_ms"],
+                  "ms_512": rows["blocked_512"]["ms"],
+                  "diagonal_ms_512": rows["blocked_512"]["diagonal_ms"]}),
         ("blocked_tiles", "blocked", "trialign/kernels/blocked.py:859",
          tiles.pop("max_abs_err"), tiles, tiles),
         ("blocked_chain", "blocked", "trialign/kernels/blocked.py:906",
-         chain.pop("max_abs_err"), chain, chain),
+         chain.pop("max_abs_err"), chain, {**chain, **chain_times}),
         ("hetero", "hetero", "trialign/kernels/blocked.py:963", k4_err, k4,
          {"cells": k4["cells"], "batch_ms": k4["batch"]["ms"],
           "batch_bound_ms": k4["batch"]["bound_ms"],
           "batch_cells": k4["batch"]["cells"]}),
         ("hetero_tiles", "hetero", "trialign/kernels/blocked.py:1075",
          hetero_tiles.pop("max_abs_err"), hetero_tiles, hetero_tiles),
-        ("slab", "slab", "trialign/kernels/slab.py:74", k5_err,
-         rows[f"slab_free_{split}"], {}),
+        ("slab", "slab", "trialign/kernels/slab.py:74", k5_err, k5_free,
+         {"diagonal_ms": k5_free["diagonal_ms"], "bwd_ms": k5_bwd["ms"],
+          "bwd_diagonal_ms": k5_bwd["diagonal_ms"]}),
         ("slab_tiles", "slab", "trialign/kernels/slab.py:587",
          slab_tiles.pop("max_abs_err"), slab_tiles, slab_tiles),
         ("vpu", "vpu", "trialign/benchmarks.py:286", k6.pop("max_abs_err"),

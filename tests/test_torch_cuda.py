@@ -301,3 +301,68 @@ def test_sharded_traceback_on_card_rescores(card):
     score, rows = halo_tb.hirschberg_align_sharded(
         a, b, c, mesh=m, single_cells=20000, block_shape=(9, 17))
     assert score == align_planes_numpy(a, b, c) == rescore_alignment(rows)
+
+
+@pytest.mark.parametrize("blocks", [1, 3, None])
+@pytest.mark.parametrize("chunk", [1, 7, 32, 1000])
+@pytest.mark.parametrize("dims,block,threads", [
+    ((37, 70, 45), (9, 17), 256),       # 8 x 3 tiles, ragged
+    ((60, 200, 300), (33, 33), 512),    # 7 x 10 tiles
+    ((50, 130, 90), (17, 17), 512),
+])
+def test_persistent_sweep_matches_diagonal_schedule(card, dims, block,
+                                                    threads, chunk, blocks):
+    """K3's whole grid in one persistent launch, at any chunk and grid cap
+    (1 block sweeps the table alone): the final values equal the per-tile
+    form run one diagonal at a time, and the golden score."""
+    d = bk.plan_dims(*dims, *block)
+    trip = triplet(15, dims)
+    arrs = bk.prep_blocked(*trip, d, card)
+    want = bk.sweep_tiles(*arrs, *dims, d, bk.new_state(d, card), 0,
+                          bk.n_tiles(d), threads=threads).out[0]
+    before = bk.final_values.launches
+    got = bk.final_values(*arrs, *dims, d, threads=threads, chunk=chunk,
+                          blocks=blocks)
+    assert bk.final_values.launches == before + 1
+    assert torch.equal(got, want)
+    assert int(got.max()) == align_planes_numpy(*trip)
+
+
+@pytest.mark.parametrize("blocks", [1, 3, None])
+def test_persistent_chain_matches_diagonal_schedule(card, blocks):
+    la, lb, lc = 30, 100, 70
+    rng = np.random.default_rng(16)
+    a_list = [rng.integers(0, 4, la).astype(np.uint8) for _ in range(4)]
+    b, c = (rng.integers(0, 4, n).astype(np.uint8) for n in (lb, lc))
+    d = bk.plan_dims_packed(la, lb, lc, 4, 17, 17)
+    arrs = bk.prep_chain(a_list, b, c, d, card)
+    want = bk.sweep_tiles(*arrs, la, lb, lc, d, bk.new_state(d, card), 0,
+                          bk.n_tiles(d)).out
+    before = bk.chain_values.launches
+    got = bk.chain_values(*arrs, la, lb, lc, d, chunk=5, blocks=blocks)
+    assert bk.chain_values.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("blocks", [1, 3, None])
+@pytest.mark.parametrize("variant", sorted(sk.VARIANTS))
+@pytest.mark.parametrize("name", ["sop", "sub16"])
+def test_persistent_slab_matches_diagonal_schedule(card, name, variant,
+                                                   blocks):
+    """K5's whole grid in one persistent launch: capture and final vector
+    bit for bit those of its per-tile form run one diagonal at a time."""
+    scoring, nsym = SLAB_SCORINGS[name]
+    dims = (20, 60, 50)
+    a, b, c = (x.astype(np.int32) for x in triplet(17, dims, nsym))
+    ev = np.full(7, NEG, np.int32)
+    ev[2] = 0
+    d = sk._plan(*dims, (9, 17))
+    arrs = sk.prep_blocked(a, b, c, d, card)
+    want = sk.new_state(*dims, d, ev, card)
+    sk.sweep_tiles(*arrs, *dims, d, variant, want, 0, bk.n_tiles(d), scoring)
+    before = sk.slab_sweep.launches
+    f, cap = sk.slab_sweep(*arrs, *dims, d, variant, ev, scoring, chunk=3,
+                           blocks=blocks)
+    assert sk.slab_sweep.launches == before + 1
+    assert torch.equal(cap, want.cap)
+    assert torch.equal(f, want.out)

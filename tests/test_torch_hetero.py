@@ -158,3 +158,48 @@ def test_kernel_wrapper_refuses_other_devices(rng):
     batch = hetero.prep_hetero([_rt(rng, 3, 3, 3)], 9, 9, "meta")
     with pytest.raises(ValueError, match="no hetero kernel"):
         hetero.final_values(batch)
+
+
+def test_failed_dispatch_drains_the_queued_ones(rng, monkeypatch):
+    """A failure as the second dispatch is packed: the first dispatch's
+    scores still reach on_scores before the error, and
+    align_batch_resilient (through align_batch_mosaic) then dispatches only
+    the problems that had not drained."""
+    from trialign_torch import resilience
+
+    trips = [_rt(rng, 9, 12, 10), _rt(rng, 8, 11, 13), _rt(rng, 7, 10, 9),
+             _rt(rng, 6, 9, 12), _rt(rng, 5, 13, 8)]
+    real = hetero.prep_hetero
+    preps, fired = [], []
+
+    def flaky(*args, **kwargs):
+        preps.append(len(args[0]))
+        if len(preps) == 2:
+            raise RuntimeError("injected failure")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(hetero, "prep_hetero", flaky)
+    with pytest.raises(RuntimeError, match="injected"):
+        hetero.align_hetero(trips, device="cpu", block_shape=(9, 9),
+                            max_problems=2,
+                            on_scores=lambda i, s: fired.append((i, s)))
+    want = golden(trips)
+    assert len(fired) == 2
+    assert all(want[i] == s for i, s in fired)
+
+    # The batch in dispatches of two problems, the second failing once.
+    real_align = hetero.align_hetero
+    monkeypatch.setattr(hetero, "align_hetero", lambda *a, **k: real_align(
+        *a, **{**k, "max_problems": 2}))
+    preps.clear()
+    seen = []
+
+    def batch_fn(sub, scoring, mesh=None, on_scores=None):
+        seen.append(len(sub))
+        return mosaic.align_batch_mosaic(sub, scoring, device="cpu",
+                                         on_scores=on_scores)
+
+    got = resilience.align_batch_resilient(trips, batch_fn=batch_fn,
+                                           backoff_s=0.0)
+    assert got == want
+    assert seen == [5, 3]

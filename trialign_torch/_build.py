@@ -66,7 +66,7 @@ class SlabGeom(ctypes.Structure):
         "la", "hb", "wc", "n_jb", "n_kb", "nrows", "variant")]
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 # Entry points of each kernel library: name -> (restype, argtypes).
 SIGNATURES = {
     "wavefront": {
@@ -79,6 +79,10 @@ SIGNATURES = {
         "trialign_blocked_tiles": (
             _I, [_P, _P, _P, BlockedGeom, _I, _I, _I, _P, StepScoring, _P, _P,
                  _P, _I, _P]),
+        "trialign_blocked_sweep": (
+            _I, [_P, _P, _P, BlockedGeom, _P, StepScoring, _P, _P, _P, _I, _I,
+                 _I, _P, _P, _P]),
+        "trialign_blocked_blocks_per_sm": (_I, [_I, _I, _I, _I, _IP]),
     },
     "hetero": {
         "trialign_hetero_diag": (
@@ -90,6 +94,10 @@ SIGNATURES = {
         "trialign_slab_tiles": (
             _I, [_P, _P, _P, SlabGeom, _I, _I, _I, _P, _P, StepScoring, _P,
                  _P, _P, _P, _P]),
+        "trialign_slab_sweep": (
+            _I, [_P, _P, _P, SlabGeom, _P, _P, StepScoring, _P, _P, _P, _P,
+                 _I, _I, _P, _P, _P]),
+        "trialign_slab_blocks_per_sm": (_I, [_I, _I, _IP]),
     },
     "vpu": {
         "trialign_vpu_threads": (_I, []),

@@ -10,15 +10,26 @@
 // Bound on the card: on v5e the grid ran one tile after another on one core
 // with the planes in VMEM.  Here a tile is bound by the pillar's
 // shared-memory loads and per-plane barrier, and the grid by how many tiles
-// one anti-diagonal holds, since tile (jb, kb) needs the faces of (jb-1, kb)
-// and (jb, kb-1).
+// run at once, since tile (jb, kb) needs the faces of (jb-1, kb) and
+// (jb, kb-1).  Launched one tile anti-diagonal at a time, a diagonal starts
+// only once every tile of the one before has swept its whole pillar of
+// la + tb + tc planes: 63 launches at 1024^3 with 33 x 33 tile planes, 16
+// tiles at once on average on 132 SMs.
 //
 // Design: a problem's tiles form a table in anti-diagonal order (diag
-// ascending, then jb ascending).  One launch runs a run of that table that
-// lies on one anti-diagonal jb + kb = diag, one thread block per tile: all of a
-// diagonal's tiles for the whole-grid sweep, any part of them for the
-// per-tile form, which checkpoint.py uses to stop between any two tiles.
-// The face slabs and the output stay in device memory between launches.
+// ascending, then jb ascending).  The whole-grid sweep (and chain mode) is
+// one persistent launch (blocked_persistent): as many blocks as the SMs hold
+// at once, each taking the next tile of the table from a global counter and
+// sweeping its pillar to the end before it takes another.  A tile advances
+// chunk by chunk of planes as soon as its neighbours have finished the planes
+// whose face rows the chunk reads, a lag of about one tile width, not a
+// pillar (csrc/schedule.cuh PlaneWait, the rule kernels/blocked.py
+// planes_needed states and the CPU tests model).  The per-tile form keeps
+// one launch a run of one anti-diagonal jb + kb = diag (blocked_kernel, one
+// thread block per tile, schedule NoWait): all of a diagonal's tiles or any
+// part of them, which checkpoint.py and the halo's stripes use to stop
+// between any two tiles.  The face slabs and the output stay in device
+// memory between launches.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,6 +54,17 @@ struct BlockedGeom {
 
 namespace {
 
+// Face slabs of tile (jb, kb): row faces [n_kb][nrows][7][wc], column faces
+// [n_jb][nrows][7][hb].
+__device__ __forceinline__ int* row_faces(int* rf, const BlockedGeom& g,
+                                          int kb) {
+  return rf + (size_t)kb * g.nrows * kNumMatrices * g.wc;
+}
+__device__ __forceinline__ int* col_faces(int* cf, const BlockedGeom& g,
+                                          int jb) {
+  return cf + (size_t)jb * g.nrows * kNumMatrices * g.hb;
+}
+
 template <int NT, bool CHAIN>
 __global__ void __launch_bounds__(NT)
     blocked_kernel(const int* __restrict__ a_ext, const int* __restrict__ b_ext,
@@ -51,14 +73,40 @@ __global__ void __launch_bounds__(NT)
                    int* rf, int* cf, int* __restrict__ out) {
   extern __shared__ int smem[];
   const int jb = jb_lo + blockIdx.x, kb = diag - jb;
-  // Face slabs: row faces [n_kb][nrows][7][wc], column faces
-  // [n_jb][nrows][7][hb].
-  int* rface = rf + (size_t)kb * g.nrows * kNumMatrices * g.wc;
-  int* cface = cf + (size_t)jb * g.nrows * kNumMatrices * g.hb;
   const bool target = jb == g.n_jb - 1 && kb == g.n_kb - 1;
+  NoWait sync;
   tile_pillar<NT, CHAIN>(smem, a_ext, b_ext, c_ext, g.hb, g.wc, g.la, g.d,
-                         jb, kb, target, g.jlstar, g.klstar, sub, s, rface,
-                         cface, out);
+                         jb, kb, target, g.jlstar, g.klstar, sub, s,
+                         row_faces(rf, g, kb), col_faces(cf, g, jb), out, sync);
+}
+
+// The whole tile table in one launch.  next_tile: the hand-out counter (0);
+// done: one progress word a tile, row jb * n_kb + kb (-1).
+template <int NT, bool CHAIN>
+__global__ void __launch_bounds__(NT)
+    blocked_persistent(const int* __restrict__ a_ext,
+                       const int* __restrict__ b_ext,
+                       const int* __restrict__ c_ext, BlockedGeom g, int chunk,
+                       const int* __restrict__ sub, StepScoring s, int* rf,
+                       int* cf, int* __restrict__ out, int* next_tile,
+                       int* done) {
+  extern __shared__ int smem[];
+  const int ntiles = g.n_jb * g.n_kb;
+  const int tb = g.hb - 1, tc = g.wc - 1, nq = g.la + tb + tc;
+  for (;;) {
+    const int t = take_tile(next_tile);
+    if (t >= ntiles) return;
+    int jb, kb;
+    table_tile(t, g.n_jb, g.n_kb, jb, kb);
+    int* me = done + jb * g.n_kb + kb;
+    PlaneWait sync(me, jb > 0 ? me - g.n_kb : nullptr,
+                   kb > 0 ? me - 1 : nullptr, tb, tc, nq, chunk, 1);
+    const bool target = jb == g.n_jb - 1 && kb == g.n_kb - 1;
+    tile_pillar<NT, CHAIN>(smem, a_ext, b_ext, c_ext, g.hb, g.wc, g.la, g.d,
+                           jb, kb, target, g.jlstar, g.klstar, sub, s,
+                           row_faces(rf, g, kb), col_faces(cf, g, jb), out,
+                           sync);
+  }
 }
 
 template <int NT, bool CHAIN>
@@ -75,6 +123,36 @@ int launch(const int* a, const int* b, const int* c, const BlockedGeom& g,
   return (int)cudaGetLastError();
 }
 
+// Blocks of blocked_persistent<NT, CHAIN> one SM holds at tile plane
+// hb x wc, into *per_sm.
+template <int NT, bool CHAIN>
+cudaError_t persistent_per_sm(int hb, int wc, int* per_sm) {
+  const size_t smem = pillar_shared_bytes(hb, wc);
+  cudaError_t err = cudaFuncSetAttribute(
+      blocked_persistent<NT, CHAIN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, blocked_persistent<NT, CHAIN>, NT, smem);
+}
+
+template <int NT, bool CHAIN>
+int launch_persistent(const int* a, const int* b, const int* c,
+                      const BlockedGeom& g, int chunk, int max_blocks,
+                      const int* sub, StepScoring s, int* rf, int* cf,
+                      int* out, int* next_tile, int* done,
+                      cudaStream_t stream) {
+  int per_sm = 0, blocks = 0;
+  cudaError_t err = persistent_per_sm<NT, CHAIN>(g.hb, g.wc, &per_sm);
+  if (err == cudaSuccess)
+    err = persistent_grid(per_sm, g.n_jb * g.n_kb, max_blocks, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  blocked_persistent<NT, CHAIN>
+      <<<blocks, NT, pillar_shared_bytes(g.hb, g.wc), stream>>>(
+          a, b, c, g, chunk, sub, s, rf, cf, out, next_tile, done);
+  return (int)cudaGetLastError();
+}
+
 template <int NT>
 int launch_mode(const int* a, const int* b, const int* c,
                 const BlockedGeom& g, int diag, int jb_lo, int ntiles,
@@ -85,6 +163,24 @@ int launch_mode(const int* a, const int* b, const int* c,
                              out, stream);
   return launch<NT, true>(a, b, c, g, diag, jb_lo, ntiles, sub, s, rf, cf, out,
                           stream);
+}
+
+template <int NT>
+int launch_persistent_mode(const int* a, const int* b, const int* c,
+                           const BlockedGeom& g, int chunk, int max_blocks,
+                           const int* sub, StepScoring s, int* rf, int* cf,
+                           int* out, int* next_tile, int* done,
+                           cudaStream_t stream) {
+  if (g.d == g.la + 1)
+    return launch_persistent<NT, false>(a, b, c, g, chunk, max_blocks, sub, s,
+                                        rf, cf, out, next_tile, done, stream);
+  return launch_persistent<NT, true>(a, b, c, g, chunk, max_blocks, sub, s,
+                                     rf, cf, out, next_tile, done, stream);
+}
+
+bool valid_geom(const BlockedGeom& g) {
+  return g.d >= 1 && g.npack >= 1 && g.la == g.npack * g.d - 1 &&
+         g.n_jb >= 1 && g.n_kb >= 1;
 }
 
 }  // namespace
@@ -107,7 +203,7 @@ int trialign_blocked_tiles(const int* a, const int* b, const int* c,
   const int lo = diag - (g.n_kb - 1) > 0 ? diag - (g.n_kb - 1) : 0;
   const int hi = diag < g.n_jb - 1 ? diag : g.n_jb - 1;
   if (diag < 0 || ntiles < 1 || jb_lo < lo || jb_lo + ntiles - 1 > hi ||
-      g.d < 1 || g.npack < 1 || g.la != g.npack * g.d - 1)
+      !trialign::valid_geom(g))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (threads) {
@@ -123,6 +219,62 @@ int trialign_blocked_tiles(const int* a, const int* b, const int* c,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Launch the whole-grid sweep of K3 (one problem, or a chain) as one
+// persistent launch on `stream`: arrays as trialign_blocked_tiles takes them,
+// on a fresh state.  chunk: local planes between two handshakes (>= 1);
+// max_blocks: caps the grid (0: as many blocks as the SMs hold at once);
+// next_tile: 1 int, 0; done: n_jb * n_kb ints, -1.  A wait past the
+// watchdog traps (csrc/schedule.cuh).  Returns cudaGetLastError() (or the
+// error of the occupancy query).
+int trialign_blocked_sweep(const int* a, const int* b, const int* c,
+                           trialign::BlockedGeom g, const int* sub,
+                           trialign::StepScoring s, int* rf, int* cf, int* out,
+                           int threads, int chunk, int max_blocks,
+                           int* next_tile, int* done, void* stream) {
+  if (!trialign::valid_geom(g) || chunk < 1 || max_blocks < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (threads) {
+    case 256:
+      return trialign::launch_persistent_mode<256>(
+          a, b, c, g, chunk, max_blocks, sub, s, rf, cf, out, next_tile, done,
+          st);
+    case 512:
+      return trialign::launch_persistent_mode<512>(
+          a, b, c, g, chunk, max_blocks, sub, s, rf, cf, out, next_tile, done,
+          st);
+    case 1024:
+      return trialign::launch_persistent_mode<1024>(
+          a, b, c, g, chunk, max_blocks, sub, s, rf, cf, out, next_tile, done,
+          st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Blocks of the persistent sweep one SM holds at tile plane hb x wc and
+// `threads` threads a block, into *per_sm (chain mode: `chain` nonzero).
+// Returns a CUDA error code.
+int trialign_blocked_blocks_per_sm(int hb, int wc, int threads, int chain,
+                                   int* per_sm) {
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (threads) {
+    case 256:
+      err = chain ? trialign::persistent_per_sm<256, true>(hb, wc, per_sm)
+                  : trialign::persistent_per_sm<256, false>(hb, wc, per_sm);
+      break;
+    case 512:
+      err = chain ? trialign::persistent_per_sm<512, true>(hb, wc, per_sm)
+                  : trialign::persistent_per_sm<512, false>(hb, wc, per_sm);
+      break;
+    case 1024:
+      err = chain ? trialign::persistent_per_sm<1024, true>(hb, wc, per_sm)
+                  : trialign::persistent_per_sm<1024, false>(hb, wc, per_sm);
+      break;
+  }
+  return (int)err;
 }
 
 }  // extern "C"

@@ -76,10 +76,11 @@ __global__ void __launch_bounds__(kThreads)
   int* rface = rf + g[kRfOff] + (size_t)kb * nrows * kNumMatrices * wc;
   int* cface = cf + g[kCfOff] + (size_t)jb * nrows * kNumMatrices * hb;
   const bool target = jb == (int)g[kNjb] - 1 && kb == (int)g[kNkb] - 1;
+  NoWait sync;  // one launch a diagonal: stream order carries the faces
   tile_pillar<kThreads, false>(
       smem, syms + g[kAOff], syms + g[kBOff], syms + g[kCOff], hb, wc, la,
       la + 1, jb, kb, target, (int)g[kJlstar], (int)g[kKlstar], sub, s, rface,
-      cface, out + (size_t)p * kNumMatrices);
+      cface, out + (size_t)p * kNumMatrices, sync);
 }
 
 }  // namespace

@@ -16,11 +16,20 @@
 // memory, so a tile is bound by shared-memory loads (43 a cell) and by the
 // barrier that ends each plane.
 //
-// Design: the caller (one thread block per tile) names the tile and its
-// problem's geometry; stream order between launches makes the faces of the
-// previous tile anti-diagonal visible, and no two blocks of a launch share a
-// face slab.  A row-face slab is read and written in place: a tile reads row
-// s at step s and writes it at step s + tb.  The halo install order of
+// Design: the caller names the tile and its problem's geometry, and a
+// schedule policy (csrc/schedule.cuh): NoWait where stream order between
+// launches makes the faces of the previous tile anti-diagonal visible and no
+// two blocks of a launch share a face slab (K4, K3's per-tile form); PlaneWait
+// where one persistent launch runs every tile and a tile waits, at the start
+// of each chunk of planes, for the planes of its neighbours whose face rows
+// the chunk reads (K3's whole-grid sweep and chain mode).  A row-face slab
+// is read and written in place: a tile reads row s at step s and writes it
+// at step s + tb.  Under PlaneWait that stays correct: tile (jb, kb) reads row
+// s only once (jb - 1, kb) has written it (at its step s + tb), and writes
+// row s itself at its step s + tb, which the next tile (jb + 1, kb) waits for
+// before it reads it; (jb - 1, kb) has by then finished its step s, the
+// last that reads the old row.  Rows that two tiles touch while both run
+// are disjoint.  Column-face slabs likewise with tc.  The halo install order of
 // blocked.py is kept: column 0 from the column face, then row 0 from the row
 // face, so the row face wins at the corner [0, 0] (it carries the diagonal
 // tile's value); tiles of the first tile row or column take the zero border
@@ -41,6 +50,7 @@
 #include <stdint.h>
 
 #include "plane_step.cuh"
+#include "schedule.cuh"
 
 namespace trialign {
 
@@ -57,13 +67,15 @@ inline size_t pillar_shared_bytes(int hb, int wc) {
 // |B|); rface, cface: this tile's row-face slab (its tile column's) and
 // column-face slab (its tile row's), each nrows rows of 7 x wc (7 x hb)
 // ints; target: the tile holds the final cell, at local (jlstar, klstar);
-// out: 7 ints a slot.
-template <int NT, bool CHAIN>
+// out: 7 ints a slot; sync: the schedule policy (csrc/schedule.cuh), whose
+// loads and stores carry the faces.
+template <int NT, bool CHAIN, class Sync>
 __device__ __forceinline__ void tile_pillar(
     int* smem, const int* __restrict__ a_ext, const int* __restrict__ b_ext,
     const int* __restrict__ c_ext, int hb, int wc, int la, int d, int jb,
     int kb, bool target, int jlstar, int klstar, const int* __restrict__ sub,
-    const StepScoring& s, int* rface, int* cface, int* __restrict__ out) {
+    const StepScoring& s, int* rface, int* cface, int* __restrict__ out,
+    Sync& sync) {
   const int tb = hb - 1, tc = wc - 1, P = hb * wc;
   int* planes = smem;                            // [3 slots][7][P]
   int* m7 = planes + 3 * kNumMatrices * P;       // [4 slots][P]
@@ -96,6 +108,7 @@ __device__ __forceinline__ void tile_pillar(
   const int djl = NT / tc, dkl = NT % tc;
 
   for (int q = 1; q <= nq; ++q) {
+    sync.before_plane(q);
     if (CHAIN) qmod = qmod + 1 == d ? 0 : qmod + 1;
     int* cur = planes + (q % 3) * kNumMatrices * P;
     const int* p1 = planes + ((q + 2) % 3) * kNumMatrices * P;
@@ -131,12 +144,12 @@ __device__ __forceinline__ void tile_pillar(
         if (jl == tb) {
 #pragma unroll
           for (int t = 0; t < kNumMatrices; ++t)
-            rface[(q - tb) * rrow + t * wc + kl] = v[t];
+            sync.store(&rface[(q - tb) * rrow + t * wc + kl], v[t]);
         }
         if (kl == tc) {
 #pragma unroll
           for (int t = 0; t < kNumMatrices; ++t)
-            cface[(q - tc) * crow + t * hb + jl] = v[t];
+            sync.store(&cface[(q - tc) * crow + t * hb + jl], v[t]);
         }
         if (capture && jl == jlstar && kl == klstar) {
           int* o = out + (CHAIN ? (ifin + 1) / d - 1 : 0) * kNumMatrices;
@@ -164,7 +177,7 @@ __device__ __forceinline__ void tile_pillar(
         const int* src = row ? rface + q * rrow + kl : cface + q * crow + jl;
         const int stride = row ? wc : hb;
 #pragma unroll
-        for (int t = 0; t < kNumMatrices; ++t) v[t] = src[t * stride];
+        for (int t = 0; t < kNumMatrices; ++t) v[t] = sync.load(src + t * stride);
       } else {
 #pragma unroll
         for (int t = 0; t < kNumMatrices; ++t) v[t] = 0;
@@ -181,15 +194,18 @@ __device__ __forceinline__ void tile_pillar(
       // and the right column's row-0 entry.
       if (!row && jl == tb) {
 #pragma unroll
-        for (int t = 0; t < kNumMatrices; ++t) rface[(q - tb) * rrow + t * wc] = v[t];
+        for (int t = 0; t < kNumMatrices; ++t)
+          sync.store(&rface[(q - tb) * rrow + t * wc], v[t]);
       }
       if (row && kl == tc) {
 #pragma unroll
-        for (int t = 0; t < kNumMatrices; ++t) cface[(q - tc) * crow + t * hb] = v[t];
+        for (int t = 0; t < kNumMatrices; ++t)
+          sync.store(&cface[(q - tc) * crow + t * hb], v[t]);
       }
     }
     __syncthreads();
   }
+  sync.finish();
 }
 
 }  // namespace trialign

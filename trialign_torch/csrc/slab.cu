@@ -3,8 +3,8 @@
 // Replaces trialign/kernels/slab.py:_slab_sweep as launched by
 // make_slab_grid_call and by make_slab_block_call.  It is K3's tiled sweep
 // (csrc/blocked.cu: tiles of tb x tc cells with a one-cell halo, faces in
-// skewed global slabs, one launch per tile anti-diagonal) plus three things
-// the Hirschberg split needs:
+// skewed global slabs, the whole grid in one persistent launch) plus three
+// things the Hirschberg split needs:
 //
 // * Capture.  Every position (jl, kl) of a tile, halo included, is written
 //   once to cap[blk][t][jl][kl] on the plane where its global i equals |A|.
@@ -23,8 +23,23 @@
 //
 // Bound on the card: as K3, the integer add/max step (no tensor-core work)
 // reads 43 values a cell from the plane ring in shared memory, and a barrier
-// ends each plane; the grid is bound by the tiles of one anti-diagonal.  The
-// capture adds one write of 7 ints for each cell of the i = |A| plane.
+// ends each plane; the capture adds one write of 7 ints for each cell of
+// the i = |A| plane.  Its ~117 KB plane ring holds one block to an SM.
+// Launched one tile anti-diagonal at a time, the grid was bound by the tiles
+// of one diagonal (125 launches at the 2048^3 top split, 33 tiles each on
+// average).
+//
+// Whole-grid sweep (slab_persistent): one launch for every tile, as K3's
+// (csrc/schedule.cuh PlaneWait).  Blocks take tiles in table order from a
+// global counter and sweep each pillar in chunks of planes; before a chunk a
+// tile waits until its upper neighbour has finished plane q1 - 1 + tb and its
+// left neighbour plane q1 - 1 + tc (capped at the last plane), the rule of
+// kernels/blocked.py planes_needed.  The face slabs stay one a tile column
+// and one a tile row, read and written in place: tile (jb, kb) reads row s
+// at its step s, after (jb - 1, kb) wrote it at its step s + tb, and writes
+// row s at its own step s + tb, before which (jb + 1, kb) does not read it
+// and after which (jb - 1, kb), past its step s, never reads it again.
+// "pin" and "bwd" start at plane 0, so progress starts at -1.
 //
 // Per-tile form (trialign/kernels/slab.py:make_slab_block_call, which the
 // halo-sharded traceback runs one block a call): a launch runs any run of
@@ -49,6 +64,7 @@
 #include <stdint.h>
 
 #include "plane_step.cuh"
+#include "schedule.cuh"
 
 namespace trialign {
 
@@ -155,13 +171,14 @@ size_t shared_bytes(int hb, int wc) {
                          kSlabSubTable);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    slab_kernel(const int* __restrict__ a_ext, const int* __restrict__ b_ext,
-                const int* __restrict__ c_ext, SlabGeom g, int d, int jb_lo,
-                const int* __restrict__ scal, const int* __restrict__ sub,
-                StepScoring s, int* rf, int* cf, int* __restrict__ out,
-                int* __restrict__ cap) {
-  extern __shared__ int smem[];
+// Sweeps tile (jb, kb) under the schedule policy `sync` (csrc/schedule.cuh).
+template <class Sync>
+__device__ __forceinline__ void slab_tile(
+    int* smem, const int* __restrict__ a_ext, const int* __restrict__ b_ext,
+    const int* __restrict__ c_ext, const SlabGeom& g, int jb, int kb,
+    const int* __restrict__ scal, const int* __restrict__ sub,
+    const StepScoring& s, int* rf, int* cf, int* __restrict__ out,
+    int* __restrict__ cap, Sync& sync) {
   const int hb = g.hb, wc = g.wc, tb = hb - 1, tc = wc - 1;
   // Guarded plane: position (jl, kl) at (jl + 1) * W1 + kl + 1, jl, kl >= -1.
   const int W1 = wc + 1, PG = (hb + 1) * W1;
@@ -170,7 +187,6 @@ __global__ void __launch_bounds__(kThreads)
   int* bsym = m4 + 4 * PG;                    // [hb]
   int* csym = bsym + hb;                      // [wc]
   int* sub_s = csym + wc;                     // [kSlabSubTable]
-  const int jb = jb_lo + blockIdx.x, kb = d - jb;
   const int blk = jb * g.n_kb + kb;
   const int* row = scal + (size_t)blk * kScalCols;
   const int la = g.la, qstar = row[3], jlstar = row[4], klstar = row[5];
@@ -192,7 +208,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // Face slabs: row faces [n_kb][nrows][7][wc], column faces
-  // [n_jb][nrows][7][hb].  Written here, read by the next launch.
+  // [n_jb][nrows][7][hb].
   const size_t rrow = (size_t)kNumMatrices * wc, crow = (size_t)kNumMatrices * hb;
   int* rface = rf + (size_t)row[13] * g.nrows * rrow;
   int* cface = cf + (size_t)row[14] * g.nrows * crow;
@@ -202,6 +218,7 @@ __global__ void __launch_bounds__(kThreads)
   const int npos = hb * wc;
 
   for (int q = walls ? 0 : 1; q <= nq; ++q) {
+    sync.before_plane(q);
     int* cur = planes + (q % 3) * kNumMatrices * PG;
     const int* p1 = planes + ((q + 2) % 3) * kNumMatrices * PG;
     const int* p2 = planes + ((q + 1) % 3) * kNumMatrices * PG;
@@ -218,11 +235,11 @@ __global__ void __launch_bounds__(kThreads)
         // Halo row from the row face; it wins at the corner.
         const int* src = rface + q * rrow + kl;
 #pragma unroll
-        for (int t = 0; t < kNumMatrices; ++t) v[t] = src[t * wc];
+        for (int t = 0; t < kNumMatrices; ++t) v[t] = sync.load(src + t * wc);
       } else if (kl == 0 && kb > 0) {
         const int* src = cface + q * crow + jl;
 #pragma unroll
-        for (int t = 0; t < kNumMatrices; ++t) v[t] = src[t * hb];
+        for (int t = 0; t < kNumMatrices; ++t) v[t] = sync.load(src + t * hb);
       } else if ((jl == 0 || kl == 0) && !walls) {
         // A j = 0 or k = 0 face cell of "free" / "free_jk": zero.
 #pragma unroll
@@ -262,12 +279,12 @@ __global__ void __launch_bounds__(kThreads)
       if (jl == tb) {
 #pragma unroll
         for (int t = 0; t < kNumMatrices; ++t)
-          rface[(q - tb) * rrow + t * wc + kl] = v[t];
+          sync.store(&rface[(q - tb) * rrow + t * wc + kl], v[t]);
       }
       if (kl == tc) {
 #pragma unroll
         for (int t = 0; t < kNumMatrices; ++t)
-          cface[(q - tc) * crow + t * hb + jl] = v[t];
+          sync.store(&cface[(q - tc) * crow + t * hb + jl], v[t]);
       }
       if (i == la) {
 #pragma unroll
@@ -280,6 +297,81 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
   }
+  sync.finish();
+}
+
+// Tiles (jb_lo .. jb_lo + gridDim.x - 1, d - jb), one block each, after the
+// launches of the earlier diagonals on the same stream.
+__global__ void __launch_bounds__(kThreads)
+    slab_kernel(const int* __restrict__ a_ext, const int* __restrict__ b_ext,
+                const int* __restrict__ c_ext, SlabGeom g, int d, int jb_lo,
+                const int* __restrict__ scal, const int* __restrict__ sub,
+                StepScoring s, int* rf, int* cf, int* __restrict__ out,
+                int* __restrict__ cap) {
+  extern __shared__ int smem[];
+  const int jb = jb_lo + blockIdx.x;
+  NoWait sync;
+  slab_tile(smem, a_ext, b_ext, c_ext, g, jb, d - jb, scal, sub, s, rf, cf,
+            out, cap, sync);
+}
+
+// The whole tile table in one launch.  next_tile: the hand-out counter (0);
+// done: one progress word a tile, row jb * n_kb + kb (-1).  The whole-grid
+// sweep names the faces of tile (jb, kb) by their tile column and row
+// (scal columns 13, 14), which the wait rule assumes.
+__global__ void __launch_bounds__(kThreads)
+    slab_persistent(const int* __restrict__ a_ext,
+                    const int* __restrict__ b_ext,
+                    const int* __restrict__ c_ext, SlabGeom g, int chunk,
+                    const int* __restrict__ scal, const int* __restrict__ sub,
+                    StepScoring s, int* rf, int* cf, int* __restrict__ out,
+                    int* __restrict__ cap, int* next_tile, int* done) {
+  extern __shared__ int smem[];
+  const int ntiles = g.n_jb * g.n_kb;
+  const int tb = g.hb - 1, tc = g.wc - 1, nq = g.la + tb + tc;
+  const int first = g.variant == kPin || g.variant == kBwd ? 0 : 1;
+  for (;;) {
+    const int t = take_tile(next_tile);
+    if (t >= ntiles) return;
+    int jb, kb;
+    table_tile(t, g.n_jb, g.n_kb, jb, kb);
+    int* me = done + jb * g.n_kb + kb;
+    PlaneWait sync(me, jb > 0 ? me - g.n_kb : nullptr,
+                   kb > 0 ? me - 1 : nullptr, tb, tc, nq, chunk, first);
+    slab_tile(smem, a_ext, b_ext, c_ext, g, jb, kb, scal, sub, s, rf, cf, out,
+              cap, sync);
+  }
+}
+
+bool valid(const SlabGeom& g, const StepScoring& s) {
+  return g.variant >= kFree && g.variant <= kBwd && s.nsym >= 0 &&
+         s.nsym <= kSlabMaxSym && g.n_jb >= 1 && g.n_kb >= 1;
+}
+
+cudaError_t persistent_per_sm(int hb, int wc, int* per_sm) {
+  const size_t smem = shared_bytes(hb, wc);
+  cudaError_t err = cudaFuncSetAttribute(
+      slab_persistent, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, slab_persistent,
+                                                       kThreads, smem);
+}
+
+int launch_persistent(const int* a, const int* b, const int* c,
+                      const SlabGeom& g, int chunk, int max_blocks,
+                      const int* scal, const int* sub, StepScoring s, int* rf,
+                      int* cf, int* out, int* cap, int* next_tile, int* done,
+                      cudaStream_t stream) {
+  if (!valid(g, s) || chunk < 1 || max_blocks < 0)
+    return (int)cudaErrorInvalidValue;
+  int per_sm = 0, blocks = 0;
+  cudaError_t err = persistent_per_sm(g.hb, g.wc, &per_sm);
+  if (err == cudaSuccess)
+    err = persistent_grid(per_sm, g.n_jb * g.n_kb, max_blocks, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  slab_persistent<<<blocks, kThreads, shared_bytes(g.hb, g.wc), stream>>>(
+      a, b, c, g, chunk, scal, sub, s, rf, cf, out, cap, next_tile, done);
+  return (int)cudaGetLastError();
 }
 
 int launch(const int* a, const int* b, const int* c, const SlabGeom& g, int d,
@@ -289,8 +381,7 @@ int launch(const int* a, const int* b, const int* c, const SlabGeom& g, int d,
   const int lo = d - (g.n_kb - 1) > 0 ? d - (g.n_kb - 1) : 0;
   const int hi = d < g.n_jb - 1 ? d : g.n_jb - 1;
   if (d < 0 || ntiles < 1 || jb_lo < lo || jb_lo + ntiles - 1 > hi ||
-      g.variant < kFree || g.variant > kBwd || s.nsym < 0 ||
-      s.nsym > kSlabMaxSym)
+      !valid(g, s))
     return (int)cudaErrorInvalidValue;
   const size_t smem = shared_bytes(g.hb, g.wc);
   cudaError_t err = cudaFuncSetAttribute(
@@ -329,6 +420,29 @@ int trialign_slab_tiles(const int* a, const int* b, const int* c,
                         int* cap, void* stream) {
   return trialign::launch(a, b, c, g, d, jb_lo, ntiles, scal, sub, s, rf, cf,
                           out, cap, (cudaStream_t)stream);
+}
+
+// Launch the whole-grid slab sweep as one persistent launch on `stream`:
+// arrays as trialign_slab_tiles takes them, on a fresh state whose scal
+// names tile (jb, kb)'s faces by its column and row.  chunk: local planes
+// between two handshakes (>= 1); max_blocks: caps the grid (0: as many
+// blocks as the SMs hold at once); next_tile: 1 int, 0; done: n_jb * n_kb
+// ints, -1.  A wait past the watchdog traps (csrc/schedule.cuh).  Returns
+// cudaGetLastError() (or the error of the occupancy query).
+int trialign_slab_sweep(const int* a, const int* b, const int* c,
+                        trialign::SlabGeom g, const int* scal, const int* sub,
+                        trialign::StepScoring s, int* rf, int* cf, int* out,
+                        int* cap, int chunk, int max_blocks, int* next_tile,
+                        int* done, void* stream) {
+  return trialign::launch_persistent(a, b, c, g, chunk, max_blocks, scal, sub,
+                                     s, rf, cf, out, cap, next_tile, done,
+                                     (cudaStream_t)stream);
+}
+
+// Blocks of the persistent slab sweep one SM holds at tile plane hb x wc,
+// into *per_sm.  Returns a CUDA error code.
+int trialign_slab_blocks_per_sm(int hb, int wc, int* per_sm) {
+  return (int)trialign::persistent_per_sm(hb, wc, per_sm);
 }
 
 }  // extern "C"

@@ -11,31 +11,36 @@ The (j, k) plane is cut into tiles of tb x tc cells.  A tile's plane is
 (hb, wc) = (tb + 1, tc + 1): a halo row and column that come from the faces
 of its upper and left neighbours, then its own cells.  Each tile sweeps all
 of its local planes q = 1 .. L + tb + tc (cell (jl, kl) of local plane q
-holds global i = q - jl - kl, L the swept |A|), and tiles run one
-anti-diagonal jb + kb = d at a time.  Faces live in skewed slabs: the bottom
-row of local plane q goes to row q - tb of the row-face slab of its tile
-column, the right column to row q - tc of the column-face slab of its tile
-row (blocked.py:6-12).
+holds global i = q - jl - kl, L the swept |A|).  Faces live in skewed slabs:
+the bottom row of local plane q goes to row q - tb of the row-face slab of
+its tile column, the right column to row q - tc of the column-face slab of
+its tile row (blocked.py:6-12).
 
 A problem's tiles form a table in anti-diagonal order: d ascending, then jb
-ascending.  The sweep state (:class:`BlockedState`: the face slabs and the
-output rows) stays on the device from launch to launch, so
-:func:`sweep_tiles` can run any run of that table, and a sweep may stop and
-resume between any two tiles (the per-tile form).  :func:`final_values` is
-:func:`sweep_tiles` over the whole table on a fresh state.
+ascending.  Two schedules sweep it.  The per-tile form
+(:func:`sweep_tiles`) runs one anti-diagonal jb + kb = d at a time on a
+sweep state (:class:`BlockedState`: the face slabs and the output rows) that
+stays on the device from launch to launch, so it can run any run of the
+table, and a sweep may stop and resume between any two tiles.  The
+whole-grid sweep (:func:`final_values`, :func:`chain_values`) is one
+persistent launch in which each tile advances, a chunk of planes at a time,
+as soon as its neighbours have finished the planes whose faces the chunk
+reads (:func:`planes_needed`).  Both give the same state.
 
 Chain mode (:func:`plan_dims_packed`): ``npack`` problems of equal |A|
 stacked along i at pitch d = |A| + 1, sharing B and C, swept as one problem
 of |A| = npack * d - 1 whose cells with i = 0 (mod d) are zero borders; the
 last tile captures slot m's seven values into output row m.
 
-On a CUDA tensor the wrappers launch ``csrc/blocked.cu`` once per run of a
-tile anti-diagonal.  On a CPU tensor they run :func:`blocked_ref`, the plain
-torch version of the same tile table, face layout and state.
+On a CUDA tensor the wrappers launch ``csrc/blocked.cu``: once per run of a
+tile anti-diagonal (the per-tile form), once per sweep (the whole grid).  On
+a CPU tensor they run :func:`blocked_ref`, the plain torch version of the
+same tile table, face layout and state, in anti-diagonal order.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,6 +60,9 @@ from trialign_torch.kernels.ref import (
 # (PERF.md).
 DEF_HB, DEF_WC = 33, 33
 THREADS = 512
+# Local planes a tile of the persistent sweeps (K3 and K5) sweeps between two
+# handshakes with its neighbours (chip_smoke.py "tuning", PERF.md).
+CHUNK = 8
 # Shared memory one thread block may take on sm_90 (227 KB).
 SMEM_CAP = 232448
 
@@ -209,6 +217,18 @@ def tile_index(dims: Dims, d: int, jb: int) -> int:
         jb - _diagonal(d, dims).start
 
 
+def planes_needed(q1: int, dims: Dims) -> Tuple[int, int]:
+    """The readiness rule of the persistent sweeps (csrc/schedule.cuh
+    PlaneWait, which K3 and K5 follow): before a tile sweeps its local planes
+    up to q1 - 1, its upper neighbour (jb - 1, kb) must have finished plane
+    ``up`` and its left neighbour (jb, kb - 1) plane ``left``; returns
+    (up, left).  A tile reads row q of its row-face slab at plane q, which
+    the upper neighbour writes at its plane q + tb (the column face likewise
+    with tc); the neighbours' last plane is ``dims.nq``."""
+    return (min(q1 - 1 + dims.hb - 1, dims.nq),
+            min(q1 - 1 + dims.wc - 1, dims.nq))
+
+
 def _runs(dims: Dims, idx0: int, count: int) -> Iterator[Tuple[int, int, int]]:
     """Tiles idx0 .. idx0 + count - 1 of :func:`tile_table` as runs of one
     anti-diagonal each: (d, first jb, tiles)."""
@@ -227,26 +247,19 @@ def _runs(dims: Dims, idx0: int, count: int) -> Iterator[Tuple[int, int, int]]:
         yield tuple(run)
 
 
-def blocked_ref(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
-                scoring: Scoring = Scoring(), score_bits: int = 0,
-                state: Optional[BlockedState] = None, idx0: int = 0,
-                count: Optional[int] = None) -> torch.Tensor:
-    """Plain torch version of K3: sweeps tiles idx0 .. idx0 + count - 1 of
-    :func:`tile_table` (all by default) from ``state`` (a fresh one by
-    default), updating it in place, and returns its final values: (7,) for
-    one problem, (npack, 7) for a chain.
-
-    Same tile table, face slabs, halo install order, face entries written
-    and capture as the kernel; the tiles of one anti-diagonal run as one
-    batch.  ``la`` is the problem's |A| (a slot's in chain mode)."""
+def pillar_steps(a_ext, b_ext, c_ext, lb: int, lc: int, dims: Dims,
+                 state: BlockedState, jbs: torch.Tensor, kbs: torch.Tensor,
+                 scoring: Scoring = Scoring(),
+                 score_bits: int = 0) -> Iterator[int]:
+    """The pillars of tiles (jbs[p], kbs[p]) swept together on ``state`` in
+    place, as the kernel sweeps one tile: a generator that runs local plane
+    q = 1, 2, .. ``dims.nq`` and yields q after each.  The tiles' faces must
+    be ready for each plane before it runs (:func:`planes_needed`)."""
     dev = a_ext.device
-    if state is None:
-        state = new_state(dims, dev)
-    if count is None:
-        count = n_tiles(dims) - idx0
     rf, cf, out = state
     hb, wc = dims.hb, dims.wc
     tb, tc = hb - 1, wc - 1
+    n = len(jbs)
     sweep_la = swept_length(dims)
     pitch = dims.d or sweep_la + 1
     groups = transition_groups(scoring.weight_matrix())
@@ -261,59 +274,83 @@ def blocked_ref(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
         """Cells the kernel writes: 1 <= i <= L."""
         return (i >= 1) & (i <= sweep_la)
 
+    bsym = b_ext[jbs.view(n, 1) * tb + jl.view(1, hb)].view(n, hb, 1)
+    csym = c_ext[kbs.view(n, 1) * tc + kl.view(1, wc)].view(n, 1, wc)
+    s_bc = pair(bsym, csym)
+    has_row = (jbs > 0).view(1, n, 1)
+    has_col = (kbs > 0).view(1, n, 1)
+    # The last tile holds the final cell.
+    target = [p for p in range(n) if int(jbs[p]) == dims.n_jb - 1
+              and int(kbs[p]) == dims.n_kb - 1]
+
+    zeros = torch.zeros((7, n, hb, wc), dtype=torch.int32, device=dev)
+    p1, p2 = zeros, zeros
+    m7p2, m7p3 = zeros[0], zeros[0]
+    for q in range(1, dims.nq + 1):
+        i = q - jk
+        valid = edge & inside(i) & (i % pitch != 0)
+        ai = a_ext[i.clamp(0, sweep_la)]
+        subs = substitution(ai, bsym, csym, s_bc, scoring, pair)
+        cands, m7p1 = fused_plane_update_m7(
+            p1, p2, m7p3, subs, groups, torch.maximum, roll1
+        )
+        # Invalid cells, chain borders i = 0 (mod d) included, are 0.
+        new = torch.where(valid, wrap(torch.stack(cands), score_bits), 0)
+        # Halo: column 0 from the column face, then row 0 from the row
+        # face, which wins at the corner.  A halo cell outside
+        # 1 <= i <= L, or on a border, is 0 and its face row is not read.
+        icol, irow = q - jl, q - kl
+        col_ok = has_col & (inside(icol) & (icol % pitch != 0)).view(
+            1, 1, hb)
+        row_ok = has_row & (inside(irow) & (irow % pitch != 0)).view(
+            1, 1, wc)
+        new[:, :, :, 0] = torch.where(
+            col_ok, cf[jbs, q].permute(1, 0, 2), 0)
+        new[:, :, 0, :] = torch.where(
+            row_ok, rf[kbs, q].permute(1, 0, 2), 0)
+        # Faces, corners included: bottom row to row q - tb of the row
+        # slab, right column to row q - tc of the column slab; only the
+        # entries whose cell has 1 <= i <= L, as the kernel writes them.
+        if q - tb >= 0:
+            w = inside(q - tb - kl).view(1, 1, wc)
+            rf[kbs, q - tb] = torch.where(
+                w, new[:, :, tb, :].permute(1, 0, 2), rf[kbs, q - tb])
+        if q - tc >= 0:
+            w = inside(q - tc - jl).view(1, 1, hb)
+            cf[jbs, q - tc] = torch.where(
+                w, new[:, :, :, tc].permute(1, 0, 2), cf[jbs, q - tc])
+        # Slot m's final cell: i = m * d + d - 1 at (jl*, kl*).
+        it = q - jlstar - klstar
+        if target and 1 <= it <= sweep_la and (it + 1) % pitch == 0:
+            out[(it + 1) // pitch - 1] = new[:, target[0], jlstar, klstar]
+        p1, p2, m7p2, m7p3 = new, p1, m7p1, m7p2
+        yield q
+
+
+def blocked_ref(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
+                scoring: Scoring = Scoring(), score_bits: int = 0,
+                state: Optional[BlockedState] = None, idx0: int = 0,
+                count: Optional[int] = None) -> torch.Tensor:
+    """Plain torch version of K3: sweeps tiles idx0 .. idx0 + count - 1 of
+    :func:`tile_table` (all by default) from ``state`` (a fresh one by
+    default), updating it in place, and returns its final values: (7,) for
+    one problem, (npack, 7) for a chain.
+
+    Same tile table, face slabs, halo install order, face entries written
+    and capture as the kernel; the tiles of one anti-diagonal run as one
+    batch (:func:`pillar_steps`).  ``la`` is the problem's |A| (a slot's in
+    chain mode)."""
+    dev = a_ext.device
+    if state is None:
+        state = new_state(dims, dev)
+    if count is None:
+        count = n_tiles(dims) - idx0
     for d, jb_lo, n in _runs(dims, idx0, count):
         jbs = torch.arange(jb_lo, jb_lo + n, device=dev)
-        kbs = d - jbs
-        bsym = b_ext[jbs.view(n, 1) * tb + jl.view(1, hb)].view(n, hb, 1)
-        csym = c_ext[kbs.view(n, 1) * tc + kl.view(1, wc)].view(n, 1, wc)
-        s_bc = pair(bsym, csym)
-        has_row = (jbs > 0).view(1, n, 1)
-        has_col = (kbs > 0).view(1, n, 1)
-        # The last tile, the only one of its diagonal, holds the final cell.
-        target = d == dims.n_jb + dims.n_kb - 2
-
-        zeros = torch.zeros((7, n, hb, wc), dtype=torch.int32, device=dev)
-        p1, p2 = zeros, zeros
-        m7p2, m7p3 = zeros[0], zeros[0]
-        for q in range(1, dims.nq + 1):
-            i = q - jk
-            valid = edge & inside(i) & (i % pitch != 0)
-            ai = a_ext[i.clamp(0, sweep_la)]
-            subs = substitution(ai, bsym, csym, s_bc, scoring, pair)
-            cands, m7p1 = fused_plane_update_m7(
-                p1, p2, m7p3, subs, groups, torch.maximum, roll1
-            )
-            # Invalid cells, chain borders i = 0 (mod d) included, are 0.
-            new = torch.where(valid, wrap(torch.stack(cands), score_bits), 0)
-            # Halo: column 0 from the column face, then row 0 from the row
-            # face, which wins at the corner.  A halo cell outside
-            # 1 <= i <= L, or on a border, is 0 and its face row is not read.
-            icol, irow = q - jl, q - kl
-            col_ok = has_col & (inside(icol) & (icol % pitch != 0)).view(
-                1, 1, hb)
-            row_ok = has_row & (inside(irow) & (irow % pitch != 0)).view(
-                1, 1, wc)
-            new[:, :, :, 0] = torch.where(
-                col_ok, cf[jbs, q].permute(1, 0, 2), 0)
-            new[:, :, 0, :] = torch.where(
-                row_ok, rf[kbs, q].permute(1, 0, 2), 0)
-            # Faces, corners included: bottom row to row q - tb of the row
-            # slab, right column to row q - tc of the column slab; only the
-            # entries whose cell has 1 <= i <= L, as the kernel writes them.
-            if q - tb >= 0:
-                w = inside(q - tb - kl).view(1, 1, wc)
-                rf[kbs, q - tb] = torch.where(
-                    w, new[:, :, tb, :].permute(1, 0, 2), rf[kbs, q - tb])
-            if q - tc >= 0:
-                w = inside(q - tc - jl).view(1, 1, hb)
-                cf[jbs, q - tc] = torch.where(
-                    w, new[:, :, :, tc].permute(1, 0, 2), cf[jbs, q - tc])
-            # Slot m's final cell: i = m * d + d - 1 at (jl*, kl*).
-            it = q - jlstar - klstar
-            if target and 1 <= it <= sweep_la and (it + 1) % pitch == 0:
-                out[(it + 1) // pitch - 1] = new[:, 0, jlstar, klstar]
-            p1, p2, m7p2, m7p3 = new, p1, m7p1, m7p2
-    return out if dims.d else out[0]
+        for _ in pillar_steps(a_ext, b_ext, c_ext, lb, lc, dims, state, jbs,
+                              d - jbs, scoring, score_bits):
+            pass
+    return state.out if dims.d else state.out[0]
 
 
 def _check(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
@@ -348,11 +385,19 @@ def _check_state(state: BlockedState, dims: Dims, device) -> None:
                              "device of the symbol arrays")
 
 
-def _sweep(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, state, idx0,
-           count, scoring, score_bits, threads) -> BlockedState:
+def _geom(lb: int, lc: int, dims: Dims):
+    jlstar, klstar = _target(lb, lc, dims)
+    sweep_la = swept_length(dims)
+    return _build.BlockedGeom(sweep_la, dims.hb, dims.wc, dims.n_jb,
+                              dims.n_kb, dims.nrows, jlstar, klstar,
+                              dims.d or sweep_la + 1, dims.npack)
+
+
+def _sweep(a_ext, b_ext, c_ext, la, lb, lc, dims, state, idx0, count,
+           scoring, score_bits, threads) -> BlockedState:
     """Tiles idx0 .. idx0 + count - 1 on ``state``: blocked_ref on a CPU
     tensor, K3 (one launch a run of one anti-diagonal, counted on
-    ``counter``) on a CUDA tensor, never a fallback."""
+    :func:`sweep_tiles`) on a CUDA tensor, never a fallback."""
     dev = a_ext.device
     _check_state(state, dims, dev)
     if dev.type == "cpu":
@@ -363,11 +408,7 @@ def _sweep(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, state, idx0,
         raise ValueError(f"no blocked kernel for device {dev}")
     lib = _build.load("blocked")
     step, table = _build.kernel_scoring(scoring, score_bits, dev)
-    jlstar, klstar = _target(lb, lc, dims)
-    sweep_la = swept_length(dims)
-    geom = _build.BlockedGeom(sweep_la, dims.hb, dims.wc, dims.n_jb,
-                              dims.n_kb, dims.nrows, jlstar, klstar,
-                              dims.d or sweep_la + 1, dims.npack)
+    geom = _geom(lb, lc, dims)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         for d, jb_lo, n in _runs(dims, idx0, count):
@@ -377,8 +418,61 @@ def _sweep(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, state, idx0,
                 state.cf.data_ptr(), state.out.data_ptr(), threads, stream,
             )
             _build.check(lib, code, f"blocked kernel launch (diagonal {d})")
-            counter.launches += 1
+            sweep_tiles.launches += 1
     return state
+
+
+def check_schedule(chunk: int, blocks: Optional[int]) -> None:
+    """Raise ValueError for a chunk or a grid cap the persistent sweeps do
+    not take."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1 plane, not {chunk}")
+    if blocks is not None and blocks < 1:
+        raise ValueError(f"blocks must be >= 1 or None, not {blocks}")
+
+
+def _sweep_grid(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, scoring,
+                score_bits, threads, chunk, blocks) -> BlockedState:
+    """The whole tile table on a fresh state: blocked_ref on a CPU tensor;
+    on a CUDA tensor K3's persistent sweep, one launch counted on
+    ``counter``, which raises if refused and never falls back."""
+    check_schedule(chunk, blocks)
+    dev = a_ext.device
+    state = new_state(dims, dev)
+    if dev.type == "cpu":
+        blocked_ref(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring,
+                    score_bits, state)
+        return state
+    if dev.type != "cuda":
+        raise ValueError(f"no blocked kernel for device {dev}")
+    lib = _build.load("blocked")
+    step, table = _build.kernel_scoring(scoring, score_bits, dev)
+    with torch.cuda.device(dev):
+        # The hand-out counter and one progress word a tile, on the stream.
+        next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
+        done = torch.full((n_tiles(dims),), -1, dtype=torch.int32,
+                          device=dev)
+        code = lib.trialign_blocked_sweep(
+            a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
+            _geom(lb, lc, dims), table.data_ptr(), step, state.rf.data_ptr(),
+            state.cf.data_ptr(), state.out.data_ptr(), threads, chunk,
+            blocks or 0, next_tile.data_ptr(), done.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+        _build.check(lib, code, "blocked kernel launch (persistent sweep)")
+        counter.launches += 1
+    return state
+
+
+def blocks_per_sm(dims: Dims, threads: int = THREADS) -> int:
+    """Thread blocks of K3's persistent sweep that one SM of the current
+    card holds at ``dims``'s tile plane (the grid is that times the SMs)."""
+    lib = _build.load("blocked")
+    per_sm = ctypes.c_int(0)
+    _build.check(lib, lib.trialign_blocked_blocks_per_sm(
+        dims.hb, dims.wc, threads, int(bool(dims.d)), ctypes.byref(per_sm)),
+        "blocked occupancy query")
+    return per_sm.value
 
 
 def sweep_tiles(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
@@ -392,39 +486,42 @@ def sweep_tiles(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
     :func:`blocked_ref`; on a CUDA tensor it launches K3 once per run of one
     anti-diagonal and never falls back.  Nothing waits for the card."""
     _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
-    return _sweep(sweep_tiles, a_ext, b_ext, c_ext, la, lb, lc, dims, state,
-                  idx0, count, scoring, score_bits, threads)
+    return _sweep(a_ext, b_ext, c_ext, la, lb, lc, dims, state, idx0, count,
+                  scoring, score_bits, threads)
 
 
 def final_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                  scoring: Scoring = Scoring(), score_bits: int = 0,
-                 threads: int = THREADS) -> torch.Tensor:
+                 threads: int = THREADS, chunk: int = CHUNK,
+                 blocks: Optional[int] = None) -> torch.Tensor:
     """The seven final-cell values (int32, (7,)) of one problem with
     |A|, |B|, |C| >= 1, from the arrays of :func:`prep_blocked`.  On a CPU
-    tensor this is :func:`blocked_ref`; on a CUDA tensor it launches K3 once
-    per tile anti-diagonal and never falls back."""
+    tensor this is :func:`blocked_ref`; on a CUDA tensor it is one persistent
+    launch of K3 (tiles advance ``chunk`` planes at a time; ``blocks`` caps
+    the grid, the SMs' occupancy by default) and never falls back.  Nothing
+    waits for the card."""
     _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
     if dims.d:
         raise ValueError("chain dims: use chain_values")
-    state = new_state(dims, a_ext.device)
-    return _sweep(final_values, a_ext, b_ext, c_ext, la, lb, lc, dims, state,
-                  0, n_tiles(dims), scoring, score_bits, threads).out[0]
+    return _sweep_grid(final_values, a_ext, b_ext, c_ext, la, lb, lc, dims,
+                       scoring, score_bits, threads, chunk, blocks).out[0]
 
 
 def chain_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                  scoring: Scoring = Scoring(), score_bits: int = 0,
-                 threads: int = THREADS) -> torch.Tensor:
+                 threads: int = THREADS, chunk: int = CHUNK,
+                 blocks: Optional[int] = None) -> torch.Tensor:
     """Chain mode: the seven final values of every slot, (npack, 7) int32,
     from the arrays of :func:`prep_chain` under
     :func:`plan_dims_packed`'s ``dims``; ``la`` is one slot's |A|.  On a CPU
-    tensor this is :func:`blocked_ref`; on a CUDA tensor it launches K3 in
-    chain mode once per tile anti-diagonal and never falls back."""
+    tensor this is :func:`blocked_ref`; on a CUDA tensor it is one persistent
+    launch of K3 in chain mode (``chunk`` and ``blocks`` as
+    :func:`final_values`) and never falls back."""
     _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
     if not dims.d:
         raise ValueError("chain_values needs plan_dims_packed's dims")
-    state = new_state(dims, a_ext.device)
-    return _sweep(chain_values, a_ext, b_ext, c_ext, la, lb, lc, dims, state,
-                  0, n_tiles(dims), scoring, score_bits, threads).out
+    return _sweep_grid(chain_values, a_ext, b_ext, c_ext, la, lb, lc, dims,
+                       scoring, score_bits, threads, chunk, blocks).out
 
 
 # Launches of the CUDA kernel since the count was last set to 0, for each

@@ -322,7 +322,9 @@ def align_hetero(triplets: Sequence, scoring: Scoring = Scoring(),
     at ``budget_bytes`` of face slabs (:func:`default_budget` if None).
     Every dispatch is queued before any score is read; ``on_scores(i,
     score)`` fires for each problem as its dispatch drains (for an empty
-    one, at once)."""
+    one, at once).  When a dispatch fails as it is packed or launched, the
+    dispatches queued before it drain before the failure is raised, so that
+    a retry (``align_batch_resilient``) runs none of them again."""
     triplets = [tuple(np.asarray(s) for s in t) for t in triplets]
     hb, wc = block_shape or bk.choose_block_shape(0, 0, 0)
     if budget_bytes is None:
@@ -333,12 +335,21 @@ def align_hetero(triplets: Sequence, scoring: Scoring = Scoring(),
         if min(t) == 0 and on_scores is not None:
             on_scores(i, 0)
     pending = []
-    for idx in plan_dispatches(lens, hb, wc, budget_bytes, max_problems):
-        batch = prep_hetero([triplets[i] for i in idx], hb, wc, device)
-        pending.append((idx, final_values(batch, scoring).max(dim=1).values))
-    for idx, scores in pending:
-        for i, s in zip(idx, scores.tolist()):
-            out[i] = int(s)
-            if on_scores is not None:
-                on_scores(i, out[i])
+
+    def drain() -> None:
+        for idx, scores in pending:
+            for i, s in zip(idx, scores.tolist()):
+                out[i] = int(s)
+                if on_scores is not None:
+                    on_scores(i, out[i])
+
+    try:
+        for idx in plan_dispatches(lens, hb, wc, budget_bytes, max_problems):
+            batch = prep_hetero([triplets[i] for i in idx], hb, wc, device)
+            pending.append((idx,
+                            final_values(batch, scoring).max(dim=1).values))
+    except Exception:
+        drain()
+        raise
+    drain()
     return out

@@ -5,8 +5,9 @@ Hirschberg top split needs three full-cuboid sweeps (traceback/hirschberg.py):
 a forward sweep that captures the 7-state plane i = m, a backward sweep that
 gives the matching suffix slab, and a ``free_jk`` guard sweep.  The TPU ran
 them in ``make_slab_grid_call`` (``_slab_sweep``); here they run in
-``csrc/slab.cu``, K3's tiled sweep plus the capture, one launch per tile
-anti-diagonal.  Variants, as in the reference:
+``csrc/slab.cu``, K3's tiled sweep plus the capture, the whole grid in one
+persistent launch (``blocked.planes_needed`` says when a tile may go on).
+Variants, as in the reference:
 
 * ``free``: zero borders, the score sweep's semantics;
 * ``free_jk``: zero j = 0 / k = 0 faces, a NEG wall at i = 0;
@@ -23,18 +24,21 @@ kernels/blocked.py), :func:`_scal_table`, :func:`_assemble`,
 :func:`split_point_blocked_async`; each ``*_async`` function enqueues its work
 on ``device`` and returns a fetch closure.  On a CUDA tensor
 :func:`slab_sweep` launches K5; on a CPU tensor it runs :func:`slab_ref`,
-the plain torch version of the same tile schedule, faces and capture.
+the plain torch version of the same tiles, faces and capture in
+anti-diagonal order.
 
 The sweep state (:class:`SlabState`) stays on the device between launches,
 so :func:`sweep_tiles` runs any run of the tile table with global tile
 indices: K5's per-tile form, the port of ``make_slab_block_call``, on which
-the stripes of ``dist/halo_tb.py`` run.  :func:`slab_sweep` is that over the
-whole table.
+the stripes of ``dist/halo_tb.py`` run, one launch per run of one
+anti-diagonal.  :func:`slab_sweep` computes the same state over the whole
+table in one launch.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import ctypes
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -144,26 +148,16 @@ def new_state(la: int, lb: int, lc: int, dims: Dims, ev,
     )
 
 
-def slab_ref(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
-             variant: str, ev, scoring: Scoring = Scoring(),
-             state: Optional[SlabState] = None, idx0: int = 0,
-             count: Optional[int] = None):
-    """Plain torch version of K5: sweeps tiles idx0 .. idx0 + count - 1 of
-    ``blocked.tile_table`` (all by default) from ``state`` (a fresh one with
-    origin vector ``ev`` by default; ``ev`` is ignored when a state is
-    given), updating it in place, and returns its (final (7,), cap
-    (n_blocks, 7, hb, wc)), both int32 on the inputs' device.
-
-    The same tile schedule, guarded plane ring, face slabs, categories of
-    position (row face, column face, zero face, origin, step) and capture
-    as the kernel, read from the same scalar table; the tiles of one run
-    go as one batch.  Tile indices are global, so a run may be any part of
-    the grid (a stripe of tile columns, a segment that ends mid-diagonal)."""
+def pillar_steps(a_ext, b_ext, c_ext, la: int, dims: Dims, variant: str,
+                 state: SlabState, blks: np.ndarray,
+                 scoring: Scoring = Scoring()) -> Iterator[int]:
+    """The pillars of tiles ``blks`` (rows jb * n_kb + kb of the scalar
+    table) swept together on ``state`` in place, as the kernel sweeps one
+    tile: a generator that runs each local plane q from the variant's first
+    (0 for "pin" and "bwd", else 1) to ``dims.nq`` and yields q after it.
+    The tiles' faces must be ready for each plane before it runs
+    (``blocked.planes_needed``)."""
     dev = a_ext.device
-    if state is None:
-        state = new_state(la, lb, lc, dims, ev, dev)
-    if count is None:
-        count = bk.n_tiles(dims) - idx0
     rf, cf, out, cap, scal_t = state
     scal = scal_t.cpu().numpy()
     hb, wc = dims.hb, dims.wc
@@ -182,112 +176,141 @@ def slab_ref(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
     ilo = 0 if walls else 1
     nq = la + tb + tc
 
+    n = len(blks)
+    jbs = torch.from_numpy(blks // dims.n_kb).to(dev)
+    kbs = torch.from_numpy(blks % dims.n_kb).to(dev)
+    blk_t = torch.from_numpy(blks).to(dev)
+    # The face slabs each tile reads and writes (scal columns 13, 14).
+    rsl = torch.from_numpy(scal[blks, 13].astype(np.int64)).to(dev)
+    csl = torch.from_numpy(scal[blks, 14].astype(np.int64)).to(dev)
+    ev_t = torch.from_numpy(scal[blks, 6:13]).to(dev).view(
+        n, NUM_MATRICES, 1, 1)
+    jbv, kbv = jbs.view(n, 1, 1), kbs.view(n, 1, 1)
+    bsym = b_ext[jbs.view(n, 1) * tb + jl.view(1, hb)].view(n, hb, 1)
+    csym = c_ext[kbs.view(n, 1) * tc + kl.view(1, wc)].view(n, 1, wc)
+    s_bc = pair(bsym, csym)
+    gj, gk = jbv * tb + jl, kbv * tc + kl
+    border = (gj == 0) | (gk == 0)
+    row_face = (jl == 0) & (jbv > 0)
+    col_face = ~row_face & (kl == 0) & (kbv > 0)
+    zero_face = ((jl == 0) | (kl == 0)) & ~row_face & ~col_face & \
+        (not walls)
+    origin = (jl == 0) & (kl == 0) & (jbv == 0) & (kbv == 0) & walls
+    tgt = [p for p in range(n) if scal[blks[p], 3] >= 0]
+
+    # Guarded ring: 3 slots of 7 planes and 4 slots of one plane (max7
+    # forward, the M row backward), all at the value below plane 1.
+    if variant == "free":
+        init = torch.zeros((n, hb, wc), **i32)
+    elif variant == "free_jk":
+        init = torch.where(border, zero, negt)
+    else:
+        init = torch.full((n, hb, wc), NEG, **i32)
+    ring = torch.full((3, n, NUM_MATRICES, hb + 1, wc + 1), NEG, **i32)
+    ring[:, :, :, 1:, 1:] = init[None, :, None]
+    m4 = torch.full((4, n, hb + 1, wc + 1), NEG, **i32)
+    m4[:, :, 1:, 1:] = init[None]
+
+    for q in range(ilo, nq + 1):
+        i = q - jk
+        active = (i >= ilo) & (i <= la)
+        if not bool(active.any()):
+            yield q
+            continue
+        ai = a_ext[i.clamp(0, la)]
+        subs = substitution(ai, bsym, csym, s_bc, scoring, pair)
+        p1, p2 = ring[(q - 1) % 3], ring[(q - 2) % 3]
+        m3 = m4[(q - 3) % 4]
+        if fwd:
+            cands = []
+            for t in range(NUM_MATRICES):
+                dj, dk = SHIFTS[t]
+                if PLANE_DELTA[t] == 3:
+                    cand = _shifted(m3, dj, dk, hb, wc)
+                else:
+                    src = (p1, p2)[PLANE_DELTA[t] - 1]
+                    preds = [_shifted(src[:, s], dj, dk, hb, wc)
+                             for s in range(NUM_MATRICES)]
+                    cand = target_update(preds, groups[t], torch.maximum)
+                cands.append(cand + subs[t])
+            new = torch.maximum(torch.stack(cands, 1), negt)
+            if variant == "pin":
+                for t, (ca, cb, cc) in enumerate(CONSUMES):
+                    ok = (i >= ca) & (gj >= cb) & (gk >= cc)
+                    new[:, t] = torch.where(ok, new[:, t], negt)
+        else:
+            s3, _, _, _, s_ab, s_bc_, s_ac = subs
+            e = [
+                _shifted(m3, 1, 1, hb, wc) + s3,
+                _shifted(p1[:, 1], 0, 0, hb, wc),
+                _shifted(p1[:, 2], 1, 0, hb, wc),
+                _shifted(p1[:, 3], 0, 1, hb, wc),
+                _shifted(p2[:, 4], 1, 0, hb, wc) + s_ab,
+                _shifted(p2[:, 5], 1, 1, hb, wc) + s_bc_,
+                _shifted(p2[:, 6], 0, 1, hb, wc) + s_ac,
+            ]
+            new = torch.maximum(torch.stack(
+                [target_update(e, groups[t], torch.maximum)
+                 for t in range(NUM_MATRICES)], 1), negt)
+
+        rowv = rf[rsl, q].view(n, NUM_MATRICES, 1, wc)
+        colv = cf[csl, q].view(n, NUM_MATRICES, hb, 1)
+        new = torch.where(row_face[:, None], rowv, new)
+        new = torch.where(col_face[:, None], colv, new)
+        new = torch.where(zero_face[:, None], zero, new)
+        new = torch.where((origin & (i == 0))[:, None], ev_t, new)
+
+        on = active.view(1, 1, hb, wc)
+        cur = ring[q % 3][:, :, 1:, 1:]
+        cur.copy_(torch.where(on, new, cur))
+        m = new.max(1).values if fwd else new[:, 0]
+        mcur = m4[q % 4][:, 1:, 1:]
+        mcur.copy_(torch.where(active, m, mcur))
+        if q - tb >= 0:
+            old = rf[rsl, q - tb]
+            rf[rsl, q - tb] = torch.where(active[tb].view(1, 1, wc),
+                                          new[:, :, tb, :], old)
+        if q - tc >= 0:
+            old = cf[csl, q - tc]
+            cf[csl, q - tc] = torch.where(active[:, tc].view(1, 1, hb),
+                                          new[:, :, :, tc], old)
+        hit = (i == la).view(1, 1, hb, wc)
+        cap[blk_t] = torch.where(hit, new, cap[blk_t])
+        for p in tgt:
+            if fwd and q == int(scal[blks[p], 3]):
+                out.copy_(new[p, :, int(scal[blks[p], 4]),
+                              int(scal[blks[p], 5])])
+        yield q
+
+
+def slab_ref(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
+             variant: str, ev, scoring: Scoring = Scoring(),
+             state: Optional[SlabState] = None, idx0: int = 0,
+             count: Optional[int] = None):
+    """Plain torch version of K5: sweeps tiles idx0 .. idx0 + count - 1 of
+    ``blocked.tile_table`` (all by default) from ``state`` (a fresh one with
+    origin vector ``ev`` by default; ``ev`` is ignored when a state is
+    given), updating it in place, and returns its (final (7,), cap
+    (n_blocks, 7, hb, wc)), both int32 on the inputs' device.
+
+    The same tile schedule, guarded plane ring, face slabs, categories of
+    position (row face, column face, zero face, origin, step) and capture
+    as the kernel, read from the same scalar table; the tiles of one run
+    go as one batch (:func:`pillar_steps`).  Tile indices are global, so a
+    run may be any part of the grid (a stripe of tile columns, a segment
+    that ends mid-diagonal)."""
+    dev = a_ext.device
+    if state is None:
+        state = new_state(la, lb, lc, dims, ev, dev)
+    if count is None:
+        count = bk.n_tiles(dims) - idx0
     for d, jb_lo, n in bk._runs(dims, idx0, count):
         jb_np = np.arange(jb_lo, jb_lo + n)
-        blk_np = jb_np * dims.n_kb + (d - jb_np)
-        jbs = torch.from_numpy(jb_np).to(dev)
-        kbs = d - jbs
-        blks = torch.from_numpy(blk_np).to(dev)
-        # The face slabs each tile reads and writes (scal columns 13, 14).
-        rsl = torch.from_numpy(scal[blk_np, 13].astype(np.int64)).to(dev)
-        csl = torch.from_numpy(scal[blk_np, 14].astype(np.int64)).to(dev)
-        ev_t = torch.from_numpy(scal[blk_np, 6:13]).to(dev).view(
-            n, NUM_MATRICES, 1, 1)
-        jbv, kbv = jbs.view(n, 1, 1), kbs.view(n, 1, 1)
-        bsym = b_ext[jbs.view(n, 1) * tb + jl.view(1, hb)].view(n, hb, 1)
-        csym = c_ext[kbs.view(n, 1) * tc + kl.view(1, wc)].view(n, 1, wc)
-        s_bc = pair(bsym, csym)
-        gj, gk = jbv * tb + jl, kbv * tc + kl
-        border = (gj == 0) | (gk == 0)
-        row_face = (jl == 0) & (jbv > 0)
-        col_face = ~row_face & (kl == 0) & (kbv > 0)
-        zero_face = ((jl == 0) | (kl == 0)) & ~row_face & ~col_face & \
-            (not walls)
-        origin = (jl == 0) & (kl == 0) & (jbv == 0) & (kbv == 0) & walls
-        tgt = [p for p in range(n) if scal[blk_np[p], 3] >= 0]
-
-        # Guarded ring: 3 slots of 7 planes and 4 slots of one plane (max7
-        # forward, the M row backward), all at the value below plane 1.
-        if variant == "free":
-            init = torch.zeros((n, hb, wc), **i32)
-        elif variant == "free_jk":
-            init = torch.where(border, zero, negt)
-        else:
-            init = torch.full((n, hb, wc), NEG, **i32)
-        ring = torch.full((3, n, NUM_MATRICES, hb + 1, wc + 1), NEG, **i32)
-        ring[:, :, :, 1:, 1:] = init[None, :, None]
-        m4 = torch.full((4, n, hb + 1, wc + 1), NEG, **i32)
-        m4[:, :, 1:, 1:] = init[None]
-
-        for q in range(0 if walls else 1, nq + 1):
-            i = q - jk
-            active = (i >= ilo) & (i <= la)
-            if not bool(active.any()):
-                continue
-            ai = a_ext[i.clamp(0, la)]
-            subs = substitution(ai, bsym, csym, s_bc, scoring, pair)
-            p1, p2 = ring[(q - 1) % 3], ring[(q - 2) % 3]
-            m3 = m4[(q - 3) % 4]
-            if fwd:
-                cands = []
-                for t in range(NUM_MATRICES):
-                    dj, dk = SHIFTS[t]
-                    if PLANE_DELTA[t] == 3:
-                        cand = _shifted(m3, dj, dk, hb, wc)
-                    else:
-                        src = (p1, p2)[PLANE_DELTA[t] - 1]
-                        preds = [_shifted(src[:, s], dj, dk, hb, wc)
-                                 for s in range(NUM_MATRICES)]
-                        cand = target_update(preds, groups[t], torch.maximum)
-                    cands.append(cand + subs[t])
-                new = torch.maximum(torch.stack(cands, 1), negt)
-                if variant == "pin":
-                    for t, (ca, cb, cc) in enumerate(CONSUMES):
-                        ok = (i >= ca) & (gj >= cb) & (gk >= cc)
-                        new[:, t] = torch.where(ok, new[:, t], negt)
-            else:
-                s3, _, _, _, s_ab, s_bc_, s_ac = subs
-                e = [
-                    _shifted(m3, 1, 1, hb, wc) + s3,
-                    _shifted(p1[:, 1], 0, 0, hb, wc),
-                    _shifted(p1[:, 2], 1, 0, hb, wc),
-                    _shifted(p1[:, 3], 0, 1, hb, wc),
-                    _shifted(p2[:, 4], 1, 0, hb, wc) + s_ab,
-                    _shifted(p2[:, 5], 1, 1, hb, wc) + s_bc_,
-                    _shifted(p2[:, 6], 0, 1, hb, wc) + s_ac,
-                ]
-                new = torch.maximum(torch.stack(
-                    [target_update(e, groups[t], torch.maximum)
-                     for t in range(NUM_MATRICES)], 1), negt)
-
-            rowv = rf[rsl, q].view(n, NUM_MATRICES, 1, wc)
-            colv = cf[csl, q].view(n, NUM_MATRICES, hb, 1)
-            new = torch.where(row_face[:, None], rowv, new)
-            new = torch.where(col_face[:, None], colv, new)
-            new = torch.where(zero_face[:, None], zero, new)
-            new = torch.where((origin & (i == 0))[:, None], ev_t, new)
-
-            on = active.view(1, 1, hb, wc)
-            cur = ring[q % 3][:, :, 1:, 1:]
-            cur.copy_(torch.where(on, new, cur))
-            m = new.max(1).values if fwd else new[:, 0]
-            mcur = m4[q % 4][:, 1:, 1:]
-            mcur.copy_(torch.where(active, m, mcur))
-            if q - tb >= 0:
-                old = rf[rsl, q - tb]
-                rf[rsl, q - tb] = torch.where(active[tb].view(1, 1, wc),
-                                              new[:, :, tb, :], old)
-            if q - tc >= 0:
-                old = cf[csl, q - tc]
-                cf[csl, q - tc] = torch.where(active[:, tc].view(1, 1, hb),
-                                              new[:, :, :, tc], old)
-            hit = (i == la).view(1, 1, hb, wc)
-            cap[blks] = torch.where(hit, new, cap[blks])
-            for p in tgt:
-                if fwd and q == int(scal[blk_np[p], 3]):
-                    out.copy_(new[p, :, int(scal[blk_np[p], 4]),
-                                  int(scal[blk_np[p], 5])])
-    return out, cap
+        blks = jb_np * dims.n_kb + (d - jb_np)
+        for _ in pillar_steps(a_ext, b_ext, c_ext, la, dims, variant, state,
+                              blks, scoring):
+            pass
+    return state.out, state.cap
 
 
 def _check(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
@@ -324,11 +347,11 @@ def _check_state(state: SlabState, dims: Dims, device) -> None:
                              "device of the symbol arrays")
 
 
-def _run(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, variant, state,
-           idx0, count, scoring) -> SlabState:
+def _run(a_ext, b_ext, c_ext, la, lb, lc, dims, variant, state, idx0, count,
+         scoring) -> SlabState:
     """Tiles idx0 .. idx0 + count - 1 on ``state``: slab_ref on a CPU
     tensor, K5 (one launch a run of one anti-diagonal, counted on
-    ``counter``) on a CUDA tensor, never a fallback."""
+    :func:`sweep_tiles`) on a CUDA tensor, never a fallback."""
     dev = a_ext.device
     _check_state(state, dims, dev)
     if dev.type == "cpu":
@@ -351,7 +374,7 @@ def _run(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, variant, state,
                 state.out.data_ptr(), state.cap.data_ptr(), stream,
             )
             _build.check(lib, code, f"slab kernel launch (diagonal {d})")
-            counter.launches += 1
+            sweep_tiles.launches += 1
     return state
 
 
@@ -366,24 +389,71 @@ def sweep_tiles(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
     :func:`slab_ref`; on a CUDA tensor it launches K5 once per run of one
     anti-diagonal and never falls back.  Nothing waits for the card."""
     _check(a_ext, b_ext, c_ext, la, lb, lc, dims, variant)
-    return _run(sweep_tiles, a_ext, b_ext, c_ext, la, lb, lc, dims, variant,
-                  state, idx0, count, scoring)
+    return _run(a_ext, b_ext, c_ext, la, lb, lc, dims, variant, state, idx0,
+                count, scoring)
+
+
+def _sweep_grid(a_ext, b_ext, c_ext, la, lb, lc, dims, variant, state,
+                scoring, chunk, blocks) -> SlabState:
+    """The whole tile table on a fresh ``state``: slab_ref on a CPU tensor;
+    on a CUDA tensor K5's persistent sweep, one launch counted on
+    :func:`slab_sweep`, which raises if refused and never falls back."""
+    bk.check_schedule(chunk, blocks)
+    dev = a_ext.device
+    _check_state(state, dims, dev)
+    if dev.type == "cpu":
+        slab_ref(a_ext, b_ext, c_ext, la, lb, lc, dims, variant, None,
+                 scoring, state)
+        return state
+    if dev.type != "cuda":
+        raise ValueError(f"no slab kernel for device {dev}")
+    lib = _build.load("slab")
+    step, table = _build.kernel_scoring(scoring, 0, dev, SUBMATRIX_NSYM_CAP)
+    geom = _build.SlabGeom(la, dims.hb, dims.wc, dims.n_jb, dims.n_kb,
+                           dims.nrows, VARIANTS[variant])
+    with torch.cuda.device(dev):
+        # The hand-out counter and one progress word a tile, on the stream.
+        next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
+        done = torch.full((bk.n_tiles(dims),), -1, dtype=torch.int32,
+                          device=dev)
+        code = lib.trialign_slab_sweep(
+            a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(), geom,
+            state.scal.data_ptr(), table.data_ptr(), step,
+            state.rf.data_ptr(), state.cf.data_ptr(), state.out.data_ptr(),
+            state.cap.data_ptr(), chunk, blocks or 0, next_tile.data_ptr(),
+            done.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+        _build.check(lib, code, "slab kernel launch (persistent sweep)")
+        slab_sweep.launches += 1
+    return state
+
+
+def blocks_per_sm(dims: Dims) -> int:
+    """Thread blocks of K5's persistent sweep that one SM of the current
+    card holds at ``dims``'s tile plane."""
+    lib = _build.load("slab")
+    per_sm = ctypes.c_int(0)
+    _build.check(lib, lib.trialign_slab_blocks_per_sm(
+        dims.hb, dims.wc, ctypes.byref(per_sm)), "slab occupancy query")
+    return per_sm.value
 
 
 def slab_sweep(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
-               variant: str, ev, scoring: Scoring = Scoring()):
+               variant: str, ev, scoring: Scoring = Scoring(),
+               chunk: int = bk.CHUNK, blocks: Optional[int] = None):
     """(final (7,), cap (n_blocks, 7, hb, wc)) int32 of one slab sweep with
     |A|, |B|, |C| >= 1, from the arrays of ``prep_blocked``; ``ev`` is the
     origin vector of "pin" and "bwd" (ignored by "free" and "free_jk").  On a
-    CPU tensor this is :func:`slab_ref`; on a CUDA tensor it launches K5
-    once per tile anti-diagonal and never falls back.  ``final`` is
-    meaningful for the forward variants only."""
+    CPU tensor this is :func:`slab_ref`; on a CUDA tensor it is one
+    persistent launch of K5 (tiles advance ``chunk`` planes at a time;
+    ``blocks`` caps the grid, the SMs' occupancy by default) and never falls
+    back.  ``final`` is meaningful for the forward variants only."""
     _check(a_ext, b_ext, c_ext, la, lb, lc, dims, variant)
     if len(ev) != NUM_MATRICES:
         raise ValueError("ev holds one value per matrix")
     state = new_state(la, lb, lc, dims, ev, a_ext.device)
-    _run(slab_sweep, a_ext, b_ext, c_ext, la, lb, lc, dims, variant, state,
-           0, bk.n_tiles(dims), scoring)
+    _sweep_grid(a_ext, b_ext, c_ext, la, lb, lc, dims, variant, state,
+                scoring, chunk, blocks)
     return state.out, state.cap
 
 
