@@ -24,11 +24,17 @@ per source, all at once) and prints one JSON line per phase:
    table), exactly, at the occupancy's grid and capped at 1 and 3 blocks:
    K3 at 512^3 on 10 inputs and at 1024^3, every slot of the 16 x 512^3
    chain, K5 "free" and "bwd" (capture and final vector) on a multi-tile
-   shape under five scorings and at the 2048^3 top split's shape;
+   shape under five scorings and at the 2048^3 top split's shape; K4 (one
+   launch a dispatch, the register step) against its earlier design (one
+   launch a diagonal, the shared-memory pillar), the whole state, on ragged
+   dispatches under two scorings at one sub-tile and at tiles cut into
+   sub-tiles, and 16 of the batch's kind; K4's registers, spills and blocks
+   an SM;
 6. ``hetero``: K4 against its plain version ``hetero_ref``, exactly: the
    final vector of every problem of ragged batches (a 1 x 1-tile problem,
    an empty sequence, one batch cut into several dispatches) at 9 x 17
-   tiles and the default tile plane, under four scorings;
+   tiles, the default tile plane and the planes K4 sweeps as sub-tiles
+   (34 x 33, 34 x 65, 16 x 128), under four scorings;
 7. ``main_path``: ``trialign_torch.align`` with backend "auto" against the
    golden model (the ``dat`` triplet), the C++ oracle (64^3 and 512^3) and
    the torch sweep (1024^3, all seven values), with the kernels' launch
@@ -40,9 +46,9 @@ per source, all at once) and prints one JSON line per phase:
    node's route and K5's launches (those of the 2048^3 run go to the
    summary);
 9. ``batch``: ``trialign_torch.align_batch`` on 1024 triplets with every
-   length uniform in [128, 512] (K4, by its launches; seconds, GCUPS and
-   triplets/s, best of 3 after a warm-up; the card's busy share under
-   ``torch.profiler``), 64 of its scores against
+   length uniform in [128, 512] (K4, one launch; seconds, GCUPS and
+   triplets/s, best of 3 after a warm-up, in turns with K4's earlier design;
+   the card's busy share under ``torch.profiler``), 64 of its scores against
    ``align()`` and 8 against the C++ oracle; a 48-triplet batch (one K2
    launch and K3) against ``align()``; 16 alignments that rescore exactly;
 10. ``vpu``: ``benchmarks.roofline()`` (K6's main path): the int32 and
@@ -82,8 +88,9 @@ per source, all at once) and prints one JSON line per phase:
     and final vector exactly, and timed beside it;
 15. ``sharded_batch``: K4's per-tile form against ``hetero_ref`` in runs
     that end mid-diagonal under two scorings; ``align_batch_sharded`` on
-    the 1024-triplet batch over 2 data slots sharing the card, equal to the
-    batch phase's scores; ``align_batch_resilient(mesh=...)`` in dispatches
+    the 1024-triplet batch over 2 data slots sharing the card (one launch a
+    slot), equal to the batch phase's scores, in turns with K4's earlier
+    per-tile form; ``align_batch_resilient(mesh=...)`` in dispatches
     of 64 with a failure as a slot packs its second (the dispatches swept
     by then drain; only the rest is dispatched again);
 16. ``cli``: ``python -m trialign_torch.cli`` in four subprocesses at once:
@@ -98,7 +105,9 @@ per source, all at once) and prints one JSON line per phase:
     run of the same functions;
 18. ``tuning``: K2's thread counts; the persistent K3 at 1024^3 over
     three tile planes, two thread counts and four chunks; K5 "free" at the
-    2048^3 top split's shape over the chunks;
+    2048^3 top split's shape over the chunks; K4 on the batch over its
+    chunks, beside its earlier design, and where its warps spend their
+    cycles;
 19. ``timings``: each kernel (minimum over distinct inputs after a
     warm-up) beside its plain version (one run) at the main path's
     sizes, and beside its bound; K3 at 512^3 and 1024^3, both bench chains
@@ -106,10 +115,10 @@ per source, all at once) and prints one JSON line per phase:
     (diagonal, persistent, persistent, diagonal); K5 against the torch
     engine, exactly and
     timed, at the shape the 2048^3 traceback gives it; K4 and its per-tile
-    form (one diagonal a run, and runs of a quarter of the table) against
-    hetero_ref, exactly and timed, on a dispatch of two of the
-    1024-triplet batch's problems (its largest and its smallest), and K4 at
-    the whole batch.
+    form (one run, one diagonal a run, and runs of a quarter of the table)
+    against hetero_ref, exactly and timed, on a dispatch of two of the
+    1024-triplet batch's problems (its largest and its smallest), and both
+    at the whole batch, each in turns with K4's earlier design.
 
 Then a summary of the kernels, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any mismatch or error exits
@@ -130,6 +139,7 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -524,6 +534,25 @@ def schedule_k5(rng, shape, name, variant) -> int:
     return err
 
 
+def schedule_k4(what, trips, block, scoring=DEFAULT) -> int:
+    """The persistent K4 (one launch a dispatch) at every grid cap against
+    its diagonal entry point (K4's earlier design, one launch a diagonal):
+    faces, final values and progress words bit for bit; the largest
+    difference."""
+    batch = hk.prep_hetero(trips, *block, CUDA)
+    n = len(batch.tiles)
+    want = hk.sweep_diagonals(batch, hk.new_state(batch), 0, n, scoring)
+    err = 0
+    for blocks in GRID_CAPS:
+        got = hk.sweep_tiles(batch, hk.new_state(batch), 0, n, scoring,
+                             blocks=blocks)
+        for g, w, field in zip(got, want, want._fields):
+            require(torch.equal(g, w), f"K4 persistent {what} {block} "
+                    f"blocks={blocks}: {field} != the diagonal schedule's")
+            err = max(err, _diff(g, w))
+    return err
+
+
 def phase_schedule(rng) -> dict:
     """The persistent sweeps (one launch a sweep, tiles started by per-plane
     readiness) against the diagonal schedule (the per-tile forms over the
@@ -532,7 +561,8 @@ def phase_schedule(rng) -> dict:
     slot of the 16 x 512^3 chain, K5 "free" and "bwd" on a small multi-tile
     shape under five scorings and at the 2048^3 top split's shape.  Returns
     the largest difference of K3, its chain mode and K5."""
-    checked, err = [], {"blocked": 0, "blocked_chain": 0, "slab": 0}
+    checked, err = [], {"blocked": 0, "blocked_chain": 0, "slab": 0,
+                        "hetero": 0}
     for n, count in ((512, 10), (1024, 1)):
         dims = bk.plan_dims(n, n, n)
         for _ in range(count):
@@ -559,11 +589,25 @@ def phase_schedule(rng) -> dict:
         err["slab"] = max(err["slab"], schedule_k5(rng, SPLIT_SHAPE,
                                                    "default", variant))
     checked.append(f"K5 {SPLIT_SHAPE} free, bwd/default")
+    for name in ("default", "sub4"):
+        scoring, _, nsym = VARIANTS[name]
+        trips = [triplet(rng, n, nsym) for n in HETERO_LENS]
+        for block in ((9, 17), bk.choose_block_shape(0, 0, 0), (34, 65)):
+            err["hetero"] = max(err["hetero"], schedule_k4(
+                name, trips, block, scoring))
+            checked.append(f"K4 {len(trips)} problems/{block}/{name}")
+    trips = [mosaic._rotate(t, DEFAULT) for t in batch_triplets(rng, 16)]
+    err["hetero"] = max(err["hetero"], schedule_k4(
+        "16 of the batch's kind", trips, bk.choose_block_shape(0, 0, 0)))
+    checked.append("K4 16 triplets in [128, 512]/default plane")
+    hb_, wc_ = bk.choose_block_shape(0, 0, 0)
     emit(phase="schedule", cases=checked, grid_caps=GRID_CAPS,
          blocks_per_sm={
              "blocked": bk.blocks_per_sm(bk.plan_dims(1024, 1024, 1024)),
              "blocked_chain": bk.blocks_per_sm(chain_dims),
-             "slab": sk.blocks_per_sm(sk._plan(*SPLIT_SHAPE))},
+             "slab": sk.blocks_per_sm(sk._plan(*SPLIT_SHAPE)),
+             "hetero": hk.step_resources(hb_, wc_)["blocks_per_sm"]},
+         hetero_resources=hk.step_resources(hb_, wc_),
          sms=torch.cuda.get_device_properties(0).multi_processor_count,
          chunk=bk.CHUNK, max_abs_err=err)
     return err
@@ -580,16 +624,23 @@ def hetero_case(trips, scoring, block):
     return _diff(got, want), want.max(dim=1).values.tolist()
 
 
+# K4's ragged dispatch: different |A|, tile counts and final cells, ragged
+# against the tile, a 1 x 1-tile problem and an empty sequence.  Its tile
+# planes past one sub-tile of the register step: two rows of sub-tiles (the
+# second one row), 2 x 2, and four ragged columns of them.
+HETERO_SUB_TILE_PLANES = ((34, 33), (34, 65), (16, 128))
+HETERO_LENS = [(20, 30, 12), (3, 5, 4), (0, 4, 3), (7, 17, 40), (25, 9, 9),
+               (1, 1, 1), (60, 70, 50), (33, 32, 33)]
+
+
 def phase_hetero(rng) -> int:
-    # Different |A|, tile counts and final cells, ragged against the tile,
-    # a 1 x 1-tile problem and an empty sequence.
-    lens = [(20, 30, 12), (3, 5, 4), (0, 4, 3), (7, 17, 40), (25, 9, 9),
-            (1, 1, 1), (60, 70, 50), (33, 32, 33)]
+    lens = HETERO_LENS
     checked, err = [], 0
     for name in ("default", "rtl", "nondefault", "sub4"):
         scoring, _, nsym = VARIANTS[name]
         trips = [triplet(rng, n, nsym) for n in lens]
-        for block in ((9, 17), bk.choose_block_shape(0, 0, 0)):
+        for block in ((9, 17), bk.choose_block_shape(0, 0, 0),
+                      *HETERO_SUB_TILE_PLANES):
             err = max(err, hetero_case(trips, scoring, block)[0])
             checked.append(f"{len(trips)} problems/{block}/{name}")
         # One batch cut into dispatches by a small face budget: each
@@ -743,6 +794,13 @@ def phase_traceback(rng) -> tuple:
     return slab_launches, case_1024
 
 
+def old_final_values(batch, scoring=DEFAULT):
+    """K4's earlier design over a whole dispatch (hk.sweep_diagonals: one
+    launch a diagonal on the shared-memory pillar)."""
+    return hk.sweep_diagonals(batch, hk.new_state(batch), 0,
+                              len(batch.tiles), scoring).out
+
+
 def batch_triplets(rng, n=BATCH_N, lens=BATCH_LENS):
     lo, hi = lens
     return [triplet(rng, rng.integers(lo, hi + 1, 3)) for _ in range(n)]
@@ -768,15 +826,23 @@ def phase_batch(rng) -> tuple:
     reset_launches()
     res, first_s = timed_batch(trips)
     launches = read_launches()
-    require(launches["hetero"] > 0 and not launches["wavefront"]
+    require(launches["hetero"] == 1 and not launches["wavefront"]
             and not launches["blocked"],
-            f"the 1024-triplet batch did not take K4 alone: {launches}")
+            f"the 1024-triplet batch did not take K4 alone, one launch: "
+            f"{launches}")
     scores = [r.score for r in res]
-    runs_s = []
-    for _ in range(3):
-        again, sec = timed_batch(trips)
+    # In turns with K4's earlier design (one launch a diagonal on the
+    # shared-memory pillar): new, old, new, old, new.
+    runs_s, old_s = [], []
+    for turn in range(5):
+        if turn % 2:
+            with mock.patch.object(hk, "final_values", old_final_values):
+                again, sec = timed_batch(trips)
+            old_s.append(sec)
+        else:
+            again, sec = timed_batch(trips)
+            runs_s.append(sec)
         require([r.score for r in again] == scores, "a rerun disagrees")
-        runs_s.append(sec)
     best = min(runs_s)
     # The card's busy share: kernel seconds of one more call under
     # torch.profiler (CUDA activity only) over the best unprofiled call.
@@ -823,6 +889,7 @@ def phase_batch(rng) -> tuple:
          cells=cells, first_s=first_s, runs_s=runs_s, best_s=best,
          gcups=cells / best / 1e9, triplets_per_s=len(trips) / best,
          launches=launches, **prof, busy_share=prof["kernel_s"] / best,
+         old_design_runs_s=old_s, old_design_best_s=min(old_s),
          checked_against_align=len(sample),
          align_backends=single, checked_against_native=len(native),
          native_s=native_s,
@@ -1487,17 +1554,27 @@ def hetero_tiles_case(trips, scoring, block) -> int:
 
 
 def hetero_in_runs(batch, step=None):
-    """K4's per-tile form over a whole dispatch from a fresh state: runs of
-    ``step`` table entries, or one diagonal a run (as the sharded mosaic
-    sweeps) if None; the final values."""
+    """K4's per-tile form over a whole dispatch from a fresh state: one run
+    of the whole table (as the sharded mosaic sweeps) if ``step`` is None,
+    one diagonal a run if "diagonal", else runs of ``step`` entries; the
+    final values."""
     state = hk.new_state(batch)
+    n = len(batch.tiles)
     if step is None:
-        bounds = batch.diag_start
+        bounds = [0, n]
+    elif step == "diagonal":
+        bounds = [int(x) for x in batch.diag_start]
     else:
-        bounds = list(range(0, len(batch.tiles), step)) + [len(batch.tiles)]
+        bounds = list(range(0, n, step)) + [n]
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         hk.sweep_tiles(batch, state, int(lo), int(hi - lo))
     return state.out
+
+
+def hetero_quarters(batch):
+    """The per-tile form in runs of a quarter of the table (four launches,
+    each ending mid-diagonal)."""
+    return hetero_in_runs(batch, max(1, len(batch.tiles) // 4))
 
 
 def phase_sharded_batch(rng, batch, batch_scores) -> dict:
@@ -1529,15 +1606,22 @@ def phase_sharded_batch(rng, batch, batch_scores) -> dict:
     launches = read_launches()
     require(scores == batch_scores, "align_batch_sharded != align_batch")
     err = max(err, max(abs(a - b) for a, b in zip(scores, batch_scores)))
-    require(launches["hetero_tiles"] > 0 and not launches["hetero"],
-            f"the sharded batch did not run K4's per-tile form: {launches}")
-    runs_s = []
-    for _ in range(2):
+    require(launches["hetero_tiles"] == 2 and not launches["hetero"],
+            f"the sharded batch did not run K4's per-tile form once a slot: "
+            f"{launches}")
+    # In turns with K4's earlier per-tile form (one launch a diagonal on the
+    # shared-memory pillar): new, old, new, old.
+    runs_s, old_s = [], []
+    for turn in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        again = trialign_torch.align_batch_sharded(batch, mesh=m)
+        if turn % 2:
+            with mock.patch.object(hk, "sweep_tiles", hk.sweep_diagonals):
+                again = trialign_torch.align_batch_sharded(batch, mesh=m)
+        else:
+            again = trialign_torch.align_batch_sharded(batch, mesh=m)
         torch.cuda.synchronize()
-        runs_s.append(time.perf_counter() - t0)
+        (old_s if turn % 2 else runs_s).append(time.perf_counter() - t0)
         require(again == scores, "a sharded rerun disagrees")
 
     # align_batch_resilient on 256 of the batch over the 2 slots in K4
@@ -1580,11 +1664,11 @@ def phase_sharded_batch(rng, batch, batch_scores) -> dict:
     require(got == batch_scores[:256], "align_batch_resilient(mesh) != batch")
 
     row = {"max_abs_err": err, "launches": launches["hetero_tiles"],
-           "main_path_s": min(runs_s)}
+           "main_path_s": min(runs_s), "old_design_main_path_s": min(old_s)}
     best = row["main_path_s"]
     emit(phase="sharded_batch", cases=checked, max_abs_err=err,
          batch={"triplets": len(batch), "data_slots": 2, "first_s": first_s,
-                "runs_s": runs_s, "best_s": best,
+                "runs_s": runs_s, "best_s": best, "old_design_runs_s": old_s,
                 "gcups": batch_cells(batch) / best / 1e9,
                 "triplets_per_s": len(batch) / best, "launches": launches},
          resilient={"triplets": len(sub), "dispatch_size": 64,
@@ -1785,35 +1869,46 @@ def hetero_bound(trips, dev) -> tuple:
     return bound(batch_cells(trips), nbytes, dev)
 
 
+def turns_old_new(old, new, inputs) -> dict:
+    """in_turns for K4: the register step's ms and its earlier design's
+    (``old_design_ms``), old, new, new, old."""
+    row = in_turns(old, new, inputs)
+    row["old_design_ms"] = row.pop("diagonal_ms")
+    return row
+
+
 def time_hetero(rng, trips, dev) -> dict:
     """K4, its per-tile form and hetero_ref on one sample dispatch of the
     batch's problems (the one with the most cells and the one with the
-    fewest; the third, random one of earlier runs cost ~25 s of
-    hetero_ref), held equal and timed on that same dispatch; then K4 at the
-    whole 1024-triplet batch (that batch and two more like it), the host's
-    packing of its dispatch and its bound."""
+    fewest), held equal and timed on that same dispatch; then K4 and its
+    per-tile form (runs of a quarter of the table) at the whole 1024-triplet
+    batch (that batch and two more like it), the host's packing of its
+    dispatch and its bound.  Each is timed in turns with K4's earlier design
+    (one launch a diagonal on the shared-memory pillar)."""
     sizes = [len(a) * len(b) * len(c) for a, b, c in trips]
     pick = [int(np.argmax(sizes)), int(np.argmin(sizes))]
     rot = [mosaic._rotate(trips[i], DEFAULT) for i in pick]
     sample = hk.prep_hetero(rot, *bk.choose_block_shape(0, 0, 0), CUDA)
     # The kernel is deterministic, so three trials of one dispatch.
-    ms = time_cuda_ms(hk.final_values, [(sample,)] * 3)
+    row = turns_old_new(old_final_values, hk.final_values, [(sample,)] * 3)
     got = hk.final_values(sample)
     plain_ms, want = event_ms(hk.hetero_ref, sample)
     require(torch.equal(got, want), f"K4 on the batch's problems "
             f"{[list(map(len, t)) for t in rot]}: kernel {cpu_ints(got)} != "
             f"hetero_ref {cpu_ints(want)}")
+    sample_err = _diff(got, want)
     cells = batch_cells(rot)
     bms, by = hetero_bound(rot, dev)
-    # K4's per-tile form on the same dispatch: one diagonal a run, as the
-    # sharded mosaic sweeps (timed), and runs of a quarter of the table,
-    # which end mid-diagonal; each against the same hetero_ref result.
-    tiles_ms = time_cuda_ms(hetero_in_runs, [(sample,)] * 3)
+    # K4's per-tile form on the same dispatch: one run of the table, as the
+    # sharded mosaic sweeps (timed), one diagonal a run and runs of a
+    # quarter of the table, which end mid-diagonal; each against the same
+    # hetero_ref result.
+    tiles = turns_old_new(old_final_values, hetero_in_runs, [(sample,)] * 3)
     tiles_err = 0
-    for step in (None, max(1, len(sample.tiles) // 4)):
+    for step in (None, "diagonal", max(1, len(sample.tiles) // 4)):
         tiles_got = hetero_in_runs(sample, step)
         require(torch.equal(tiles_got, want), f"K4 per tile in runs of "
-                f"{step or 'one diagonal'} on the batch's problems: "
+                f"{step or 'the table'} on the batch's problems: "
                 f"{cpu_ints(tiles_got)} != hetero_ref {cpu_ints(want)}")
         tiles_err = max(tiles_err, _diff(tiles_got, want))
 
@@ -1822,24 +1917,37 @@ def time_hetero(rng, trips, dev) -> dict:
     inputs = [(hetero_dispatch(trips),)]
     prep_s = time.perf_counter() - t0
     inputs += [(hetero_dispatch(t),) for t in batches[1:]]
-    batch_ms = time_cuda_ms(hk.final_values, inputs)
+    batch_row = turns_old_new(old_final_values, hk.final_values, inputs)
+    batch_tiles = turns_old_new(old_final_values, hetero_quarters, inputs)
+    # At the batch's scale hetero_ref would take minutes: K4 and its
+    # per-tile form against the earlier design, bit for bit.
+    got = hk.final_values(inputs[0][0])
+    old = old_final_values(inputs[0][0])
+    quarters = hetero_quarters(inputs[0][0])
+    require(torch.equal(got, old) and torch.equal(quarters, old),
+            "K4 on the batch != its earlier design")
     batch_bms, batch_by = hetero_bound(trips, dev)
-    return {"ms": ms, "gcups": gcups(cells, ms),
+    return {**row, "gcups": gcups(cells, row["ms"]),
             "lengths": [list(map(len, t)) for t in rot], "cells": cells,
             "plain": "hetero_ref on the same dispatch, one run",
             "plain_ms": plain_ms, "plain_gcups": gcups(cells, plain_ms),
-            "bound_ms": bms, "bound_by": by, "max_abs_err": _diff(got, want),
-            "tiles": {"ms": tiles_ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_ms": bms, "bound_by": by, "max_abs_err": sample_err,
+            "tiles": {**tiles, "plain_ms": plain_ms, "bound_ms": bms,
                       "bound_by": by, "max_abs_err": tiles_err,
                       "cells": cells,
                       "sample": "the batch's largest and smallest problems, "
-                                "one diagonal a run; plain: the same "
-                                "hetero_ref run as K4's"},
-            "batch": {"ms": batch_ms, "gcups": gcups(batch_cells(trips),
-                                                     batch_ms),
+                                "one run of the table; plain: the same "
+                                "hetero_ref run as K4's",
+                      "batch_ms": batch_tiles["ms"],
+                      "batch_old_design_ms": batch_tiles["old_design_ms"],
+                      "batch_turns_ms": batch_tiles["turns_ms"]},
+            "batch": {**batch_row, "gcups": gcups(batch_cells(trips),
+                                                  batch_row["ms"]),
                       "triplets": len(trips), "cells": batch_cells(trips),
                       "host_prep_s": prep_s, "bound_ms": batch_bms,
-                      "bound_by": batch_by}}
+                      "bound_by": batch_by,
+                      "vs_old_design_max_abs_err": max(
+                          _diff(got, old), _diff(quarters, old))}}
 
 
 # The candidates of the persistent K3 at 1024^3: tile planes (hb, wc),
@@ -1849,10 +1957,14 @@ TUNE_THREADS = (256, 512)
 TUNE_CHUNKS = (4, 8, 32, 128)
 
 
-def phase_tuning(rng) -> None:
+# K4's chunks in the tuning phase.
+TUNE_HETERO_CHUNKS = (2, 4, 8)
+
+
+def phase_tuning(rng, batch) -> None:
     """K2's thread counts; the persistent K3 at 1024^3 over every tile
     plane, thread count and chunk of TUNE_*; K5 "free" at the 2048^3 top
-    split's shape over the chunks."""
+    split's shape over the chunks; K4 on the batch over its chunks."""
     trips = _inputs(rng, (255, 255, 255))
     k2 = {t: time_wavefront(trips, t) for t in (256, 512, 1024)}
     trips = _inputs(rng, (1024, 1024, 1024))
@@ -1867,12 +1979,35 @@ def phase_tuning(rng) -> None:
     inputs = slab_inputs(_inputs(rng, SPLIT_SHAPE, 3), "free")
     k5 = {chunk: time_cuda_ms(functools.partial(sk.slab_sweep, chunk=chunk),
                               inputs) for chunk in TUNE_CHUNKS}
+    # K4 on the 1024-triplet batch (and two more like it): the register
+    # step by chunk, beside its earlier design.
+    inputs = [(hetero_dispatch(t),)
+              for t in [batch] + [batch_triplets(rng) for _ in range(2)]]
+    hb_, wc_ = bk.choose_block_shape(0, 0, 0)
+    k4 = {chunk: time_cuda_ms(functools.partial(hk.final_values, chunk=chunk),
+                              inputs) for chunk in TUNE_HETERO_CHUNKS}
+    k4_old = time_cuda_ms(old_final_values, inputs)
+    # Where the step's warps spend their cycles on the batch (its build
+    # with the phase clock): each strip's share of its cycles by phase, and
+    # its cycles a plane in the planes phase.
+    phases = []
+    for w, row in enumerate(hk.step_phases(inputs[0][0])):
+        total = sum(row[name] for name in hk.PHASES)
+        phases.append({"strip": w, **{name: row[name] / total
+                                      for name in hk.PHASES},
+                       "planes_cycles_per_plane":
+                           row["planes"] / (row["chunks"] * hk.CHUNK)})
     emit(phase="tuning", wavefront_255_ms_by_threads=k2,
          blocked_1024_ms_by_tile_threads_chunk=k3,
          slab_free_split_ms_by_chunk=k5,
+         hetero_batch_ms_by_chunk=k4,
+         hetero_resources=hk.step_resources(hb_, wc_),
+         hetero_batch_ms_earlier_design=k4_old,
+         hetero_batch_phase_shares=phases,
          chosen={"wavefront_threads": wf.THREADS,
                  "blocked_tile": bk.choose_block_shape(0, 0, 0),
-                 "blocked_threads": bk.THREADS, "chunk": bk.CHUNK})
+                 "blocked_threads": bk.THREADS, "chunk": bk.CHUNK,
+                 "hetero_chunk": hk.CHUNK})
 
 
 def bound(cells, nbytes, dev) -> tuple:
@@ -1970,7 +2105,7 @@ def main() -> int:
     sched_err = phase_schedule(rng)
     k3_err = max(k3_err, sched_err["blocked"])
     k5_err = max(k5_err, sched_err["slab"])
-    k4_err = phase_hetero(rng)
+    k4_err = max(phase_hetero(rng), sched_err["hetero"])
     launches, headline = phase_main_path(rng)
     launches["slab"], tb_case = phase_traceback(rng)
     launches["hetero"], batch, batch_scores = phase_batch(rng)
@@ -1997,7 +2132,7 @@ def main() -> int:
     finally:
         for p in workers:
             p.kill()
-    phase_tuning(rng)
+    phase_tuning(rng, batch)
     rows, split_err = phase_timings(rng, dev, batch)
     k5_err = max(k5_err, split_err)
     k4 = rows["hetero_sample"]
@@ -2034,8 +2169,10 @@ def main() -> int:
          tiles.pop("max_abs_err"), tiles, tiles),
         ("blocked_chain", "blocked", "trialign/kernels/blocked.py:906",
          chain.pop("max_abs_err"), chain, {**chain, **chain_times}),
-        ("hetero", "hetero", "trialign/kernels/blocked.py:963", k4_err, k4,
-         {"cells": k4["cells"], "batch_ms": k4["batch"]["ms"],
+        ("hetero", "hetero", "trialign/kernels/blocked.py:990", k4_err, k4,
+         {"cells": k4["cells"], "old_design_ms": k4["old_design_ms"],
+          "batch_ms": k4["batch"]["ms"],
+          "batch_old_design_ms": k4["batch"]["old_design_ms"],
           "batch_bound_ms": k4["batch"]["bound_ms"],
           "batch_cells": k4["batch"]["cells"]}),
         ("hetero_tiles", "hetero", "trialign/kernels/blocked.py:1075",

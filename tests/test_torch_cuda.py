@@ -366,3 +366,112 @@ def test_persistent_slab_matches_diagonal_schedule(card, name, variant,
     assert sk.slab_sweep.launches == before + 1
     assert torch.equal(cap, want.cap)
     assert torch.equal(f, want.out)
+
+
+def hetero_batch(card, seed, block, nsym=4):
+    """A ragged dispatch: several tile counts, a 1 x 1-tile problem, an
+    empty sequence, final cells inside their tiles."""
+    rng = np.random.default_rng(seed)
+    trips = [tuple(rng.integers(0, nsym, n).astype(np.uint8) for n in lens)
+             for lens in ((60, 70, 50), (20, 30, 12), (3, 5, 4), (0, 4, 3),
+                          (7, 17, 40), (1, 1, 1), (25, 9, 26), (40, 64, 64))]
+    return hetero.prep_hetero(trips, *block, card)
+
+
+def assert_hetero_states_equal(got, want):
+    for g, w, name in zip(got, want, want._fields):
+        assert torch.equal(g, w), name
+
+
+# K4's tile planes on the card: one sub-tile ((9, 17), the default), and
+# tiles cut into 2 x 2 sub-tiles and into four ragged columns of them.
+HETERO_PLANES = [(9, 17), (33, 33), (34, 65), (16, 128)]
+
+
+@pytest.mark.parametrize("blocks", [1, 3, None])
+@pytest.mark.parametrize("chunk", [1, 7, hetero.MAX_CHUNK])
+@pytest.mark.parametrize("block", HETERO_PLANES)
+def test_persistent_hetero_matches_diagonal_schedule(card, block, chunk,
+                                                     blocks):
+    """K4 over a whole dispatch in one persistent launch, at chunks up to
+    the longest its rings take and at any grid cap (1 block sweeps the
+    table alone): faces, final values and progress words equal K4's earlier
+    design run one diagonal a launch, and the final values hetero_ref's."""
+    batch = hetero_batch(card, 20, block)
+    n = len(batch.tiles)
+    want = hetero.sweep_diagonals(batch, hetero.new_state(batch), 0, n)
+    before = hetero.sweep_tiles.launches
+    got = hetero.sweep_tiles(batch, hetero.new_state(batch), 0, n,
+                             chunk=chunk, blocks=blocks)
+    assert hetero.sweep_tiles.launches == before + 1
+    assert_hetero_states_equal(got, want)
+    assert torch.equal(got.out, hetero.hetero_ref(batch))
+
+
+@pytest.mark.parametrize("block", HETERO_PLANES)
+@pytest.mark.parametrize("name", sorted(SCORINGS))
+def test_hetero_step_matches_plain_under_each_scoring(card, name, block):
+    """Every scoring mode at every plane: one launch a dispatch, the final
+    values hetero_ref's."""
+    scoring, nsym = SCORINGS[name]
+    batch = hetero_batch(card, 21, block, nsym)
+    before = hetero.final_values.launches
+    got = hetero.final_values(batch, scoring)
+    assert hetero.final_values.launches == before + 1
+    assert torch.equal(got, hetero.hetero_ref(batch, scoring))
+
+
+@pytest.mark.parametrize("run", ["entry", "diagonal", "quarter"])
+def test_hetero_per_tile_runs_match_plain(card, run):
+    """K4's per-tile form in runs of one entry, of one diagonal and of a
+    quarter of the table, one launch a run: the whole state equals
+    hetero_ref's (its progress words included)."""
+    batch = hetero_batch(card, 22, (9, 17))
+    n = len(batch.tiles)
+    if run == "entry":
+        bounds = list(range(n + 1))
+    elif run == "diagonal":
+        bounds = [int(x) for x in batch.diag_start]
+    else:
+        bounds = list(range(0, n, max(1, n // 4))) + [n]
+    want = hetero.new_state(batch)
+    hetero.hetero_ref(batch, state=want)
+    got = hetero.new_state(batch)
+    before = hetero.sweep_tiles.launches
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        hetero.sweep_tiles(batch, got, lo, hi - lo)
+    assert hetero.sweep_tiles.launches == before + len(bounds) - 1
+    assert_hetero_states_equal(got, want)
+
+
+def test_hetero_mesh_of_two_slots_on_one_card(card):
+    """The sharded batch on two data slots of one card: one launch a
+    dispatch on each slot's stream, the scores those of one device."""
+    from trialign_torch.dist import mesh
+    from trialign_torch.kernels import mosaic
+
+    rng = np.random.default_rng(23)
+    trips = [tuple(rng.integers(0, 4, int(n)).astype(np.uint8)
+                   for n in rng.integers(1, 90, 3)) for _ in range(70)]
+    m = mesh.make_mesh(2, 1, devices=[card, card])
+    before = hetero.sweep_tiles.launches
+    got = mosaic.align_batch_mosaic(trips, mesh=m)
+    assert hetero.sweep_tiles.launches == before + 2
+    assert got == mosaic.align_batch_mosaic(trips, device=card)
+    assert got == [api.align(*t).score if min(map(len, t)) else 0
+                   for t in trips]
+
+
+def test_hetero_refuses_a_chunk_past_its_rings(card):
+    batch = hetero_batch(card, 24, (33, 33))
+    with pytest.raises(ValueError, match="chunk"):
+        hetero.final_values(batch, chunk=hetero.MAX_CHUNK + 1)
+
+
+@pytest.mark.parametrize("block,threads", [((33, 33), 256), ((9, 17), 128),
+                                           ((16, 128), 256)])
+def test_hetero_step_resources(card, block, threads):
+    """A warp a strip of 4 columns, at most 8: two blocks an SM."""
+    res = hetero.step_resources(*block)
+    assert res["threads"] == threads
+    assert res["blocks_per_sm"] >= 2 and res["registers"] > 0

@@ -1,18 +1,20 @@
-"""The readiness rule of the persistent sweeps (K3 and K5), modelled in torch.
+"""The readiness rule of the persistent sweeps (K3, K4, K5), modelled in torch.
 
-On the card, K3's whole-grid sweep (with its chain mode) and K5's slab sweep
-are one persistent launch each: a tile sweeps its pillar in chunks of planes
-and starts a chunk once its upper and left neighbours have finished the
-planes that ``kernels.blocked.planes_needed`` names (csrc/schedule.cuh).  The
-model here sweeps every tile's pillar with the plain versions' own plane
+On the card, K3's whole-grid sweep (with its chain mode), K5's slab sweep
+and every run of K4's table are one persistent launch each: a tile sweeps
+its pillar in chunks of planes and starts a chunk once its upper and left
+neighbours have finished the planes that ``kernels.blocked.planes_needed``
+names (csrc/schedule.cuh).  The model here sweeps every tile's pillar with the plain versions' own plane
 steps (``blocked.pillar_steps``, ``slab.pillar_steps``) on the same in-place
 face slabs, one chunk at a time, taking the next chunk of a tile chosen at
 random among those the rule allows.  Whatever the order, the state (faces,
 final values, capture) must equal the anti-diagonal order of ``blocked_ref``
 and ``slab_ref``, and the scores the JAX package's golden model and engine.
-A model that breaks the rule by one plane must differ, which shows that the
-comparison can fail.  Inputs come from seeded numpy generators; integers,
-tolerance 0.
+K4's table holds many problems and is swept in runs that may end
+mid-diagonal; its progress words carry from run to run, and the state must
+equal ``hetero_ref``'s.  A model that breaks the rule by one plane must
+differ, which shows that the comparison can fail.  Inputs come from seeded
+numpy generators; integers, tolerance 0.
 """
 
 import dataclasses
@@ -26,6 +28,7 @@ from trialign.golden import align_planes_numpy
 from trialign.traceback import engine as jengine
 from trialign_torch.config import Scoring
 from trialign_torch.kernels import blocked as bk
+from trialign_torch.kernels import hetero
 from trialign_torch.kernels import slab as sk
 from trialign_torch.traceback.engine import NEG
 
@@ -277,3 +280,111 @@ def test_scores_do_not_depend_on_the_schedule_arguments(chunk, blocks):
         got = bk.final_values(*bk.prep_blocked(*trip, dims, "cpu"), *lens,
                               dims, chunk=chunk, blocks=blocks)
         assert int(got.max()) == want
+
+
+# K4: a dispatch's table of tiles over several problems, swept in runs.
+K4_LENS = [(7, 11, 14), (3, 5, 4), (0, 4, 3), (1, 1, 1), (5, 8, 19)]
+
+
+def k4_model(batch, scoring, runs, chunk, pick, slack=0):
+    """K4's persistent sweep of ``runs`` ((idx0, count) in table order) on
+    one state: within a run, the next chunk of an entry ``pick`` chooses
+    among those the readiness rule allows against its neighbours' progress
+    words; a neighbour of an earlier run reads as finished.  Each entry's
+    planes are hetero_ref's own (blocked.pillar_steps on the dispatch's
+    views), and its progress word is the last plane it finished."""
+    state = hetero.new_state(batch)
+    for idx0, count in runs:
+        entries = list(range(idx0, idx0 + count))
+        gens, dims, nxt = {}, {}, {}
+        for e in entries:
+            p, jb, kb = (int(x) for x in batch.table[e, :3])
+            arrs, lens, d, pst = hetero._problem(batch, state, p)
+            gens[e] = bk.pillar_steps(*arrs, lens[1], lens[2], d, pst,
+                                      torch.tensor([jb]), torch.tensor([kb]),
+                                      scoring)
+            dims[e], nxt[e] = d, 1
+        while True:
+            ready = []
+            for e in entries:
+                if nxt[e] > dims[e].nq:
+                    continue
+                q1 = min(nxt[e] + chunk, dims[e].nq + 1)
+                need = bk.planes_needed(q1, dims[e])
+                if all(nb < 0 or int(state.done[nb]) >= n - slack
+                       for nb, n in zip(batch.table[e, 3:], need)):
+                    ready.append(e)
+            if not ready:
+                break
+            e = pick(ready)
+            q1 = min(nxt[e] + chunk, dims[e].nq + 1)
+            for _ in range(q1 - nxt[e]):
+                next(gens[e])
+            state.done[e], nxt[e] = q1 - 1, q1
+        assert all(nxt[e] > dims[e].nq for e in entries), "deadlocked"
+    return state
+
+
+def k4_case(name, seed):
+    scoring, _, nsym = SCORINGS[name]
+    rng = np.random.default_rng(seed)
+    trips = [tuple(rng.integers(0, nsym, n).astype(np.uint8) for n in t)
+             for t in K4_LENS]
+    batch = hetero.prep_hetero(trips, *BLOCK, "cpu")
+    want = hetero.new_state(batch)
+    hetero.hetero_ref(batch, scoring, want)
+    return trips, scoring, batch, want
+
+
+def k4_runs(batch, cut):
+    """The whole table as runs of ``cut`` entries (0: one run)."""
+    n = len(batch.tiles)
+    step = cut or n
+    return [(lo, min(step, n - lo)) for lo in range(0, n, step)]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("cut", [0, 5, 13])
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_k4_any_allowed_order_equals_table_order(chunk, cut, seed):
+    """Runs of 5 or 13 entries end mid-diagonal; the progress words carry
+    from run to run.  Faces, final values and progress words equal
+    hetero_ref's, and the scores the golden model."""
+    trips, scoring, batch, want = k4_case("default", seed)
+    got = k4_model(batch, scoring, k4_runs(batch, cut), chunk,
+                   at_random(seed + cut))
+    assert_states_equal(got, want)
+    assert got.out.max(dim=1).values.tolist() == [
+        align_planes_numpy(*t) if min(map(len, t)) else 0 for t in trips]
+
+
+@pytest.mark.parametrize("name", ["rtl", "nondefault", "sub4"])
+def test_k4_model_under_each_scoring(name):
+    _, scoring, batch, want = k4_case(name, 3)
+    got = k4_model(batch, scoring, k4_runs(batch, 7), 3, at_random(3))
+    assert_states_equal(got, want)
+
+
+def test_k4_one_plane_short_of_the_rule_differs():
+    """Waiting one plane less than planes_needed lets a tile read a face row
+    its neighbour has not written yet, and the state differs."""
+    _, scoring, batch, want = k4_case("default", 0)
+    got = k4_model(batch, scoring, k4_runs(batch, 0), 1, eager, slack=1)
+    assert not torch.equal(got.out, want.out)
+    assert_states_equal(
+        k4_model(batch, scoring, k4_runs(batch, 0), 1, eager), want)
+
+
+@pytest.mark.parametrize("chunk,blocks", [(0, None), (hetero.MAX_CHUNK + 1,
+                                                      None), (1000, None),
+                                          (8, 0), (8, -1)])
+def test_k4_refuses_a_bad_schedule(chunk, blocks):
+    """A chunk past the rings K4 holds (MAX_CHUNK) is refused on every
+    device, as a chunk below 1 and a grid cap below 1 are, never run as
+    another."""
+    _, scoring, batch, _ = k4_case("default", 0)
+    with pytest.raises(ValueError, match="chunk|blocks"):
+        hetero.final_values(batch, scoring, chunk=chunk, blocks=blocks)
+    with pytest.raises(ValueError, match="chunk|blocks"):
+        hetero.sweep_tiles(batch, hetero.new_state(batch), 0, 1, scoring,
+                           chunk=chunk, blocks=blocks)

@@ -85,9 +85,15 @@ SIGNATURES = {
         "trialign_blocked_blocks_per_sm": (_I, [_I, _I, _I, _I, _IP]),
     },
     "hetero": {
+        "trialign_hetero_sweep": (
+            _I, [_P, _P, _P, _I, _I, _I, _I, _P, StepScoring, _P, _P, _P, _P,
+                 _P, _I, _I, _I, _P]),
         "trialign_hetero_diag": (
-            _I, [_P, _P, _P, _I, _I, _I, _I, _P, StepScoring, _P, _P, _P,
+            _I, [_P, _P, _P, _I, _I, _I, _P, StepScoring, _P, _P, _P, _P,
                  _P]),
+        "trialign_hetero_resources": (_I, [_I, _I, _I, _I, _IP]),
+        "trialign_hetero_phases": (
+            _I, [ctypes.POINTER(ctypes.c_ulonglong)]),
     },
     "slab": {
         "trialign_slab_shared_bytes": (_I, [_I, _I]),

@@ -4,8 +4,8 @@
 // Replaces trialign/kernels/blocked.py:_block_sweep as launched by
 // make_grid_call (kernel _make_grid_kernel, chain mode included through the
 // 13-tuple dims of plan_dims_packed) and by make_block_call (one block a
-// call, for checkpoint.py).  The tile pillar itself is csrc/pillar.cuh,
-// shared with K4.
+// call, for checkpoint.py).  The tile pillar itself is csrc/pillar.cuh
+// (K4 has its own, csrc/pillar_warp.cuh).
 //
 // Bound on the card: on v5e the grid ran one tile after another on one core
 // with the planes in VMEM.  Here a tile is bound by the pillar's

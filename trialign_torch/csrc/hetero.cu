@@ -2,40 +2,57 @@
 //
 // Replaces trialign/kernels/blocked.py:make_hetero_grid_call (_block_sweep in
 // hetero mode) as chain._hetero_core_impl and mosaic._mosaic_core_impl
-// launch it.  On v5e the grid ran one block after another on one core, so
-// K4 chained distinct triplets along i at a pitch d to amortise each
-// block's tb + tc plane ramp, picked every cell's B and C from a VMEM ring
-// by band selects, and captured each slot's score in a capture plane.  None
-// of that is a limit here.  What is: one problem's tile anti-diagonal is all
-// the parallelism K3 has (16 tiles on average at 1024^3 with 33 x 33 tile
-// planes, 12% of the 132 SMs).  So K4 keeps what K4 computes, the optimal
-// score of each of many triplets with its own lengths, and not its layout.
+// launch it, and make_hetero_block_call, its per-block form.  On v5e the
+// grid ran one block after another on one core, so K4 chained distinct
+// triplets along i at a pitch d to amortise each block's tb + tc plane ramp,
+// picked every cell's B and C from a VMEM ring by band selects, and captured
+// each slot's score in a capture plane.  None of that is a limit here.
+// What is: one problem's tile anti-diagonal is all the parallelism K3 has.
+// So K4 keeps what K4 computes, the optimal score of each of many triplets
+// with its own lengths, and not its layout.
 //
-// Design: K3's tile pillar (csrc/pillar.cuh) with a problem axis.  Every
-// problem of a dispatch is tiled by the same (hb, wc) plane and has its own
-// |A|, tile counts, symbol arrays and face slabs, named by its row of a
-// geometry table.  One launch runs global tile anti-diagonal d: one thread
-// block per (problem, tile) with jb + kb = d, read from a host-built table
-// that lists the longest problems first, so that the longest pillars start
-// first.  Stream order makes the faces of diagonal d - 1 visible, as in K3;
-// no two blocks of a launch share a face slab.  Each problem writes its
-// seven final values into out[p] at its own q* = |A| + jl* + kl*.  A
-// problem with an empty sequence has no tiles and keeps the zeros the
-// wrapper put in out[p].
+// Design.  Every problem of a dispatch is tiled by the same (hb, wc) plane
+// and has its own |A|, tile counts, symbol arrays and face slabs, named by
+// its row of a geometry table.  The host lists the dispatch's tiles in a
+// table (kernels/hetero.py TABLE_FIELDS): global tile anti-diagonal by
+// diagonal, the longest problems first within one, each entry with the
+// entries of its upper and left neighbours.  One persistent launch
+// (hetero_sweep) runs any run [idx0, idx0 + count) of the table: as many
+// blocks as the SMs hold at once, each taking the next entry from a global
+// counter in table order and sweeping its tile to the end before it takes
+// another; a tile starts each chunk of planes once its neighbours' progress
+// words (one a table entry, kept in the sweep state) show the planes whose
+// face rows the chunk reads (kernels/blocked.planes_needed).  A neighbour
+// swept by an earlier run already reads as finished.  Every entry a block
+// waits on was taken earlier by a running block (csrc/schedule.cuh), so the
+// sweep cannot deadlock whatever the grid and whatever else runs on the
+// card.  The whole dispatch is one launch (final_values), and so is every
+// run of the per-tile form (sweep_tiles), which may stop and resume between
+// any two entries with faces, outputs and progress words in device memory.
 //
-// Per-tile form (trialign/kernels/blocked.py:make_hetero_block_call, which
-// the reference's interpret fallback runs one block a call): the host passes
-// any run of one diagonal's table entries, so a sweep may stop and resume
-// between two entries with its faces and outputs left in device memory.
+// The tile step is csrc/pillar_warp.cuh: each lane owns a tile row, each
+// warp a strip of four columns, a cell's values stay in registers as the
+// partials their consumers take, and no barrier spans the block inside a
+// sub-tile of at most 32 x 32 cells; a larger tile plane is swept as
+// sub-tiles, so every plane K3 takes runs.  Each problem writes its seven
+// final values into out[p] at its own q* = |A| + jl* + kl*.  A problem with
+// an empty sequence has no tiles and keeps the zeros the wrapper put in
+// out[p].
 //
-// Bound on the card: as K3, a pillar is bound by shared-memory loads (43 a
-// cell) and one barrier a plane (csrc/pillar.cuh); with many problems a
-// launch holds thousands of tiles, so the SMs stay busy and the batch is
-// bound by those per-plane costs and by the longest pillar of each launch.
+// Bound on the card: the int32 max/add rate of the SMs (about 70 operations
+// a cell, four shuffles), as long as the table keeps every SM's blocks busy;
+// the batch's last diagonals leave SMs idle.
+//
+// Kept for comparison only (chip_smoke.py; no entry point of the package
+// reaches it): hetero_diag, K4 as it was, one launch a run of one diagonal
+// with one 512-thread block a tile on K3's shared-memory pillar
+// (csrc/pillar.cuh, stream order carrying the faces).  The sweep's clocked
+// build (CLOCK, default scoring only) serves kernels/hetero.py step_phases.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "pillar.cuh"
+#include "pillar_warp.cuh"
 
 namespace trialign {
 
@@ -56,31 +73,183 @@ enum GeomField {
   kGeomFields
 };
 
+// Columns of the table of tiles (int32), as kernels/hetero.py TABLE_FIELDS.
+enum TableField { kProblem, kJb, kKb, kUp, kLeft, kTableFields };
+
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kSmemThreads = 512;
 
-__global__ void __launch_bounds__(kThreads)
-    hetero_kernel(const int* __restrict__ syms,
-                  const long long* __restrict__ geom,
-                  const int* __restrict__ tiles, int hb, int wc, int d,
-                  const int* __restrict__ sub, StepScoring s, int* rf, int* cf,
-                  int* __restrict__ out) {
-  extern __shared__ int smem[];
-  const int p = tiles[2 * blockIdx.x], jb = tiles[2 * blockIdx.x + 1];
-  const int kb = d - jb;
+// Table entry e of a dispatch: the problem's arrays and faces, the tile
+// and its neighbours' progress words.
+struct Entry {
+  const int *a, *b, *c;  // the problem's A, B, C arrays
+  int *rface, *cface;    // the tile's face slabs
+  int *out, *done, *up, *left;
+  int la, jb, kb, jlstar, klstar;
+  bool target;
+};
+
+__device__ __forceinline__ Entry table_entry(const int* syms,
+                                             const long long* geom,
+                                             const int* table, int e, int hb,
+                                             int wc, int* rf, int* cf,
+                                             int* out, int* done) {
+  const int* row = table + (size_t)e * kTableFields;
+  const int p = row[kProblem];
   const long long* g = geom + (size_t)p * kGeomFields;
-  const int la = (int)g[kLa], nrows = (int)g[kNrows];
+  Entry t;
+  t.jb = row[kJb];
+  t.kb = row[kKb];
+  t.la = (int)g[kLa];
+  t.jlstar = (int)g[kJlstar];
+  t.klstar = (int)g[kKlstar];
+  t.target = t.jb == (int)g[kNjb] - 1 && t.kb == (int)g[kNkb] - 1;
+  const int nrows = (int)g[kNrows];
   // The problem's face slabs: row faces [n_kb][nrows][7][wc], column faces
   // [n_jb][nrows][7][hb].
-  int* rface = rf + g[kRfOff] + (size_t)kb * nrows * kNumMatrices * wc;
-  int* cface = cf + g[kCfOff] + (size_t)jb * nrows * kNumMatrices * hb;
-  const bool target = jb == (int)g[kNjb] - 1 && kb == (int)g[kNkb] - 1;
-  NoWait sync;  // one launch a diagonal: stream order carries the faces
-  tile_pillar<kThreads, false>(
-      smem, syms + g[kAOff], syms + g[kBOff], syms + g[kCOff], hb, wc, la,
-      la + 1, jb, kb, target, (int)g[kJlstar], (int)g[kKlstar], sub, s, rface,
-      cface, out + (size_t)p * kNumMatrices, sync);
+  t.rface = rf + g[kRfOff] + (size_t)t.kb * nrows * kNumMatrices * wc;
+  t.cface = cf + g[kCfOff] + (size_t)t.jb * nrows * kNumMatrices * hb;
+  t.a = syms + g[kAOff];
+  t.b = syms + g[kBOff];
+  t.c = syms + g[kCOff];
+  t.out = out + (size_t)p * kNumMatrices;
+  t.done = done + e;
+  t.up = row[kUp] >= 0 ? done + row[kUp] : nullptr;
+  t.left = row[kLeft] >= 0 ? done + row[kLeft] : nullptr;
+  return t;
+}
+
+// Sub-tile (j0, k0) of entry t's tile as the warp pillar takes it: its
+// symbols and the tile's face slabs shifted to its corner; only the last
+// sub-tile publishes the tile's progress, only the first row waits for the
+// upper tile and the first column for the left one.
+__device__ __forceinline__ WarpTile sub_tile(const Entry& t, int hb, int wc,
+                                             int j0, int k0) {
+  const int tb = hb - 1, tc = wc - 1;
+  WarpTile w;
+  w.a = t.a;
+  w.b = t.b + t.jb * tb + j0;
+  w.c = t.c + t.kb * tc + k0;
+  w.rface = t.rface + (size_t)k0 * kNumMatrices * wc + k0;
+  w.cface = t.cface + (size_t)j0 * kNumMatrices * hb + j0;
+  w.out = t.out;
+  w.done = j0 + kSubRows >= tb && k0 + kSubCols >= tc ? t.done : nullptr;
+  w.up = j0 == 0 ? t.up : nullptr;
+  w.left = k0 == 0 ? t.left : nullptr;
+  w.la = t.la;
+  w.hb = hb;
+  w.wc = wc;
+  w.j0 = j0;
+  w.k0 = k0;
+  w.tb = min(kSubRows, tb - j0);
+  w.tc = min(kSubCols, tc - k0);
+  w.jlstar = t.jlstar - j0;
+  w.klstar = t.klstar - k0;
+  w.target = t.target && w.jlstar >= 1 && w.jlstar <= w.tb &&
+             w.klstar >= 1 && w.klstar <= w.tc;
+  w.has_row = t.jb > 0 || j0 > 0;
+  w.has_col = t.kb > 0 || k0 > 0;
+  return w;
+}
+
+// Two blocks an SM: 8 strips of 4 columns, 128 registers a thread.
+template <bool SUB, bool RTL, bool CLOCK>
+__global__ void __launch_bounds__(32 * kMaxStrips, 2)
+    hetero_sweep(const int* __restrict__ syms,
+                 const long long* __restrict__ geom,
+                 const int* __restrict__ table, int idx0, int count, int hb,
+                 int wc, const int* __restrict__ sub, StepScoring s, int* rf,
+                 int* cf, int* out, int* done, int* next_entry, int chunk) {
+  extern __shared__ int4 smem4[];
+  const int W = blockDim.x >> 5;
+  int4* ring = smem4;
+  int4* stage = ring + (size_t)(W - 1) * (2 * chunk + 1) * kRingRows;
+  int* sub_s =
+      reinterpret_cast<int*>(stage + (size_t)W * chunk * (3 * kStrip + 1));
+  load_sub_table(sub, s.nsym, sub_s);
+  const Charges K{-2 * s.gap_open, -2 * s.gap_extend,
+                  -(s.gap_open + s.gap_extend), -s.gap_open, -s.gap_extend};
+  __shared__ int entry;  // the block's entry, from idx0
+  for (;;) {
+    if (threadIdx.x == 0) entry = atomicAdd(next_entry, 1);
+    __syncthreads();  // also orders sub_s
+    if (entry >= count) return;
+    for (int j0 = 0; j0 < hb - 1; j0 += kSubRows) {
+      for (int k0 = 0; k0 < wc - 1; k0 += kSubCols) {
+        // The entry is read again for each sub-tile, a load the compiler
+        // cannot hoist, so that none of the tile's pointers stays in a
+        // register while a sub-tile is swept (they would spill).
+        const int e = idx0 + *reinterpret_cast<volatile int*>(&entry);
+        warp_pillar<SUB, RTL, CLOCK>(
+            sub_tile(table_entry(syms, geom, table, e, hb, wc, rf, cf, out,
+                                 done),
+                     hb, wc, j0, k0),
+            ring, stage, sub_s, s, K, chunk);
+        // The rings and staging buffers serve the next sub-tile, which
+        // reads the faces this one wrote; thread 0 takes the next entry
+        // after it.
+        __syncthreads();
+      }
+    }
+  }
+}
+
+// K4 as it was: one block a tile of one diagonal, stream order carrying the
+// faces; the tile's progress word is set once it is swept.
+__global__ void __launch_bounds__(kSmemThreads)
+    hetero_diag(const int* __restrict__ syms,
+                const long long* __restrict__ geom,
+                const int* __restrict__ table, int hb, int wc,
+                const int* __restrict__ sub, StepScoring s, int* rf, int* cf,
+                int* out, int* done) {
+  extern __shared__ int smem[];
+  const Entry t = table_entry(syms, geom, table, blockIdx.x, hb, wc, rf, cf,
+                              out, done);
+  NoWait sync;
+  tile_pillar<kSmemThreads, false>(
+      smem, t.a, t.b, t.c, hb, wc, t.la, t.la + 1, t.jb, t.kb, t.target,
+      t.jlstar, t.klstar, sub, s, t.rface, t.cface, t.out, sync);
+  if (threadIdx.x == 0) *t.done = t.la + hb + wc - 2;
+}
+
+using SweepFn = void (*)(const int*, const long long*, const int*, int, int,
+                         int, int, const int*, StepScoring, int*, int*, int*,
+                         int*, int*, int);
+
+// The sweep of a scoring mode (bit 0 rtl, bit 1 submatrix), or its clocked
+// build (default scoring only), or nullptr.
+SweepFn pick(int mode, bool clock) {
+  if (clock) return mode == 0 ? hetero_sweep<false, false, true> : nullptr;
+  switch (mode) {
+    case 0: return hetero_sweep<false, false, false>;
+    case 1: return hetero_sweep<false, true, false>;
+    case 2: return hetero_sweep<true, false, false>;
+    case 3: return hetero_sweep<true, true, false>;
+  }
+  return nullptr;
+}
+
+// Threads and shared bytes of a block at tile plane hb x wc, or false for
+// a plane or chunk the sweep does not take.
+bool sweep_block(int hb, int wc, int chunk, int* threads, size_t* smem) {
+  const int tb = hb - 1, tc = wc - 1;
+  if (tb < 1 || tc < 1 || chunk < 1 || chunk > kMaxChunk) return false;
+  const int need = (tc + kStrip - 1) / kStrip;
+  const int strips = need < kMaxStrips ? need : kMaxStrips;
+  *threads = 32 * strips;
+  *smem = warp_pillar_shared_bytes(strips, chunk);
+  return true;
+}
+
+// Blocks of fn one SM holds with `threads` threads and `smem` bytes.
+template <class Fn>
+cudaError_t per_sm(Fn fn, int threads, size_t smem, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, threads,
+                                                       smem);
 }
 
 }  // namespace
@@ -88,27 +257,95 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// Launch K4 for `ntiles` (problem, jb) pairs of global tile anti-diagonal d
-// (all of them, or any run of them) on `stream`.  syms: every problem's symbol arrays, laid
+// Sweep entries idx0 .. idx0 + count - 1 of a dispatch's table in one
+// persistent launch on `stream`.  syms: every problem's symbol arrays, laid
 // out as K3's (A_i at a_off + i, B_j at b_off + j with sentinels past |B|,
-// C likewise); geom: kGeomFields int64 per problem; tiles: 2 ints a tile;
-// rf, cf: the face slabs of every problem at their offsets; out: 7 ints a
-// problem.  Diagonals go in order 0, 1, ... on one stream.  Returns
+// C likewise); geom: kGeomFields int64 a problem; table: kTableFields ints
+// an entry; rf, cf: the face slabs of every problem at their offsets; out:
+// 7 ints a problem; done: one progress word an entry (-1 fresh);
+// next_entry: 1 int, 0.  chunk: planes between handshakes (1 ..
+// kMaxChunk); max_blocks caps the grid (0: as many blocks as the SMs hold
+// at once); clock: the build with the phase clock (default scoring only).
+// Runs go in table order.  A wait past the watchdog traps
+// (csrc/schedule.cuh).  Returns cudaGetLastError() (or the error of the
+// occupancy query).
+int trialign_hetero_sweep(const int* syms, const long long* geom,
+                          const int* table, int idx0, int count, int hb,
+                          int wc, const int* sub, trialign::StepScoring s,
+                          int* rf, int* cf, int* out, int* done,
+                          int* next_entry, int chunk, int max_blocks,
+                          int clock, void* stream) {
+  const int mode = (s.rtl ? 1 : 0) | (s.nsym ? 2 : 0);
+  trialign::SweepFn fn = trialign::pick(mode, clock != 0);
+  int threads = 0, sm_blocks = 0, blocks = 0;
+  size_t smem = 0;
+  if (fn == nullptr || idx0 < 0 || count < 1 || max_blocks < 0 ||
+      s.score_bits ||
+      !trialign::sweep_block(hb, wc, chunk, &threads, &smem))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = trialign::per_sm(fn, threads, smem, &sm_blocks);
+  if (err == cudaSuccess)
+    err = trialign::persistent_grid(sm_blocks, count, max_blocks, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  fn<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      syms, geom, table, idx0, count, hb, wc, sub, s, rf, cf, out, done,
+      next_entry, chunk);
+  return (int)cudaGetLastError();
+}
+
+// K4 as it was: one block for each of the `ntiles` entries at `table` (a run
+// of one global tile anti-diagonal), on `stream`, after the diagonals
+// before it; done: those entries' progress words.  Returns
 // cudaGetLastError() (or the error of cudaFuncSetAttribute).
 int trialign_hetero_diag(const int* syms, const long long* geom,
-                         const int* tiles, int ntiles, int hb, int wc, int d,
+                         const int* table, int ntiles, int hb, int wc,
                          const int* sub, trialign::StepScoring s, int* rf,
-                         int* cf, int* out, void* stream) {
-  if (ntiles < 1 || d < 0) return (int)cudaErrorInvalidValue;
+                         int* cf, int* out, int* done, void* stream) {
+  if (ntiles < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = trialign::pillar_shared_bytes(hb, wc);
   cudaError_t err = cudaFuncSetAttribute(
-      trialign::hetero_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      trialign::hetero_diag, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  trialign::hetero_kernel<<<ntiles, trialign::kThreads, smem,
-                            (cudaStream_t)stream>>>(
-      syms, geom, tiles, hb, wc, d, sub, s, rf, cf, out);
+  trialign::hetero_diag<<<ntiles, trialign::kSmemThreads, smem,
+                          (cudaStream_t)stream>>>(syms, geom, table, hb, wc,
+                                                  sub, s, rf, cf, out, done);
   return (int)cudaGetLastError();
+}
+
+// What the sweep takes at tile plane hb x wc: into out[0..4] its registers
+// a thread, local (spill) bytes a thread, threads and shared bytes a block,
+// and blocks an SM.  Returns a CUDA error code.
+int trialign_hetero_resources(int hb, int wc, int chunk, int mode,
+                              int* out) {
+  trialign::SweepFn fn = trialign::pick(mode, false);
+  int threads = 0;
+  size_t smem = 0;
+  if (fn == nullptr ||
+      !trialign::sweep_block(hb, wc, chunk, &threads, &smem))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (err == cudaSuccess) err = trialign::per_sm(fn, threads, smem, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = threads;
+  out[3] = (int)smem;
+  out[4] = blocks;
+  return 0;
+}
+
+// Copies the clocked sweep's cycle sums, kMaxStrips rows of kPhases, into
+// out and zeroes them.  Returns a CUDA error code.
+int trialign_hetero_phases(unsigned long long* out) {
+  unsigned long long zero[trialign::kMaxStrips][trialign::kPhases] = {};
+  cudaError_t err = cudaMemcpyFromSymbol(out, trialign::g_phase_cycles,
+                                         sizeof(zero));
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(trialign::g_phase_cycles, zero, sizeof(zero));
+  return (int)err;
 }
 
 }  // extern "C"

@@ -1,4 +1,6 @@
-// The tile pillar shared by K3 (csrc/blocked.cu) and K4 (csrc/hetero.cu).
+// The shared-memory tile pillar of K3 (csrc/blocked.cu).  K4 sweeps its
+// tiles with a step of its own (csrc/pillar_warp.cuh); csrc/hetero.cu keeps
+// this pillar only for K4's earlier design, which chip_smoke.py times.
 //
 // Replaces the body of trialign/kernels/blocked.py:_block_sweep that both
 // make_grid_call (K3, with its per-block form make_block_call and its chain
@@ -19,7 +21,7 @@
 // Design: the caller names the tile and its problem's geometry, and a
 // schedule policy (csrc/schedule.cuh): NoWait where stream order between
 // launches makes the faces of the previous tile anti-diagonal visible and no
-// two blocks of a launch share a face slab (K4, K3's per-tile form); PlaneWait
+// two blocks of a launch share a face slab (K3's per-tile form); PlaneWait
 // where one persistent launch runs every tile and a tile waits, at the start
 // of each chunk of planes, for the planes of its neighbours whose face rows
 // the chunk reads (K3's whole-grid sweep and chain mode).  A row-face slab

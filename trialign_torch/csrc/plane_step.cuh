@@ -1,5 +1,6 @@
 // The 7-matrix affine-gap cell step shared by the wavefront (K2), blocked
-// (K3), hetero (K4) and slab (K5) kernels.
+// (K3) and slab (K5) kernels and K4's earlier design; K4's register step
+// (csrc/pillar_warp.cuh) takes the same groups pre-reduced.
 //
 // Replaces trialign/kernels/plane_math.py:fused_plane_update_m7 (K1), the
 // plane-wide grouped max-plus update every Pallas kernel inlines.  On the TPU

@@ -9,9 +9,9 @@
 // written and what happens at the start of each plane:
 //
 // * NoWait: a launch runs tiles whose neighbours ran in earlier launches on
-//   the same stream (one launch per tile anti-diagonal: K4 and the per-tile
-//   forms), so stream order makes the faces visible; faces are plain loads
-//   and stores.
+//   the same stream (one launch per tile anti-diagonal: the per-tile forms
+//   of K3 and K5, K4's earlier design), so stream order makes the faces
+//   visible; faces are plain loads and stores.
 // * PlaneWait: one persistent launch runs the whole tile table.  A tile sweeps
 //   its pillar in chunks of planes [q0, q1).  Before a chunk, thread 0 waits
 //   until the upper neighbour has finished plane min(q1 - 1 + tb, nq) and the
@@ -94,12 +94,13 @@ struct PlaneWait {
     if (threadIdx.x == 0) publish(nq);
   }
 
- private:
   __device__ __forceinline__ void publish(int q) {
     __threadfence();
     Flag(*done).store(q, cuda::memory_order_release);
   }
 
+  // Waits until *p (a progress word; none if nullptr) reaches need; seen
+  // caches the last value read.  csrc/pillar_warp.cuh waits with it too.
   __device__ __forceinline__ static void await(int* p, int need, int& seen) {
     if (p == nullptr || seen >= need) return;
     Flag flag(*p);

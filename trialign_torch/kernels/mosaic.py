@@ -13,7 +13,7 @@ a time.
 With a ``mesh`` the problems spread over its 'data' slots, each slot's
 share contiguous and balanced by cells (:func:`_snake_chunks`).  Each slot
 runs its dispatches on its own device and CUDA stream through K4's
-per-tile form (``hetero.sweep_tiles``), one diagonal a turn, the slots in
+per-tile form (``hetero.sweep_tiles``), one launch a dispatch, the slots in
 turn, so that slots which share a card run at once.
 
 Not ported, as TPU layout: the canvas packer (``CanvasGeometry``,
@@ -85,10 +85,9 @@ def data_devices(mesh) -> List:
 
 
 def _slot_work(idx, triplets, lens, scoring, device, budget, pending):
-    """One slot's dispatches, one K4 diagonal a step (a generator).  A
-    finished dispatch goes on ``pending`` as (problems, scores, event on the
-    slot's stream after its last diagonal, None on the CPU) in a step of its
-    own."""
+    """One slot's dispatches, one K4 run of a whole dispatch a step (a
+    generator).  A finished dispatch goes on ``pending`` as (problems,
+    scores, event on the slot's stream after its run, None on the CPU)."""
     hb, wc = bk.choose_block_shape(0, 0, 0)
     for cut in hetero.plan_dispatches([lens[i] for i in idx], hb, wc,
                                       budget):
@@ -96,10 +95,7 @@ def _slot_work(idx, triplets, lens, scoring, device, budget, pending):
         batch = hetero.prep_hetero([triplets[i] for i in part], hb, wc,
                                    device)
         state = hetero.new_state(batch)
-        for d in range(len(batch.diag_start) - 1):
-            lo, hi = int(batch.diag_start[d]), int(batch.diag_start[d + 1])
-            hetero.sweep_tiles(batch, state, lo, hi - lo, scoring)
-            yield
+        hetero.sweep_tiles(batch, state, 0, len(batch.tiles), scoring)
         scores = state.out.max(dim=1).values
         done = None
         if scores.is_cuda:
@@ -112,10 +108,11 @@ def _slot_work(idx, triplets, lens, scoring, device, budget, pending):
 def _hetero_on_slots(triplets, scoring, devices, on_scores) -> List[int]:
     """K4 over the data slots ``devices``: each slot's share (snake-balanced
     by cells) in dispatches under its share of the card's memory, the slots
-    taking turns one diagonal at a time on their own streams.  After each
-    turn the dispatches whose last diagonal has finished on the device
-    drain; when a dispatch fails, every one already swept drains before
-    the failure is raised, so that a retry runs none of them again."""
+    taking turns one dispatch at a time on their own streams, so that slots
+    which share a card run at once.  After each turn the dispatches that
+    have finished on the device drain; when a dispatch fails, every one
+    already swept drains before the failure is raised, so that a retry
+    runs none of them again."""
     lens = [[len(x) for x in t] for t in triplets]
     out = [0] * len(triplets)
     for i, t in enumerate(lens):
