@@ -28,8 +28,12 @@ per source, all at once) and prints one JSON line per phase:
    launch a dispatch, the register step) against its earlier design (one
    launch a diagonal, the shared-memory pillar), the whole state, on ragged
    dispatches under two scorings at one sub-tile and at tiles cut into
-   sub-tiles, and 16 of the batch's kind; K4's registers, spills and blocks
-   an SM;
+   sub-tiles, and 16 of the batch's kind; the per-tile forms of K3 and K5
+   (one persistent launch a run) against their earlier design (one launch a
+   diagonal), the whole state: K3 at 1024^3 in quarters of the table and
+   in the bands of 2 stripes, K5 at the sharded 1024^3 traceback's top
+   split ("free" in quarters, "bwd" in bands), and K5 every variant under
+   five scorings in the bands of 3 stripes; K4's registers, spills and blocks an SM;
 6. ``hetero``: K4 against its plain version ``hetero_ref``, exactly: the
    final vector of every problem of ragged batches (a 1 x 1-tile problem,
    an empty sequence, one batch cut into several dispatches) at 9 x 17
@@ -62,11 +66,13 @@ per source, all at once) and prints one JSON line per phase:
     the main path's 1024^3 triplet checkpointed a quarter of its grid at a
     time, stopped after two segments and resumed by a new aligner from the
     file, equal to ``main_path``'s score and, all seven final values, to
-    the torch sweep; ``align_resilient`` with one injected failure;
+    the torch sweep, in 4 launches; ``align_resilient`` with one injected
+    failure;
     ``align_batch_resilient`` on 256 of the batch's triplets in dispatches
     of 64 with a failure after the second drain (only the unscored 128
     dispatched again, scores equal to the batch's); the per-tile form's
-    time on a 192^3 sample beside ``blocked_ref``'s;
+    time on a 192^3 sample in turns with its earlier design, beside
+    ``blocked_ref``'s;
 12. ``chain``: K3's chain mode against ``blocked_ref`` on multi-tile shapes
     (9 x 17 and 33 x 33 tiles, 1 to 5 slots, five scorings, and
     ``score_bits=12``); then the bench's chains, 16 slots of 512^3 and 8 of
@@ -74,18 +80,23 @@ per source, all at once) and prints one JSON line per phase:
     values equal the torch sweep of its triplet, two slots' scores equal
     ``align()`` and one the C++ oracle;
 13. ``halo``: the halo (``dist/halo.py``) on stripes that share the card,
-    each on its own CUDA stream: K3's per-tile form in 2 and 3 stripes with
-    uneven columns against ``blocked_ref`` (the whole state); the main
-    path's 1024^3 triplet in 1, 2 and 4 stripes under both schedules, all
-    seven values equal to K3's whole-grid sweep; ms beside K3's, launches,
-    the measured face-copy rate and the model's time on separate cards;
+    each on its own CUDA stream, each in bands of tile rows, one launch a
+    band: K3's per-tile form in 2 and 3 stripes with uneven columns, in the
+    model's bands and in bands of 1 and 2 rows, against ``blocked_ref``
+    (the whole state); the main path's 1024^3 triplet in 1, 2 and 4
+    stripes under both schedules, all seven values equal to K3's whole-grid
+    sweep, launches one a band a stripe; ms in turns with the earlier
+    design (one launch a stripe and tile diagonal), beside K3's; the
+    measured face-copy rate and the model's time on separate cards;
 14. ``halo_tb``: K5's per-tile form against ``slab_ref`` (capture and final
     vector) in runs that end mid-diagonal and in 2 and 3 stripes, every
     variant, default and 16-symbol scoring; ``hirschberg_align_sharded`` on
     the traceback phase's 1024^3 triplet in 2 stripes with two levels of
-    splits on them, rescoring to the score path's score; that run's top
-    split (512 x 1024 x 1024, 2 stripes) against the torch engine, capture
-    and final vector exactly, and timed beside it;
+    splits on them, rescoring to the score path's score, one launch a band
+    a stripe (seconds, split into the sweeps on the stripes and the rest);
+    that run's top split (512 x 1024 x 1024, 2 stripes) against the torch
+    engine, capture and final vector exactly, and timed beside it and in
+    turns with the earlier design;
 15. ``sharded_batch``: K4's per-tile form against ``hetero_ref`` in runs
     that end mid-diagonal under two scorings; ``align_batch_sharded`` on
     the 1024-triplet batch over 2 data slots sharing the card (one launch a
@@ -118,7 +129,12 @@ per source, all at once) and prints one JSON line per phase:
     form (one run, one diagonal a run, and runs of a quarter of the table)
     against hetero_ref, exactly and timed, on a dispatch of two of the
     1024-triplet batch's problems (its largest and its smallest), and both
-    at the whole batch, each in turns with K4's earlier design.
+    at the whole batch, each in turns with K4's earlier design; K3's
+    per-tile form at 1024^3 in quarters in turns with its earlier design;
+    the 1024^3 halo in 2 stripes in bands of 1 to 32 rows, and in 4
+    stripes in bands of 16 and 32 rows in turns; K3's whole grid, its
+    quarters and the 2-stripe halo at 1024^3 with the grid capped at one
+    block an SM, in turns with the occupancy's grid.
 
 Then a summary of the kernels, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any mismatch or error exits
@@ -129,6 +145,7 @@ imports neither JAX nor the JAX package: the oracles are the port's copies.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -195,8 +212,10 @@ VARIANTS = {
 }
 SLAB_VARIANTS = {**VARIANTS, "sub16": (SUB16, 0, 18)}
 
-# The shape of K5's sweeps at the 2048^3 traceback's top split.
+# The shape of K5's sweeps at the 2048^3 traceback's top split, and of its
+# per-tile form's at the sharded 1024^3 traceback's.
 SPLIT_SHAPE = (1024, 2048, 2048)
+TOP_SPLIT = (512, 1024, 1024)
 # The repo's throughput workload (trialign/benchmarks.py bench_batch_mixed,
 # BASELINE config 3): 1024 triplets, each length uniform in [128, 512].
 BATCH_N, BATCH_LENS = 1024, (128, 512)
@@ -263,11 +282,15 @@ def smi(query: str) -> str:
 
 
 # Each kernel entry point's launch counter, by the name the summary gives it.
+# The earlier designs of the per-tile forms count apart, so that a main path
+# shows it never took them.
 COUNTERS = {"wavefront": wf.final_values, "blocked": bk.final_values,
             "blocked_tiles": bk.sweep_tiles, "blocked_chain": bk.chain_values,
             "hetero": hk.final_values, "hetero_tiles": hk.sweep_tiles,
             "slab": sk.slab_sweep, "slab_tiles": sk.sweep_tiles,
-            "vpu": vpu.vpu_chains}
+            "vpu": vpu.vpu_chains, "blocked_diagonals": bk.sweep_diagonals,
+            "slab_diagonals": sk.sweep_diagonals,
+            "hetero_diagonals": hk.sweep_diagonals}
 
 
 def reset_launches() -> None:
@@ -478,21 +501,88 @@ def phase_slab(rng) -> int:
 
 def diagonal_k3(a, b, c, la, lb, lc, dims, scoring=DEFAULT):
     """What final_values (chain_values for chain dims) computes, under the
-    diagonal schedule: K3's per-tile form over the whole tile table, one
-    launch a diagonal."""
-    state = bk.sweep_tiles(a, b, c, la, lb, lc, dims,
-                           bk.new_state(dims, CUDA), 0, bk.n_tiles(dims),
-                           scoring)
+    diagonal schedule: K3's per-tile form as it was over the whole tile
+    table, one launch a diagonal."""
+    state = bk.sweep_diagonals(a, b, c, la, lb, lc, dims,
+                               bk.new_state(dims, CUDA), 0, bk.n_tiles(dims),
+                               scoring)
     return state.out if dims.d else state.out[0]
 
 
 def diagonal_k5(a, b, c, la, lb, lc, dims, variant, ev, scoring=DEFAULT):
     """What slab_sweep computes, (final, capture), under the diagonal
-    schedule: K5's per-tile form over the whole tile table."""
+    schedule: K5's per-tile form as it was over the whole tile table."""
     state = sk.new_state(la, lb, lc, dims, ev, CUDA)
-    sk.sweep_tiles(a, b, c, la, lb, lc, dims, variant, state, 0,
-                   bk.n_tiles(dims), scoring)
+    sk.sweep_diagonals(a, b, c, la, lb, lc, dims, variant, state, 0,
+                       bk.n_tiles(dims), scoring)
     return state.out, state.cap
+
+
+def diagonal_stripes(dims, row, overlap, start, sweep, band_rows=None):
+    """dist/halo.py run_stripes as it was before bands, for timing beside
+    it (stripes of one process): each stripe sweeps its tiles of each global
+    anti-diagonal in one call of ``sweep`` and hands each column face on
+    after its tile, the receiving stripe waiting on one event a face."""
+    cols = dh.stripe_columns(dims.n_kb, len(row))
+    stripes = [dh.Stripe(d, k0, k1, row[d]) for d, (k0, k1)
+               in enumerate(cols) if k1 > k0]
+    for s in stripes:
+        s.arrs, s.state = start(s.device)
+        s.stream.wait_stream(torch.cuda.current_stream())
+        if overlap:
+            s.copy_stream = torch.cuda.Stream(s.device)
+    ready = {}
+    for t in range(dims.n_jb + dims.n_kb - 1):
+        for pos, s in enumerate(stripes):
+            lo, hi = max(0, t - (s.kb1 - 1)), min(dims.n_jb - 1, t - s.kb0)
+            if lo > hi:
+                continue
+            if pos > 0 and lo <= t - s.kb0 <= hi:
+                s.stream.wait_event(ready.pop((s.index, t - s.kb0)))
+            with s.on_stream():
+                sweep(s.arrs, s.state, [(jb, t - jb)
+                                        for jb in range(lo, hi + 1)])
+            jb_out = t - (s.kb1 - 1)
+            if pos + 1 == len(stripes) or not lo <= jb_out <= hi:
+                continue
+            right = stripes[pos + 1]
+            copier = s.copy_stream or s.stream
+            if copier is not s.stream:
+                copier.wait_stream(s.stream)
+            with s.on_stream(copier):
+                right.state.cf[jb_out].copy_(s.state.cf[jb_out],
+                                             non_blocking=True)
+            ready[(right.index, jb_out)] = torch.cuda.Event()
+            ready[(right.index, jb_out)].record(copier)
+    for s in stripes:
+        torch.cuda.current_stream().wait_stream(s.stream)
+        if s.copy_stream is not None:
+            torch.cuda.current_stream().wait_stream(s.copy_stream)
+    return stripes
+
+
+def _diagonal_run(form):
+    """A sweep_run that sweeps its tiles, a run of one anti-diagonal, with
+    ``form``'s sweep_diagonals."""
+    def sweep_run(*args):
+        *head, tiles, scoring = args
+        dims = head[6]
+        jb, kb = tiles[0]
+        return form.sweep_diagonals(*head, bk.tile_index(dims, jb + kb, jb),
+                                    len(tiles), scoring)
+    return sweep_run
+
+
+def earlier_design():
+    """A context in which the halo and the sharded traceback run as before
+    bands: diagonal_stripes over the per-tile forms' earlier design."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(dh, "run_stripes",
+                                          diagonal_stripes))
+    for form in (bk, sk):
+        stack.enter_context(mock.patch.object(form, "sweep_run",
+                                              _diagonal_run(form)))
+    return stack
 
 
 # The grid caps the schedule phase runs beside the occupancy's grid: one
@@ -534,6 +624,78 @@ def schedule_k5(rng, shape, name, variant) -> int:
     return err
 
 
+def table_quarters(dims):
+    """The tile table in four runs (most end mid-diagonal)."""
+    n = bk.n_tiles(dims)
+    q = -(-n // 4)
+    return [bk.table_run(dims, i, min(q, n - i)) for i in range(0, n, q)]
+
+
+def stripe_bands(dims, band, ndev):
+    """Each stripe's bands of ``band`` tile rows, band by band, as
+    dist/halo.py run_stripes launches them (here on one state)."""
+    runs = [bk.rect_tiles(rows, cols) for rows in dh.bands(dims.n_jb, band)
+            for cols in dh.stripe_columns(dims.n_kb, ndev)]
+    return [r for r in runs if r]
+
+
+def schedule_runs(what, form, sweep, fresh, want, runs) -> int:
+    """A per-tile form (``form``: bk or sk) over ``runs`` (lists of tiles),
+    one launch a run, at every grid cap: ``sweep(state, tiles, blocks)`` on
+    ``fresh()``, the whole state against the diagonal schedule's ``want``;
+    the largest difference."""
+    err = 0
+    for blocks in GRID_CAPS:
+        state = fresh()
+        before = form.sweep_tiles.launches
+        for tiles in runs:
+            sweep(state, tiles, blocks)
+        require(form.sweep_tiles.launches == before + len(runs),
+                f"{what}: {form.sweep_tiles.launches - before} launches for "
+                f"{len(runs)} runs")
+        for g, w, field in zip(state, want, want._fields):
+            require(torch.equal(g, w), f"{what} blocks={blocks}: {field} != "
+                    "the diagonal schedule's")
+            err = max(err, _diff(g, w))
+    return err
+
+
+def schedule_tiles_k3(what, trip, runs_of) -> int:
+    """K3's per-tile form in runs against its earlier design over the whole
+    table (sweep_diagonals): faces and output, at every grid cap."""
+    lens = tuple(map(len, trip))
+    dims = bk.plan_dims(*lens)
+    arrs = bk.prep_blocked(*trip, dims, CUDA)
+    want = bk.sweep_diagonals(*arrs, *lens, dims, bk.new_state(dims, CUDA),
+                              0, bk.n_tiles(dims))
+    return schedule_runs(f"K3 per tile {what}", bk, lambda st, tiles, blocks:
+                         bk.sweep_run(*arrs, *lens, dims, st, tiles,
+                                      blocks=blocks),
+                         lambda: bk.new_state(dims, CUDA), want,
+                         runs_of(dims))
+
+
+def schedule_tiles_k5(rng, shape, name, variant, runs_of) -> int:
+    """K5's per-tile form in runs against its earlier design: capture,
+    faces and final vector, at every grid cap."""
+    scoring, _, nsym = SLAB_VARIANTS[name]
+    seqs = tuple(x.astype(np.int32) for x in triplet(rng, shape, nsym))
+    ev = onehot(int(rng.integers(0, NUM_MATRICES)))
+    dims = sk._plan(*shape)
+    arrs = sk.prep_blocked(*seqs, dims, CUDA)
+    def fresh():
+        return sk.new_state(*shape, dims, ev, CUDA)
+
+    want = sk.sweep_diagonals(*arrs, *shape, dims, variant, fresh(), 0,
+                              bk.n_tiles(dims), scoring)
+    return schedule_runs(
+        f"K5 per tile {shape} {name} {variant}", sk,
+        lambda st, tiles, blocks: sk.sweep_run(*arrs, *shape, dims, variant,
+                                               st, tiles, scoring,
+                                               blocks=blocks),
+        fresh, want, runs_of(dims))
+
+
 def schedule_k4(what, trips, block, scoring=DEFAULT) -> int:
     """The persistent K4 (one launch a dispatch) at every grid cap against
     its diagonal entry point (K4's earlier design, one launch a diagonal):
@@ -562,7 +724,7 @@ def phase_schedule(rng) -> dict:
     shape under five scorings and at the 2048^3 top split's shape.  Returns
     the largest difference of K3, its chain mode and K5."""
     checked, err = [], {"blocked": 0, "blocked_chain": 0, "slab": 0,
-                        "hetero": 0}
+                        "hetero": 0, "blocked_tiles": 0, "slab_tiles": 0}
     for n, count in ((512, 10), (1024, 1)):
         dims = bk.plan_dims(n, n, n)
         for _ in range(count):
@@ -589,6 +751,28 @@ def phase_schedule(rng) -> dict:
         err["slab"] = max(err["slab"], schedule_k5(rng, SPLIT_SHAPE,
                                                    "default", variant))
     checked.append(f"K5 {SPLIT_SHAPE} free, bwd/default")
+    # The per-tile forms, one persistent launch a run: the main path's
+    # shapes in quarters of the table and in the bands of 2 stripes.
+    n = 1024
+    for runs, runs_of in (("quarters", table_quarters),
+                          ("bands of 8, 2 stripes",
+                           lambda d: stripe_bands(d, 8, 2))):
+        err["blocked_tiles"] = max(err["blocked_tiles"], schedule_tiles_k3(
+            f"{n}^3 {runs}", triplet(rng, (n, n, n)), runs_of))
+        checked.append(f"K3 per tile {n}^3 in {runs}")
+    for variant, runs, runs_of in (
+            ("free", "quarters", table_quarters),
+            ("bwd", "bands of 8, 2 stripes", lambda d: stripe_bands(d, 8, 2))):
+        err["slab_tiles"] = max(err["slab_tiles"], schedule_tiles_k5(
+            rng, TOP_SPLIT, "default", variant, runs_of))
+        checked.append(f"K5 per tile {TOP_SPLIT} {variant} in {runs}")
+    for name in SLAB_VARIANTS:
+        for variant in sk.VARIANTS:
+            err["slab_tiles"] = max(err["slab_tiles"], schedule_tiles_k5(
+                rng, (60, 200, 170), name, variant,
+                lambda d: stripe_bands(d, 2, 3)))
+        checked.append(f"K5 per tile (60, 200, 170) every variant/{name} "
+                       "in bands of 2, 3 stripes")
     for name in ("default", "sub4"):
         scoring, _, nsym = VARIANTS[name]
         trips = [triplet(rng, n, nsym) for n in HETERO_LENS]
@@ -906,14 +1090,32 @@ def phase_batch(rng) -> tuple:
 
 def in_runs(sweep, arrs, lens, dims, every, scoring=DEFAULT, bits=0):
     """Sweep a whole grid from a fresh state through ``sweep``
-    (bk.sweep_tiles or bk.blocked_ref, which take the same state and tile
-    range) in runs of ``every`` tiles; the state."""
+    (bk.sweep_tiles, its earlier design bk.sweep_diagonals or
+    bk.blocked_ref, which take the same state and tile range) in runs of
+    ``every`` tiles; the state."""
     state = bk.new_state(dims, arrs[0].device)
     n = bk.n_tiles(dims)
     for idx in range(0, n, every):
         sweep(*arrs, *lens, dims, state=state, idx0=idx,
               count=min(every, n - idx), scoring=scoring, score_bits=bits)
     return state
+
+
+def quarter_inputs(trips):
+    """in_runs' arguments after the sweep for each triplet, at K3's tile
+    plane, in runs of a quarter of the grid."""
+    out = []
+    for t in trips:
+        lens = tuple(map(len, t))
+        dims = bk.plan_dims(*lens)
+        out.append((bk.prep_blocked(*t, dims, CUDA), lens, dims,
+                    -(-bk.n_tiles(dims) // 4)))
+    return out
+
+
+# K3's per-tile form in quarters: its earlier design, then the new one.
+QUARTERS = (functools.partial(in_runs, bk.sweep_diagonals),
+            functools.partial(in_runs, bk.sweep_tiles))
 
 
 def tiles_case(trip, block, every, scoring, bits=0) -> int:
@@ -987,8 +1189,10 @@ def phase_checkpoint(rng, dev, headline, batch, batch_scores) -> dict:
     ckpt_s = time.perf_counter() - t0
     launches = read_launches()
     require(score == want, f"checkpointed 1024^3 {score} != main_path {want}")
-    require(launches["blocked_tiles"] > 0 and not launches["blocked"],
-            f"the checkpointed run did not take the per-tile form: {launches}")
+    require(launches["blocked_tiles"] == 4 and not launches["blocked"] and
+            not launches["blocked_diagonals"],
+            f"the checkpointed run made other launches than one a quarter "
+            f"of K3's per-tile form: {launches}")
     require(torch.equal(r2.out[0], plain), f"checkpointed 1024^3 "
             f"{cpu_ints(r2.out[0])} != torch sweep {cpu_ints(plain)}")
     err = max(err, _diff(r2.out[0], plain))
@@ -1052,24 +1256,14 @@ def phase_checkpoint(rng, dev, headline, batch, batch_scores) -> dict:
 
     # The summary row: the per-tile form and blocked_ref on one 192^3
     # sample in runs of a quarter of its grid (blocked_ref would take
-    # minutes at 1024^3), and the kernel at the 1024^3 run's shape.
-    block = bk.choose_block_shape(0, 0, 0)
-
-    def inputs(trips):
-        out = []
-        for t in trips:
-            lens = tuple(map(len, t))
-            dims = bk.plan_dims(*lens, *block)
-            out.append((bk.sweep_tiles, bk.prep_blocked(*t, dims, CUDA), lens,
-                        dims, bk.n_tiles(dims) // 4))
-        return out
-
+    # minutes at 1024^3), in turns with the earlier design (one launch a
+    # diagonal); the timings phase adds the 1024^3 run's shape.
     n = TILES_SAMPLE
-    sample = inputs([triplet(rng, (n, n, n)) for _ in range(3)])
-    ms = time_cuda_ms(in_runs, sample)
-    plain_ms, plain_state = event_ms(in_runs, bk.blocked_ref,
-                                     *sample[0][1:])
-    got_state = in_runs(*sample[0])
+    sample = quarter_inputs([triplet(rng, (n, n, n)) for _ in range(3)])
+    turns = in_turns(*QUARTERS, sample)
+    new = QUARTERS[1]
+    plain_ms, plain_state = event_ms(in_runs, bk.blocked_ref, *sample[0])
+    got_state = new(*sample[0])
     for g, w in zip(got_state, plain_state):
         require(torch.equal(g, w), f"K3 per tile at {n}^3 != blocked_ref")
         err = max(err, _diff(g, w))
@@ -1077,12 +1271,10 @@ def phase_checkpoint(rng, dev, headline, batch, batch_scores) -> dict:
     # written once.
     state_ints = sum(t.numel() for t in plain_state)
     bms, by = bound(n ** 3, 4 * (3 * n + 2 * state_ints), dev)
-    ms_main = time_cuda_ms(in_runs, inputs(
-        [trip] + [triplet(rng, tuple(map(len, trip))) for _ in range(2)]))
-    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+    row = {"ms": turns["ms"], "diagonal_ms": turns["diagonal_ms"],
+           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
            "max_abs_err": err, "launches": launches["blocked_tiles"],
-           "sample": f"{n}^3 in runs of a quarter of its grid",
-           "main_path_ms_in_quarters": ms_main}
+           "sample": f"{n}^3 in runs of a quarter of its grid"}
     emit(phase="checkpoint", cases=checked, max_abs_err=err,
          checkpointed_1024={
              "score": score, "tiles": r2.n_blocks, "every": every,
@@ -1297,15 +1489,23 @@ def card_mesh(data, model):
     return dmesh.make_mesh(data, model, devices=[CUDA] * (data * model))
 
 
-def halo_state_case(trip, block, ndev, overlap, scoring=DEFAULT) -> int:
-    """K3's per-tile form in ``ndev`` stripes sharing the card against
-    blocked_ref's whole sweep: the last stripe's column faces and output,
-    and each stripe's row faces of its own columns, exactly; the largest
-    difference."""
+def halo_state_case(trip, block, ndev, overlap, scoring=DEFAULT,
+                    band=None) -> int:
+    """K3's per-tile form in ``ndev`` stripes sharing the card, in bands of
+    ``band`` tile rows (the model's by default), against blocked_ref's
+    whole sweep: the last stripe's column faces and output, and each
+    stripe's row faces of its own columns, exactly; one launch a band a
+    stripe.  The largest difference."""
     lens = tuple(map(len, trip))
-    dims, stripes = dh.sweep_stripes(*trip, scoring,
-                                     dh.model_row(card_mesh(1, ndev)), block,
-                                     overlap)
+    row = dh.model_row(card_mesh(1, ndev))
+    rows = band or dh.halo_efficiency(*lens, ndev, block, overlap)["band"]
+    before = bk.sweep_tiles.launches
+    dims, stripes = dh.sweep_stripes(*trip, scoring, row, block, overlap,
+                                     rows)
+    what = f"halo {lens} {block} {ndev} stripes overlap={overlap} band={rows}"
+    require(bk.sweep_tiles.launches - before == len(stripes) * len(
+        dh.bands(dims.n_jb, rows)), f"{what}: launches "
+        f"{bk.sweep_tiles.launches - before}")
     torch.cuda.synchronize()
     want = bk.new_state(dims, CUDA)
     bk.blocked_ref(*bk.prep_blocked(*trip, dims, CUDA), *lens, dims, scoring,
@@ -1314,7 +1514,6 @@ def halo_state_case(trip, block, ndev, overlap, scoring=DEFAULT) -> int:
     pairs = [(last.cf, want.cf), (last.out, want.out)]
     pairs += [(s.state.rf[s.kb0:s.kb1], want.rf[s.kb0:s.kb1])
               for s in stripes]
-    what = f"halo {lens} {block} {ndev} stripes overlap={overlap}"
     for got, w in pairs:
         require(torch.equal(got, w), f"{what}: != blocked_ref's state")
     return max(_diff(g, w) for g, w in pairs)
@@ -1336,21 +1535,27 @@ def face_copy_rate(dims) -> dict:
 
 def phase_halo(rng, headline) -> dict:
     """The halo (dist/halo.py) on stripes sharing the card: K3's per-tile
-    form in 2 and 3 stripes against blocked_ref, whole state; the main
-    path's 1024^3 triplet in 1, 2 and 4 stripes under both schedules, all
-    seven values equal to K3's whole-grid sweep; ms beside K3's, launches,
-    the measured face-copy rate and the model's time."""
+    form in 2 and 3 stripes, in the model's bands and in bands of 1 and 2
+    rows, against blocked_ref, whole state; the main path's 1024^3 triplet
+    in 1, 2 and 4 stripes under both schedules, all seven values equal to
+    K3's whole-grid sweep, one launch a band a stripe; ms, under the
+    overlapped schedule in turns with the earlier design (one launch a
+    stripe and diagonal), beside K3's; the measured face-copy rate and the
+    model's time on separate cards."""
     checked, err = [], 0
     for shape, block, ndev in (((37, 70, 45), (9, 17), 2),
                                ((37, 70, 45), (9, 17), 3),
                                ((20, 100, 150), (9, 17), 3),
                                ((30, 60, 300), (17, 33), 2)):
-        for name, overlap in (("default", True), ("sub4", False)):
+        for name, overlap, band in (("default", True, None),
+                                    ("sub4", False, None),
+                                    ("default", False, 1),
+                                    ("rtl", True, 2)):
             scoring, _, nsym = VARIANTS[name]
             err = max(err, halo_state_case(triplet(rng, shape, nsym), block,
-                                           ndev, overlap, scoring))
+                                           ndev, overlap, scoring, band))
             checked.append(f"{shape}/{block}/{ndev} stripes/{name}/"
-                           f"overlap={overlap}")
+                           f"overlap={overlap}/band={band or 'model'}")
 
     trip = headline[0]
     lens = tuple(map(len, trip))
@@ -1359,31 +1564,47 @@ def phase_halo(rng, headline) -> dict:
     want = bk.final_values(*bk.prep_blocked(*trip, dims, CUDA), *lens, dims)
     k3_ms = time_blocked([trip] * 3, block)
     rate = face_copy_rate(dims)
+    inputs = [(trip,)] + [(triplet(rng, lens),) for _ in range(2)]
     runs = {}
     for ndev in (1, 2, 4):
+        m = card_mesh(1, ndev)
         for overlap in (True, False):
-            m = card_mesh(1, ndev)
+            model = dh.halo_efficiency(*lens, ndev, block, overlap,
+                                       rate["bytes_per_s"])
             reset_launches()
             got = dh.halo_values(*trip, mesh=m, block_shape=block,
                                  overlap=overlap)
             launches = read_launches()
+            what = f"halo 1024^3 on {ndev} stripes overlap={overlap}"
             require(torch.equal(got, want.cpu()),
-                    f"halo 1024^3 on {ndev} stripes overlap={overlap}: "
-                    f"{cpu_ints(got)} != K3 {cpu_ints(want)}")
+                    f"{what}: {cpu_ints(got)} != K3 {cpu_ints(want)}")
             err = max(err, _diff(got, want.cpu()))
-            require(launches["blocked_tiles"] > 0 and not launches["blocked"],
-                    f"the halo did not run K3's per-tile form: {launches}")
-            ms = min(event_ms(dh.halo_values, *trip, DEFAULT, m, block,
-                              overlap)[0] for _ in range(2))
-            model = dh.halo_efficiency(*lens, ndev, block, overlap,
-                                       rate["bytes_per_s"])
-            runs[f"{ndev}/{'overlap' if overlap else 'tight'}"] = {
-                "ms": ms, "launches": launches["blocked_tiles"],
-                "model_s_on_separate_cards": model["seconds"],
-                "model_pipeline": model["pipeline"]}
+            expect = ndev * len(dh.bands(dims.n_jb, model["band"]))
+            require(launches["blocked_tiles"] == expect and
+                    not launches["blocked"] and
+                    not launches["blocked_diagonals"],
+                    f"{what}: {launches}, not {expect} launches of K3's "
+                    "per-tile form")
+
+            def new(t):
+                return dh.halo_values(*t, DEFAULT, m, block, overlap)
+
+            def old(t):
+                with earlier_design():
+                    return dh.halo_values(*t, DEFAULT, m, block, overlap)
+
+            row = {"band_rows": model["band"], "launches": expect,
+                   "model_s_on_separate_cards": model["seconds"],
+                   "model_pipeline": model["pipeline"]}
+            if overlap:
+                row.update(in_turns(old, new, inputs))
+                row["earlier_design_ms"] = row.pop("diagonal_ms")
+            else:
+                row["ms"] = time_cuda_ms(new, inputs)
+            runs[f"{ndev}/{'overlap' if overlap else 'tight'}"] = row
     emit(phase="halo", cases=checked, max_abs_err=err, k3_1024_ms=k3_ms,
-         stripes_sharing_one_card=runs, face_copy=rate,
-         values=cpu_ints(want))
+         stripes_sharing_one_card=runs,
+         face_copy=rate, values=cpu_ints(want))
     return {"max_abs_err": err, "rate": rate["bytes_per_s"]}
 
 
@@ -1426,10 +1647,11 @@ def slab_tiles_case(rng, name, variant, shape=(10, 30, 40), block=(9, 9)):
 def slab_split_tiles(trip, dev) -> dict:
     """K5's per-tile form at the main path's shape: both slab sweeps of the
     top split (m = |A| / 2) of the sharded 1024^3 traceback, in 2 stripes
-    sharing the card at the halo's tile plane and schedule, as
+    sharing the card at the halo's tile plane, schedule and bands, as
     sharded_split_point runs them.  The gathered F capture and final vector
     and the G capture against the torch engine, exactly; ms of the F sweep
-    in stripes beside the engine's and the bound."""
+    in stripes, in turns with the earlier design, beside the engine's and
+    the bound."""
     a, b, c = (np.asarray(x, np.int32) for x in trip)
     m, lb, lc = len(a) // 2, len(b), len(c)
     row = dh.model_row(card_mesh(1, 2))
@@ -1462,13 +1684,19 @@ def slab_split_tiles(trip, dev) -> dict:
                 f"K5 per tile in 2 stripes, 1024^3 top split: {what} != the "
                 "torch engine's")
         err = max(err, _diff(got, want))
-    # Three distinct halves of |A| = 512 against the same B and C.
-    ms = time_cuda_ms(forward, [(a[:m],), (a[m:].copy(),),
-                                (a[:m][::-1].copy(),)])
+    # Three distinct halves of |A| = 512 against the same B and C, in turns
+    # with the earlier design.
+    def old(a_half):
+        with earlier_design():
+            return forward(a_half)
+
+    halves = [(a[:m],), (a[m:].copy(),), (a[:m][::-1].copy(),)]
+    turns = in_turns(old, forward, halves)
     nbytes = 4 * (m + lb + lc + fst[0].state.cap.numel() + NUM_MATRICES)
     bms, by = bound(m * lb * lc, nbytes, dev)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "max_abs_err": err,
+    return {"ms": turns["ms"], "earlier_design_ms": turns["diagonal_ms"],
+            "turns_ms": turns["turns_ms"], "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err,
             "sample": f"the 1024^3 sharded traceback's top split, "
                       f"{m}x{lb}x{lc} free, 2 stripes; plain: torch engine"}
 
@@ -1479,9 +1707,12 @@ def phase_halo_tb(rng, dev, tb_case) -> dict:
     and 16-symbol scoring; then hirschberg_align_sharded on the traceback
     phase's 1024^3 triplet in 2 stripes, with single_cells lowered so that
     two levels split on the stripes: it rescores to the score path's score
-    and holds the inputs; its top split's two slab sweeps in stripes
-    against the torch engine (slab_split_tiles).  Returns K5's per-tile
-    summary row."""
+    and holds the inputs, one launch a band a stripe; its seconds split
+    into the sweeps on the stripes (every sharded split and free_jk guard,
+    each ending in a synchronize) and the rest (the single-device leaves and
+    the host); its top split's two slab sweeps in stripes against the torch
+    engine, in turns with the earlier design (slab_split_tiles).  Returns
+    K5's per-tile summary row."""
     checked, err = [], 0
     for name in ("default", "sub16"):
         for variant in sk.VARIANTS:
@@ -1490,30 +1721,49 @@ def phase_halo_tb(rng, dev, tb_case) -> dict:
                        "stripes")
 
     trip, rec = tb_case
-    splits = []
+    splits, expect, striped_s = [], [], []
     real = halo_tb.sharded_split_point
+    real_guard = halo_tb._sharded_final_vector
+    real_run = dh.run_stripes
+
+    def timed(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        striped_s.append(time.perf_counter() - t0)
+        return out
 
     def spy(a, b, c, m, *args, **kwargs):
         splits.append([len(a), kwargs.get("mode")])
-        return real(a, b, c, m, *args, **kwargs)
+        return timed(real, a, b, c, m, *args, **kwargs)
 
-    halo_tb.sharded_split_point = spy
-    try:
+    def count_bands(dims, row, overlap, start, sweep, band_rows=None):
+        stripes = real_run(dims, row, overlap, start, sweep, band_rows)
+        expect.append(len(stripes) * len(dh.bands(dims.n_jb,
+                                                  band_rows or dims.n_jb)))
+        return stripes
+
+    def sharded():
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
-        score, rows = halo_tb.hirschberg_align_sharded(
+        out = halo_tb.hirschberg_align_sharded(
             *trip, mesh=card_mesh(1, 2), single_cells=64 << 20)
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = read_launches()
-    finally:
-        halo_tb.sharded_split_point = real
+        return out, time.perf_counter() - t0, read_launches()
+
+    with mock.patch.object(halo_tb, "sharded_split_point", spy), \
+            mock.patch.object(halo_tb, "_sharded_final_vector",
+                              functools.partial(timed, real_guard)), \
+            mock.patch.object(dh, "run_stripes", count_bands):
+        (score, rows), seconds, launches = sharded()
     require(len(splits) >= 2 and splits[0][0] == len(trip[0]),
             f"fewer than two levels split on the stripes: {splits}")
-    require(launches["slab_tiles"] > 0 and not launches["slab"],
-            f"the sharded traceback did not run K5's per-tile form: "
-            f"{launches}")
+    require(launches["slab_tiles"] == sum(expect) and not launches["slab"]
+            and not launches["slab_diagonals"],
+            f"the sharded traceback made other launches than one a band a "
+            f"stripe of K5's per-tile form ({sum(expect)}): {launches}")
     require(score == rec["score"], f"sharded traceback {score} != "
             f"{rec['score']}")
     rescored = rescore_alignment(rows)
@@ -1528,6 +1778,9 @@ def phase_halo_tb(rng, dev, tb_case) -> dict:
     emit(phase="halo_tb", cases=checked, max_abs_err=err,
          sharded_1024={"stripes": 2, "single_cells": 64 << 20,
                        "score": score, "seconds": seconds,
+                       "striped_s": sum(striped_s),
+                       "striped_calls": len(striped_s),
+                       "rest_s": seconds - sum(striped_s),
                        "splits": splits, "launches": launches,
                        "columns": len(rows[0])},
          align_return_alignment_1024_s=rec["seconds"], per_tile=row)
@@ -2083,9 +2336,63 @@ def phase_timings(rng, dev, batch) -> tuple:
             "plain": "torch engine", "plain_ms": plain_ms,
             "plain_gcups": gcups(la * lb * lc, plain_ms),
             "bound_ms": bms, "bound_by": by}
+    # K3's per-tile form at the main path's 1024^3 in quarters, and the
+    # halo's band heights at 1024^3 in 2 stripes sharing the card, and in 4
+    # stripes the model's band against one band a stripe, in turns.
+    n = 1024
+    quarters = quarter_inputs(_inputs(rng, (n, n, n), 3))
+    rows["blocked_tiles_1024_quarters"] = in_turns(*QUARTERS, quarters)
+    block = bk.choose_block_shape(n, n, n)
+    trips = [(t,) for t in _inputs(rng, (n, n, n), 3)]
+
+    def halo_sweep(ndev, band):
+        row = dh.model_row(card_mesh(1, ndev))
+        return lambda t: dh.sweep_stripes(*t, DEFAULT, row, block, True, band)
+
+    model = {d: dh.halo_efficiency(n, n, n, d, block, True)["band"]
+             for d in (2, 4)}
+    rows["halo_1024_2_stripes_by_band_rows"] = {
+        "model_band_rows": model[2], **{
+            str(r): time_cuda_ms(halo_sweep(2, r), trips)
+            for r in (1, 2, 4, 8, 16, 32)}}
+    turns = [time_cuda_ms(halo_sweep(4, r), trips)
+             for r in (16, 32, 32, 16)]
+    rows["halo_1024_4_stripes_by_band_rows"] = {
+        "model_band_rows": model[4], "16": min(turns[0], turns[3]),
+        "32": min(turns[1], turns[2]), "turns_ms": turns}
+    rows["blocked_1024_one_block_an_sm"] = one_block_an_sm(
+        blocked_inputs([t for t, in trips]), quarters, halo_sweep(2, None),
+        trips)
     rows["hetero_sample"] = time_hetero(rng, batch, dev)
     emit(phase="timings", **rows, slab_split_max_abs_err=split_err)
     return rows, split_err
+
+
+def one_block_an_sm(whole, quarters, halo, trips) -> dict:
+    """K3 at 1024^3 with its grid capped at one block an SM, in turns with
+    the occupancy's grid (two blocks an SM): the whole-grid sweep, its
+    per-tile form in quarters and the halo in 2 stripes sharing the card.
+    For each, both ms and the four turns, default first."""
+    sms = torch.cuda.get_device_properties(CUDA).multi_processor_count
+    real = bk.sweep_run
+
+    def capped_halo(t):
+        with mock.patch.object(bk, "sweep_run",
+                               functools.partial(real, blocks=sms)):
+            return halo(t)
+
+    out = {"blocks": sms}
+    for name, default, capped, inputs in (
+            ("whole", bk.final_values,
+             functools.partial(bk.final_values, blocks=sms), whole),
+            ("quarters", QUARTERS[1], functools.partial(
+                in_runs, functools.partial(bk.sweep_tiles, blocks=sms)),
+             quarters),
+            ("halo_2_stripes", halo, capped_halo, trips)):
+        turns = in_turns(default, capped, inputs)
+        out[name] = {"ms": turns["diagonal_ms"], "one_block_an_sm_ms":
+                     turns["ms"], "turns_ms": turns["turns_ms"]}
+    return out
 
 
 def main() -> int:
@@ -2116,8 +2423,11 @@ def main() -> int:
     chain["max_abs_err"] = max(chain["max_abs_err"],
                                sched_err["blocked_chain"])
     halo = phase_halo(rng, headline)
-    tiles["max_abs_err"] = max(tiles["max_abs_err"], halo["max_abs_err"])
+    tiles["max_abs_err"] = max(tiles["max_abs_err"], halo["max_abs_err"],
+                               sched_err["blocked_tiles"])
     slab_tiles = phase_halo_tb(rng, dev, tb_case)
+    slab_tiles["max_abs_err"] = max(slab_tiles["max_abs_err"],
+                                    sched_err["slab_tiles"])
     hetero_tiles = phase_sharded_batch(rng, batch, batch_scores)
     for name, row in (("blocked_tiles", tiles), ("blocked_chain", chain),
                       ("vpu", k6), ("slab_tiles", slab_tiles),
@@ -2152,12 +2462,17 @@ def main() -> int:
     # are at the 1024^3 sharded traceback's top split.  Eight pallas_call
     # sites, nine rows: K3's chain mode keeps a row of its own.  K3, its
     # chain mode and K5 give the diagonal schedule's time of the same run
-    # beside the persistent sweep's.
+    # beside the persistent sweep's, the per-tile forms of K3 and K5 their
+    # earlier design's.
     k3_row = rows["blocked_1024"]
     chain_times = {f"{k}_{n}x{p}": rows[f"chain_{n}x{p}"][k]
                    for n, p in CHAIN_BENCH
                    for k in ("ms_per_alignment", "diagonal_ms_per_alignment")}
     k5_free, k5_bwd = rows[f"slab_free_{split}"], rows[f"slab_bwd_{split}"]
+    quarters = rows["blocked_tiles_1024_quarters"]
+    tiles.update(main_path_ms_in_quarters=quarters["ms"],
+                 main_path_earlier_design_ms_in_quarters=quarters[
+                     "diagonal_ms"])
     kernels = [
         ("wavefront", "wavefront", "trialign/kernels/wavefront.py:112",
          k2_err, rows["wavefront_255"], {}),

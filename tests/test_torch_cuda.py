@@ -174,17 +174,18 @@ def test_per_tile_form_matches_plain(card, dims, block, cuts, name):
     arrs = bk.prep_blocked(*trip, d, card)
     arrs_cpu = bk.prep_blocked(*trip, d, "cpu")
     got, want = bk.new_state(d, card), bk.new_state(d, "cpu")
-    idx, before = 0, bk.sweep_tiles.launches
+    idx = 0
     for cut in (*cuts, bk.n_tiles(d)):
         count = min(cut, bk.n_tiles(d) - idx)
         if count <= 0:
             break
+        before = bk.sweep_tiles.launches
         bk.sweep_tiles(*arrs, *dims, d, got, idx, count, scoring)
+        assert bk.sweep_tiles.launches == before + 1
         bk.blocked_ref(*arrs_cpu, *dims, d, scoring, 0, want, idx, count)
         idx += count
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
-    assert bk.sweep_tiles.launches > before
     assert got.out[0].cpu().tolist() == \
         bk.final_values(*arrs, *dims, d, scoring).cpu().tolist()
 
@@ -239,17 +240,17 @@ def test_slab_per_tile_form_matches_plain(card, name, variant):
     d = sk._plan(*dims, (9, 9))
     arrs = sk.prep_blocked(a, b, c, d, card)
     f_r, cap_r = sk.slab_ref(*arrs, *dims, d, variant, ev, scoring)
-    before = sk.sweep_tiles.launches
     for every in (3, 7):
         state = sk.new_state(*dims, d, ev, card)
         n = bk.n_tiles(d)
+        before = sk.sweep_tiles.launches
         for idx in range(0, n, every):
             sk.sweep_tiles(*arrs, *dims, d, variant, state, idx,
                            min(every, n - idx), scoring)
+        assert sk.sweep_tiles.launches == before + -(-n // every)
         assert torch.equal(state.cap, cap_r)
         if variant != "bwd":
             assert torch.equal(state.out, f_r)
-    assert sk.sweep_tiles.launches > before
 
 
 @pytest.mark.parametrize("name", sorted(SCORINGS))
@@ -314,12 +315,13 @@ def test_persistent_sweep_matches_diagonal_schedule(card, dims, block,
                                                     threads, chunk, blocks):
     """K3's whole grid in one persistent launch, at any chunk and grid cap
     (1 block sweeps the table alone): the final values equal the per-tile
-    form run one diagonal at a time, and the golden score."""
+    form's earlier design run one diagonal at a time, and the golden
+    score."""
     d = bk.plan_dims(*dims, *block)
     trip = triplet(15, dims)
     arrs = bk.prep_blocked(*trip, d, card)
-    want = bk.sweep_tiles(*arrs, *dims, d, bk.new_state(d, card), 0,
-                          bk.n_tiles(d), threads=threads).out[0]
+    want = bk.sweep_diagonals(*arrs, *dims, d, bk.new_state(d, card), 0,
+                              bk.n_tiles(d), threads=threads).out[0]
     before = bk.final_values.launches
     got = bk.final_values(*arrs, *dims, d, threads=threads, chunk=chunk,
                           blocks=blocks)
@@ -336,8 +338,8 @@ def test_persistent_chain_matches_diagonal_schedule(card, blocks):
     b, c = (rng.integers(0, 4, n).astype(np.uint8) for n in (lb, lc))
     d = bk.plan_dims_packed(la, lb, lc, 4, 17, 17)
     arrs = bk.prep_chain(a_list, b, c, d, card)
-    want = bk.sweep_tiles(*arrs, la, lb, lc, d, bk.new_state(d, card), 0,
-                          bk.n_tiles(d)).out
+    want = bk.sweep_diagonals(*arrs, la, lb, lc, d, bk.new_state(d, card),
+                              0, bk.n_tiles(d)).out
     before = bk.chain_values.launches
     got = bk.chain_values(*arrs, la, lb, lc, d, chunk=5, blocks=blocks)
     assert bk.chain_values.launches == before + 1
@@ -350,7 +352,8 @@ def test_persistent_chain_matches_diagonal_schedule(card, blocks):
 def test_persistent_slab_matches_diagonal_schedule(card, name, variant,
                                                    blocks):
     """K5's whole grid in one persistent launch: capture and final vector
-    bit for bit those of its per-tile form run one diagonal at a time."""
+    bit for bit those of its per-tile form's earlier design run one
+    diagonal at a time."""
     scoring, nsym = SLAB_SCORINGS[name]
     dims = (20, 60, 50)
     a, b, c = (x.astype(np.int32) for x in triplet(17, dims, nsym))
@@ -359,7 +362,8 @@ def test_persistent_slab_matches_diagonal_schedule(card, name, variant,
     d = sk._plan(*dims, (9, 17))
     arrs = sk.prep_blocked(a, b, c, d, card)
     want = sk.new_state(*dims, d, ev, card)
-    sk.sweep_tiles(*arrs, *dims, d, variant, want, 0, bk.n_tiles(d), scoring)
+    sk.sweep_diagonals(*arrs, *dims, d, variant, want, 0, bk.n_tiles(d),
+                       scoring)
     before = sk.slab_sweep.launches
     f, cap = sk.slab_sweep(*arrs, *dims, d, variant, ev, scoring, chunk=3,
                            blocks=blocks)
@@ -475,3 +479,161 @@ def test_hetero_step_resources(card, block, threads):
     res = hetero.step_resources(*block)
     assert res["threads"] == threads
     assert res["blocks_per_sm"] >= 2 and res["registers"] > 0
+
+
+# K3's and K5's per-tile forms, one persistent launch a call: runs of the
+# tile table (most end mid-diagonal) and bands of stripes' columns, at grid
+# caps of 1 and 3 blocks and the occupancy's.
+RUNS = (1, 5, 7, 13)
+CAPS = (1, 3, None)
+
+
+def stripe_bands(n_jb, n_kb, band, ndev):
+    """Every band of every stripe, band by band, in run_stripes' order."""
+    from trialign_torch.dist import halo
+
+    return [bk.rect_tiles(rows, cols)
+            for rows in halo.bands(n_jb, band)
+            for cols in halo.stripe_columns(n_kb, ndev)]
+
+
+def blocked_runs(card, name, runs, blocks):
+    """K3's per-tile form over ``runs`` (tile lists) on one state against
+    blocked_ref over the same lists: the whole state after every run, one
+    launch a run."""
+    scoring, nsym = SCORINGS[name]
+    dims = (30, 80, 100)
+    d = bk.plan_dims(*dims, 9, 17)
+    assert (d.n_jb, d.n_kb) == (10, 7)
+    trip = triplet(30, dims, nsym)
+    arrs = bk.prep_blocked(*trip, d, card)
+    arrs_cpu = bk.prep_blocked(*trip, d, "cpu")
+    got, want = bk.new_state(d, card), bk.new_state(d, "cpu")
+    for tiles in runs(d):
+        before = bk.sweep_tiles.launches
+        bk.sweep_run(*arrs, *dims, d, got, tiles, scoring, blocks=blocks)
+        assert bk.sweep_tiles.launches == before + 1
+        bk.blocked_ref(*arrs_cpu, *dims, d, scoring, 0, want, tiles=tiles)
+        for g, w, field in zip(got, want, want._fields):
+            assert torch.equal(g.cpu(), w), field
+    assert int(got.out[0].max()) == align_planes_numpy(*trip, scoring)
+
+
+@pytest.mark.parametrize("blocks", CAPS)
+@pytest.mark.parametrize("every", RUNS)
+def test_blocked_per_tile_runs_one_launch_each(card, every, blocks):
+    blocked_runs(card, "sop", lambda d: [
+        bk.table_run(d, i, min(every, bk.n_tiles(d) - i))
+        for i in range(0, bk.n_tiles(d), every)], blocks)
+
+
+@pytest.mark.parametrize("blocks", CAPS)
+@pytest.mark.parametrize("band,ndev", [(1, 2), (2, 3), (3, 2), (10, 3)])
+def test_blocked_per_tile_bands_one_launch_each(card, band, ndev, blocks):
+    blocked_runs(card, "sop", lambda d: stripe_bands(d.n_jb, d.n_kb, band,
+                                                     ndev), blocks)
+
+
+@pytest.mark.parametrize("name", sorted(SCORINGS))
+def test_blocked_per_tile_runs_under_each_scoring(card, name):
+    blocked_runs(card, name, lambda d: [
+        bk.table_run(d, i, min(13, bk.n_tiles(d) - i))
+        for i in range(0, bk.n_tiles(d), 13)], None)
+
+
+def slab_runs(card, name, variant, runs):
+    """K5's per-tile form over ``runs`` on one state, at every grid cap,
+    against slab_ref's whole sweep: capture and final vector, one launch a
+    run."""
+    scoring, nsym = SLAB_SCORINGS[name]
+    dims = (12, 40, 60)
+    a, b, c = (x.astype(np.int32) for x in triplet(31, dims, nsym))
+    ev = np.full(7, NEG, np.int32)
+    ev[5] = 0
+    d = sk._plan(*dims, (9, 9))
+    arrs = sk.prep_blocked(a, b, c, d, card)
+    f_r, cap_r = sk.slab_ref(*arrs, *dims, d, variant, ev, scoring)
+    for blocks in CAPS:
+        state = sk.new_state(*dims, d, ev, card)
+        tiles = runs(d)
+        before = sk.sweep_tiles.launches
+        for t in tiles:
+            sk.sweep_run(*arrs, *dims, d, variant, state, t, scoring,
+                         blocks=blocks)
+        assert sk.sweep_tiles.launches == before + len(tiles)
+        assert torch.equal(state.cap, cap_r)
+        if variant != "bwd":
+            assert torch.equal(state.out, f_r)
+
+
+@pytest.mark.parametrize("every", RUNS)
+@pytest.mark.parametrize("variant", sorted(sk.VARIANTS))
+def test_slab_per_tile_runs_one_launch_each(card, variant, every):
+    slab_runs(card, "sop", variant, lambda d: [
+        bk.table_run(d, i, min(every, bk.n_tiles(d) - i))
+        for i in range(0, bk.n_tiles(d), every)])
+
+
+@pytest.mark.parametrize("band,ndev", [(1, 2), (2, 3), (5, 2)])
+@pytest.mark.parametrize("variant", sorted(sk.VARIANTS))
+def test_slab_per_tile_bands_one_launch_each(card, variant, band, ndev):
+    slab_runs(card, "sub16", variant, lambda d: stripe_bands(
+        d.n_jb, d.n_kb, band, ndev))
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+@pytest.mark.parametrize("band", [1, 2, None])
+@pytest.mark.parametrize("ndev", [2, 3])
+def test_halo_in_bands_on_card(card, ndev, band, overlap):
+    """Stripes sharing the card in bands of 1, 2 and all tile rows under
+    both schedules: K3's whole-grid values, one launch a band a stripe."""
+    from trialign_torch.dist import halo, mesh
+
+    dims = (40, 200, 300)
+    trip = triplet(32, dims)
+    d = bk.plan_dims(*dims, 33, 33)
+    want = bk.final_values(*bk.prep_blocked(*trip, d, card), *dims, d)
+    row = halo.model_row(mesh.make_mesh(1, ndev, devices=[card] * ndev))
+    before = bk.sweep_tiles.launches
+    _, stripes = halo.sweep_stripes(*trip, Scoring(), row, (33, 33),
+                                    overlap, band_rows=band or d.n_jb)
+    assert bk.sweep_tiles.launches == before + ndev * len(
+        halo.bands(d.n_jb, band or d.n_jb))
+    assert torch.equal(stripes[-1].state.out[0], want)
+
+
+@pytest.mark.parametrize("band", [1, 3])
+@pytest.mark.parametrize("variant", sorted(sk.VARIANTS))
+def test_sharded_slab_in_bands_on_card(card, variant, band):
+    """K5's stripes in bands on the card: the gathered capture and the
+    final vector equal slab_sweep's."""
+    from trialign_torch.dist import halo, halo_tb, mesh
+
+    dims = (20, 60, 80)
+    a, b, c = (x.astype(np.int32) for x in triplet(33, dims))
+    ev = np.full(7, NEG, np.int32)
+    ev[1] = 0
+    d = sk._plan(*dims, (9, 17))
+    f_w, cap_w = sk.slab_sweep(*sk.prep_blocked(a, b, c, d, card), *dims, d,
+                               variant, ev)
+    row = halo.model_row(mesh.make_mesh(1, 2, devices=[card] * 2))
+    before = sk.sweep_tiles.launches
+    _, stripes = halo_tb._sharded_sweep(a, b, c, Scoring(), row, variant, ev,
+                                        (9, 17), True, band)
+    assert sk.sweep_tiles.launches == before + 2 * len(halo.bands(d.n_jb,
+                                                                  band))
+    cap = halo_tb._gather_caps(d, stripes, stripes[0], 0)
+    assert torch.equal(cap, cap_w)
+    if variant != "bwd":
+        assert torch.equal(stripes[-1].state.out, f_w)
+
+
+def test_per_tile_forms_refuse_a_neighbour_after_its_tile(card):
+    trip = triplet(34, (10, 20, 20))
+    d = bk.plan_dims(10, 20, 20, 9, 9)
+    arrs = bk.prep_blocked(*trip, d, card)
+    before = bk.sweep_tiles.launches
+    with pytest.raises(ValueError, match="feeds"):
+        bk.sweep_run(*arrs, 10, 20, 20, d, bk.new_state(d, card),
+                     [(1, 0), (0, 0)])
+    assert bk.sweep_tiles.launches == before

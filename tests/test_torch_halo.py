@@ -16,6 +16,7 @@ from tests.conftest import random_triplet
 from trialign.dist import halo as jhalo
 from trialign.dist.mesh import make_mesh as jax_make_mesh
 from trialign.golden import align_planes_numpy
+from trialign_torch.config import Scoring
 from trialign_torch.dist import halo, mesh
 from trialign_torch.kernels import blocked as bk
 
@@ -56,6 +57,46 @@ def test_stripes_equal_the_whole_sweep(rng, ndev, overlap):
                            overlap=overlap)
     assert torch.equal(got, whole(a, b, c, block))
     assert int(got.max()) == align_planes_numpy(a, b, c)
+
+
+@pytest.mark.parametrize("band", [1, 2, None])
+@pytest.mark.parametrize("ndev", [2, 3])
+def test_stripes_in_bands_equal_the_whole_sweep(rng, ndev, band,
+                                                monkeypatch):
+    """Bands of 1, 2 and all 4 tile rows in 2 and 3 stripes, one sweep_run
+    call a band a stripe: the last stripe's column faces and output, each
+    stripe's row faces of its columns, and halo_values with the model's
+    band forced to the same rows, equal the whole sweep."""
+    a, b, c = random_triplet(rng, 8, 30, 150)
+    block = (9, 17)
+    dims = bk.plan_dims(8, 30, 150, *block)
+    assert (dims.n_jb, dims.n_kb) == (4, 10)
+    rows = band or dims.n_jb
+    calls = []
+    real = bk.sweep_run
+
+    def spy(*args, **kwargs):
+        calls.append(args[8])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(bk, "sweep_run", spy)
+    _, stripes = halo.sweep_stripes(a, b, c, Scoring(),
+                                    halo.model_row(cpu_mesh(ndev)), block,
+                                    ndev == 2, band_rows=rows)
+    assert len(calls) == ndev * len(halo.bands(dims.n_jb, rows))
+    want = bk.new_state(dims, CPU)
+    bk.blocked_ref(*bk.prep_blocked(a, b, c, dims, CPU), 8, 30, 150, dims,
+                   state=want)
+    last = stripes[-1].state
+    assert torch.equal(last.cf, want.cf) and torch.equal(last.out, want.out)
+    for s in stripes:
+        assert torch.equal(s.state.rf[s.kb0:s.kb1], want.rf[s.kb0:s.kb1])
+    model = halo.halo_efficiency
+    monkeypatch.setattr(halo, "halo_efficiency",
+                        lambda *args, **kw: {**model(*args, **kw),
+                                             "band": rows})
+    got = halo.halo_values(a, b, c, mesh=cpu_mesh(ndev), block_shape=block)
+    assert torch.equal(got, whole(a, b, c, block))
 
 
 def test_more_stripes_than_columns(rng):
@@ -141,13 +182,22 @@ def test_halo_efficiency_model():
     one = halo.halo_efficiency(1024, 1024, 1024, 1)
     assert one["pipeline"] == 1.0 and one["transfer"] == 1.0
     assert one["total"] == one["j_fill"] * one["k_fill"] == 1.0
-    # 32 tile columns fit one card's SMs: a second card adds no speed.
+    # One stripe is one band, one launch of the whole grid.
+    assert one["band"] == 32
+    assert one["seconds"] == halo.launch_seconds(32, 32, 1024 + 64)
+    # Every band ends with a whole pillar of 1088 planes, and 32 x 32 tiles
+    # keep one card busy: a second card adds no speed, and the model keeps
+    # one band a stripe, the second stripe after the first.
     two = halo.halo_efficiency(1024, 1024, 1024, 2, overlap=False)
-    assert two["pipeline"] == pytest.approx(0.5)
-    # Long |B| and |C|: diagonals of up to 512 tiles, wider than the SMs,
-    # split usefully (the ramp diagonals do not).
+    assert two["band"] == 32 and two["pipeline"] < 0.5
+    # Long |B| and |C|: 512 x 512 tiles, far more than a card holds at
+    # once, pipeline usefully in bands of some tens of rows.
     wide = halo.halo_efficiency(256, 16384, 16384, 2, overlap=False)
-    assert 0.6 < wide["pipeline"] < 1.0
+    assert 0.6 < wide["pipeline"] < 1.0 and 1 < wide["band"] < 512
+    for rows in (1, wide["band"] // 2, 2 * wide["band"], 512):
+        assert halo.halo_efficiency(256, 16384, 16384, 2, overlap=False,
+                                    band_rows=rows)["seconds"] >= \
+            wide["seconds"]
     # A slow link costs the tight schedule more than the overlapped one.
     slow = dict(copy_bytes_per_s=1e8)
     tight = halo.halo_efficiency(256, 16384, 16384, 2, overlap=False, **slow)
@@ -158,6 +208,35 @@ def test_halo_efficiency_model():
     # Padding of the last tile row and column shows in the fills.
     part = halo.halo_efficiency(16, 40, 40, 1, block_shape=(33, 33))
     assert part["j_fill"] == part["k_fill"] == 40 / 64
+
+
+@pytest.mark.parametrize("band", [1, 3, None])
+def test_run_stripes_hands_each_band_its_rectangle(band):
+    """The sweep callback gets each band in order and, within it, each
+    stripe in order: the band's rows of the stripe's own columns, every
+    tile of the grid once and after its upper and left neighbours."""
+    dims = bk.plan_dims(8, 30, 150, 9, 17)
+    seen = []
+
+    def start(device):
+        return (), bk.new_state(dims, device)
+
+    def sweep(arrs, state, tiles):
+        seen.append(tiles)
+
+    stripes = halo.run_stripes(dims, halo.model_row(cpu_mesh(3)), True,
+                               start, sweep, band)
+    cols = [(s.kb0, s.kb1) for s in stripes]
+    assert cols == halo.stripe_columns(dims.n_kb, 3)
+    assert seen == [bk.rect_tiles(rows, c)
+                    for rows in halo.bands(dims.n_jb, band or dims.n_jb)
+                    for c in cols]
+    done = set()
+    for jb, kb in (t for run in seen for t in run):
+        assert (jb == 0 or (jb - 1, kb) in done) and \
+            (kb == 0 or (jb, kb - 1) in done)
+        done.add((jb, kb))
+    assert len(done) == dims.n_jb * dims.n_kb
 
 
 def test_make_mesh_and_its_layouts(monkeypatch):

@@ -95,6 +95,26 @@ def test_stripes_equal_the_whole_sweep(rng, variant, name):
             assert torch.equal(stripes[-1].state.out, f_want)
 
 
+@pytest.mark.parametrize("band", [1, 2, None])
+@pytest.mark.parametrize("variant", list(sk.VARIANTS))
+def test_stripes_in_bands_equal_the_whole_sweep(rng, variant, band):
+    """Bands of 1, 2 and all 4 tile rows in 2 stripes (copy-stream
+    schedule) and 3 (tight): the gathered capture and the owner's final
+    vector equal the whole sweep's."""
+    scoring, seqs, ev, dims, arrs = slab_inputs(rng, variant, "default")
+    lens = tuple(map(len, seqs))
+    f_want, cap_want = sk.slab_sweep(*arrs, *lens, dims, variant, ev, scoring)
+    for ndev, overlap in ((2, True), (3, False)):
+        row = dh.model_row(cpu_mesh(ndev))
+        _, stripes = halo_tb._sharded_sweep(
+            *seqs, scoring, row, variant, ev, (dims.hb, dims.wc), overlap,
+            band or dims.n_jb)
+        cap = halo_tb._gather_caps(dims, stripes, stripes[0], 0)
+        assert torch.equal(cap, cap_want)
+        if variant != "bwd":
+            assert torch.equal(stripes[-1].state.out, f_want)
+
+
 def test_matches_jax_hirschberg_align_sharded(rng):
     """One tiny case against the reference on 2 virtual devices, the top
     split swept on the stripes: the same score and the same alignment."""

@@ -66,33 +66,40 @@ def triplet(seed, shape, nsym=4):
     return tuple(rng.integers(0, nsym, n).astype(np.uint8) for n in shape)
 
 
-def readiness_sweep(steps, dims, first, chunk, pick, slack=0):
+def readiness_sweep(steps, dims, first, chunk, pick, slack=0, runs=None):
     """Sweep every tile's pillar ``chunk`` planes at a time, the next chunk
     that of the tile ``pick`` chooses among the tiles the readiness rule
     allows; ``steps(jb, kb)`` is the tile's plane generator from plane
-    ``first``.  ``slack`` planes less than the rule asks break it."""
-    table = bk.tile_table(dims)
-    gens = {t: steps(*t) for t in table}
-    done = {t: -1 for t in table}
-    nxt = {t: first for t in table}
-    while True:
-        ready = []
-        for jb, kb in table:
-            q1 = min(nxt[jb, kb] + chunk, dims.nq + 1)
-            if nxt[jb, kb] > dims.nq:
-                continue
-            up, left = bk.planes_needed(q1, dims)
-            if (jb == 0 or done[jb - 1, kb] >= up - slack) and \
-                    (kb == 0 or done[jb, kb - 1] >= left - slack):
-                ready.append((jb, kb))
-        if not ready:
-            break
-        t = pick(ready)
-        q1 = min(nxt[t] + chunk, dims.nq + 1)
-        for _ in range(q1 - nxt[t]):
-            next(gens[t])
-        done[t], nxt[t] = q1 - 1, q1
-    assert all(q > dims.nq for q in nxt.values()), "the model deadlocked"
+    ``first``.  ``runs`` (lists of tiles; the whole table by default) go one
+    after another, as the per-tile forms' launches do: a neighbour outside
+    its tile's run must have finished in an earlier run, and counts as
+    finished.  ``slack`` planes less than the rule asks break it."""
+    done = {t: -1 for t in bk.tile_table(dims)}
+    for run in runs or [bk.tile_table(dims)]:
+        for jb, kb in run:
+            for nb in ((jb - 1, kb), (jb, kb - 1)):
+                assert nb in run or done.get(nb, dims.nq) == dims.nq, \
+                    f"{nb} is outside the run of {(jb, kb)} and not swept"
+        gens = {t: steps(*t) for t in run}
+        nxt = {t: first for t in run}
+        while True:
+            ready = []
+            for jb, kb in run:
+                q1 = min(nxt[jb, kb] + chunk, dims.nq + 1)
+                if nxt[jb, kb] > dims.nq:
+                    continue
+                up, left = bk.planes_needed(q1, dims)
+                if (jb == 0 or done[jb - 1, kb] >= up - slack) and \
+                        (kb == 0 or done[jb, kb - 1] >= left - slack):
+                    ready.append((jb, kb))
+            if not ready:
+                break
+            t = pick(ready)
+            q1 = min(nxt[t] + chunk, dims.nq + 1)
+            for _ in range(q1 - nxt[t]):
+                next(gens[t])
+            done[t], nxt[t] = q1 - 1, q1
+        assert all(q > dims.nq for q in nxt.values()), "the model deadlocked"
 
 
 def at_random(seed):
@@ -105,7 +112,8 @@ def eager(ready):
     return ready[-1]
 
 
-def k3_model(arrs, lens, dims, scoring, bits, chunk, pick, slack=0):
+def k3_model(arrs, lens, dims, scoring, bits, chunk, pick, slack=0,
+             runs=None):
     state = bk.new_state(dims, "cpu")
 
     def steps(jb, kb):
@@ -113,7 +121,7 @@ def k3_model(arrs, lens, dims, scoring, bits, chunk, pick, slack=0):
                                torch.tensor([jb]), torch.tensor([kb]),
                                scoring, bits)
 
-    readiness_sweep(steps, dims, 1, chunk, pick, slack)
+    readiness_sweep(steps, dims, 1, chunk, pick, slack, runs)
     return state
 
 
@@ -172,7 +180,8 @@ def test_chain_of_three_slots(grid, chunk):
         align_planes_numpy(a, b, c) for a in a_list]
 
 
-def k5_model(arrs, lens, dims, variant, ev, scoring, chunk, pick, slack=0):
+def k5_model(arrs, lens, dims, variant, ev, scoring, chunk, pick, slack=0,
+             runs=None):
     state = sk.new_state(*lens, dims, ev, "cpu")
 
     def steps(jb, kb):
@@ -180,7 +189,7 @@ def k5_model(arrs, lens, dims, variant, ev, scoring, chunk, pick, slack=0):
                                np.array([jb * dims.n_kb + kb]), scoring)
 
     first = 0 if variant in ("pin", "bwd") else 1
-    readiness_sweep(steps, dims, first, chunk, pick, slack)
+    readiness_sweep(steps, dims, first, chunk, pick, slack, runs)
     return state
 
 

@@ -80,8 +80,8 @@ SIGNATURES = {
             _I, [_P, _P, _P, BlockedGeom, _I, _I, _I, _P, StepScoring, _P, _P,
                  _P, _I, _P]),
         "trialign_blocked_sweep": (
-            _I, [_P, _P, _P, BlockedGeom, _P, StepScoring, _P, _P, _P, _I, _I,
-                 _I, _P, _P, _P]),
+            _I, [_P, _P, _P, BlockedGeom, _P, _I, _P, StepScoring, _P, _P, _P,
+                 _I, _I, _I, _P, _P, _P]),
         "trialign_blocked_blocks_per_sm": (_I, [_I, _I, _I, _I, _IP]),
     },
     "hetero": {
@@ -101,8 +101,8 @@ SIGNATURES = {
             _I, [_P, _P, _P, SlabGeom, _I, _I, _I, _P, _P, StepScoring, _P,
                  _P, _P, _P, _P]),
         "trialign_slab_sweep": (
-            _I, [_P, _P, _P, SlabGeom, _P, _P, StepScoring, _P, _P, _P, _P,
-                 _I, _I, _P, _P, _P]),
+            _I, [_P, _P, _P, SlabGeom, _P, _I, _P, _P, StepScoring, _P, _P,
+                 _P, _P, _I, _I, _P, _P, _P]),
         "trialign_slab_blocks_per_sm": (_I, [_I, _I, _IP]),
     },
     "vpu": {

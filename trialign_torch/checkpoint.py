@@ -9,7 +9,9 @@ few tiles and resume after preemption.
 
 On the card the state stays in device memory between segments and goes to
 the host only to be saved.  The segments run K3's per-tile form
-(``kernels/blocked.sweep_tiles``).
+(``kernels/blocked.sweep_tiles``), one persistent launch a segment; the
+launch's progress words are its own, so the file holds only the faces, the
+output rows and the next tile's index.
 """
 
 from __future__ import annotations

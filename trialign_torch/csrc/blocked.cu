@@ -4,8 +4,8 @@
 // Replaces trialign/kernels/blocked.py:_block_sweep as launched by
 // make_grid_call (kernel _make_grid_kernel, chain mode included through the
 // 13-tuple dims of plan_dims_packed) and by make_block_call (one block a
-// call, for checkpoint.py).  The tile pillar itself is csrc/pillar.cuh
-// (K4 has its own, csrc/pillar_warp.cuh).
+// call, for checkpoint.py and the halo's stripes).  The tile pillar itself
+// is csrc/pillar.cuh (K4 has its own, csrc/pillar_warp.cuh).
 //
 // Bound on the card: on v5e the grid ran one tile after another on one core
 // with the planes in VMEM.  Here a tile is bound by the pillar's
@@ -24,12 +24,19 @@
 // chunk by chunk of planes as soon as its neighbours have finished the planes
 // whose face rows the chunk reads, a lag of about one tile width, not a
 // pillar (csrc/schedule.cuh PlaneWait, the rule kernels/blocked.py
-// planes_needed states and the CPU tests model).  The per-tile form keeps
-// one launch a run of one anti-diagonal jb + kb = diag (blocked_kernel, one
-// thread block per tile, schedule NoWait): all of a diagonal's tiles or any
-// part of them, which checkpoint.py and the halo's stripes use to stop
-// between any two tiles.  The face slabs and the output stay in device
-// memory between launches.
+// planes_needed states and the CPU tests model).  The per-tile form is the
+// same launch over a run of tiles that the host lists in a table of
+// (jb, kb, up, left) entries, up and left being the entries of the tile's
+// neighbours within the run or -1: any run of the tile table, which may end
+// mid-diagonal (checkpoint.py), or a band of rows of a stripe's columns (the
+// halo, dist/halo.py).  A neighbour outside the run was swept by an earlier
+// launch, ordered before this one by the stream or an event, and reads as
+// finished; the progress words are the launch's own.  The face slabs and the
+// output stay in device memory between launches.
+//
+// Kept for comparison only (chip_smoke.py; no entry point of the package
+// reaches it): blocked_kernel, the per-tile form as it was, one launch a run
+// of one anti-diagonal with one thread block a tile (schedule NoWait).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,27 +87,46 @@ __global__ void __launch_bounds__(NT)
                          row_faces(rf, g, kb), col_faces(cf, g, jb), out, sync);
 }
 
-// The whole tile table in one launch.  next_tile: the hand-out counter (0);
-// done: one progress word a tile, row jb * n_kb + kb (-1).
+// Entry of a run's table (kernels/blocked.py RUN_FIELDS): the tile (x, y) =
+// (jb, kb) and the entries of its upper and left neighbours in the run
+// (z, w), or -1 for a neighbour outside the run or the grid.
+using RunEntry = int4;
+
+// The tile table in one launch: the whole grid in table order (run ==
+// nullptr, ntiles = n_jb * n_kb), or the ntiles entries of run, in which
+// every neighbour of the run comes before its tile.  next_tile: the hand-out
+// counter (0); done: one progress word a tile (-1), row jb * n_kb + kb of
+// the whole grid or the entry of the run.
 template <int NT, bool CHAIN>
 __global__ void __launch_bounds__(NT)
     blocked_persistent(const int* __restrict__ a_ext,
                        const int* __restrict__ b_ext,
-                       const int* __restrict__ c_ext, BlockedGeom g, int chunk,
-                       const int* __restrict__ sub, StepScoring s, int* rf,
-                       int* cf, int* __restrict__ out, int* next_tile,
+                       const int* __restrict__ c_ext, BlockedGeom g,
+                       const RunEntry* __restrict__ run, int ntiles,
+                       int chunk, const int* __restrict__ sub, StepScoring s,
+                       int* rf, int* cf, int* __restrict__ out, int* next_tile,
                        int* done) {
   extern __shared__ int smem[];
-  const int ntiles = g.n_jb * g.n_kb;
   const int tb = g.hb - 1, tc = g.wc - 1, nq = g.la + tb + tc;
   for (;;) {
     const int t = take_tile(next_tile);
     if (t >= ntiles) return;
     int jb, kb;
-    table_tile(t, g.n_jb, g.n_kb, jb, kb);
-    int* me = done + jb * g.n_kb + kb;
-    PlaneWait sync(me, jb > 0 ? me - g.n_kb : nullptr,
-                   kb > 0 ? me - 1 : nullptr, tb, tc, nq, chunk, 1);
+    int *me, *up, *left;
+    if (run != nullptr) {
+      const RunEntry e = run[t];
+      jb = e.x;
+      kb = e.y;
+      me = done + t;
+      up = e.z >= 0 ? done + e.z : nullptr;
+      left = e.w >= 0 ? done + e.w : nullptr;
+    } else {
+      table_tile(t, g.n_jb, g.n_kb, jb, kb);
+      me = done + jb * g.n_kb + kb;
+      up = jb > 0 ? me - g.n_kb : nullptr;
+      left = kb > 0 ? me - 1 : nullptr;
+    }
+    PlaneWait sync(me, up, left, tb, tc, nq, chunk, 1);
     const bool target = jb == g.n_jb - 1 && kb == g.n_kb - 1;
     tile_pillar<NT, CHAIN>(smem, a_ext, b_ext, c_ext, g.hb, g.wc, g.la, g.d,
                            jb, kb, target, g.jlstar, g.klstar, sub, s,
@@ -138,18 +164,19 @@ cudaError_t persistent_per_sm(int hb, int wc, int* per_sm) {
 
 template <int NT, bool CHAIN>
 int launch_persistent(const int* a, const int* b, const int* c,
-                      const BlockedGeom& g, int chunk, int max_blocks,
-                      const int* sub, StepScoring s, int* rf, int* cf,
-                      int* out, int* next_tile, int* done,
-                      cudaStream_t stream) {
+                      const BlockedGeom& g, const RunEntry* run, int ntiles,
+                      int chunk, int max_blocks, const int* sub,
+                      StepScoring s, int* rf, int* cf, int* out,
+                      int* next_tile, int* done, cudaStream_t stream) {
   int per_sm = 0, blocks = 0;
   cudaError_t err = persistent_per_sm<NT, CHAIN>(g.hb, g.wc, &per_sm);
   if (err == cudaSuccess)
-    err = persistent_grid(per_sm, g.n_jb * g.n_kb, max_blocks, &blocks);
+    err = persistent_grid(per_sm, ntiles, max_blocks, &blocks);
   if (err != cudaSuccess) return (int)err;
   blocked_persistent<NT, CHAIN>
       <<<blocks, NT, pillar_shared_bytes(g.hb, g.wc), stream>>>(
-          a, b, c, g, chunk, sub, s, rf, cf, out, next_tile, done);
+          a, b, c, g, run, ntiles, chunk, sub, s, rf, cf, out, next_tile,
+          done);
   return (int)cudaGetLastError();
 }
 
@@ -167,15 +194,18 @@ int launch_mode(const int* a, const int* b, const int* c,
 
 template <int NT>
 int launch_persistent_mode(const int* a, const int* b, const int* c,
-                           const BlockedGeom& g, int chunk, int max_blocks,
+                           const BlockedGeom& g, const RunEntry* run,
+                           int ntiles, int chunk, int max_blocks,
                            const int* sub, StepScoring s, int* rf, int* cf,
                            int* out, int* next_tile, int* done,
                            cudaStream_t stream) {
   if (g.d == g.la + 1)
-    return launch_persistent<NT, false>(a, b, c, g, chunk, max_blocks, sub, s,
-                                        rf, cf, out, next_tile, done, stream);
-  return launch_persistent<NT, true>(a, b, c, g, chunk, max_blocks, sub, s,
-                                     rf, cf, out, next_tile, done, stream);
+    return launch_persistent<NT, false>(a, b, c, g, run, ntiles, chunk,
+                                        max_blocks, sub, s, rf, cf, out,
+                                        next_tile, done, stream);
+  return launch_persistent<NT, true>(a, b, c, g, run, ntiles, chunk,
+                                     max_blocks, sub, s, rf, cf, out,
+                                     next_tile, done, stream);
 }
 
 bool valid_geom(const BlockedGeom& g) {
@@ -188,8 +218,8 @@ bool valid_geom(const BlockedGeom& g) {
 
 extern "C" {
 
-// Launch K3 for tiles (jb_lo .. jb_lo + ntiles - 1, diag - jb) of tile
-// anti-diagonal diag on `stream`.  a: A_i at index i for 1 <= i <= la (slot
+// K3's per-tile form as it was, for comparison: launch tiles (jb_lo ..
+// jb_lo + ntiles - 1, diag - jb) of tile anti-diagonal diag on `stream`.  a: A_i at index i for 1 <= i <= la (slot
 // borders i = m*d in chain mode); b: n_jb * tb + 1 symbols (B_j at index j, sentinels past
 // |B|); c likewise with n_kb * tc + 1; rf: n_kb * nrows * 7 * wc ints; cf:
 // n_jb * nrows * 7 * hb ints; out: 7 ints a slot, written by the last tile.
@@ -221,34 +251,43 @@ int trialign_blocked_tiles(const int* a, const int* b, const int* c,
   }
 }
 
-// Launch the whole-grid sweep of K3 (one problem, or a chain) as one
-// persistent launch on `stream`: arrays as trialign_blocked_tiles takes them,
-// on a fresh state.  chunk: local planes between two handshakes (>= 1);
-// max_blocks: caps the grid (0: as many blocks as the SMs hold at once);
-// next_tile: 1 int, 0; done: n_jb * n_kb ints, -1.  A wait past the
-// watchdog traps (csrc/schedule.cuh).  Returns cudaGetLastError() (or the
-// error of the occupancy query).
+// Launch K3 as one persistent launch on `stream`: arrays as
+// trialign_blocked_tiles takes them.  run == nullptr: the whole grid on a
+// fresh state (ntiles = n_jb * n_kb).  Otherwise run holds ntiles entries of
+// 4 ints (jb, kb, up, left), up and left the entries of the tile's
+// neighbours within the run (earlier entries) or -1; a neighbour outside the
+// run must have been swept by a launch ordered before this one (the same
+// stream, or an event); run is 16-byte aligned.  chunk: local planes
+// between two handshakes (>= 1); max_blocks: caps the grid (0: as many
+// blocks as the SMs hold at once); next_tile: 1 int, 0; done: ntiles ints,
+// -1.  A wait past the watchdog
+// traps (csrc/schedule.cuh).  Returns cudaGetLastError() (or the error of
+// the occupancy query).
 int trialign_blocked_sweep(const int* a, const int* b, const int* c,
-                           trialign::BlockedGeom g, const int* sub,
+                           trialign::BlockedGeom g, const int* run,
+                           int ntiles, const int* sub,
                            trialign::StepScoring s, int* rf, int* cf, int* out,
                            int threads, int chunk, int max_blocks,
                            int* next_tile, int* done, void* stream) {
-  if (!trialign::valid_geom(g) || chunk < 1 || max_blocks < 0)
+  if (!trialign::valid_geom(g) || chunk < 1 || max_blocks < 0 ||
+      ntiles < 1 || (run == nullptr && ntiles != g.n_jb * g.n_kb) ||
+      ntiles > g.n_jb * g.n_kb || (uintptr_t)run % sizeof(int4) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const trialign::RunEntry* r = reinterpret_cast<const trialign::RunEntry*>(run);
   switch (threads) {
     case 256:
       return trialign::launch_persistent_mode<256>(
-          a, b, c, g, chunk, max_blocks, sub, s, rf, cf, out, next_tile, done,
-          st);
+          a, b, c, g, r, ntiles, chunk, max_blocks, sub, s, rf, cf, out,
+          next_tile, done, st);
     case 512:
       return trialign::launch_persistent_mode<512>(
-          a, b, c, g, chunk, max_blocks, sub, s, rf, cf, out, next_tile, done,
-          st);
+          a, b, c, g, r, ntiles, chunk, max_blocks, sub, s, rf, cf, out,
+          next_tile, done, st);
     case 1024:
       return trialign::launch_persistent_mode<1024>(
-          a, b, c, g, chunk, max_blocks, sub, s, rf, cf, out, next_tile, done,
-          st);
+          a, b, c, g, r, ntiles, chunk, max_blocks, sub, s, rf, cf, out,
+          next_tile, done, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

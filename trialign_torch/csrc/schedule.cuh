@@ -9,17 +9,21 @@
 // written and what happens at the start of each plane:
 //
 // * NoWait: a launch runs tiles whose neighbours ran in earlier launches on
-//   the same stream (one launch per tile anti-diagonal: the per-tile forms
-//   of K3 and K5, K4's earlier design), so stream order makes the faces
-//   visible; faces are plain loads and stores.
-// * PlaneWait: one persistent launch runs the whole tile table.  A tile sweeps
-//   its pillar in chunks of planes [q0, q1).  Before a chunk, thread 0 waits
-//   until the upper neighbour has finished plane min(q1 - 1 + tb, nq) and the
-//   left neighbour plane min(q1 - 1 + tc, nq) (kernels/blocked.py
-//   planes_needed, the rule the CPU tests model in any order it allows);
-//   after the chunk's last barrier it publishes q1 - 1.  The diagonal
-//   neighbour needs no flag: the corner comes through the upper neighbour's
-//   row face.
+//   the same stream (one launch per tile anti-diagonal: the earlier designs
+//   of the per-tile forms of K3, K4 and K5, which only chip_smoke.py runs),
+//   so stream order makes the faces visible; faces are plain loads and
+//   stores.
+// * PlaneWait: one persistent launch runs the whole tile table, or a run of
+//   it (the per-tile forms).  A neighbour outside the run was swept by an
+//   earlier launch that the stream or an event orders before this one, and
+//   has no progress word here (nullptr): it reads as finished, and its faces
+//   are read through L2 like any other.  A tile sweeps its pillar in chunks
+//   of planes [q0, q1).  Before a chunk, thread 0 waits until the upper
+//   neighbour has finished plane min(q1 - 1 + tb, nq) and the left
+//   neighbour plane min(q1 - 1 + tc, nq) (kernels/blocked.py planes_needed,
+//   the rule the CPU tests model in any order it allows); after the chunk's
+//   last barrier it publishes q1 - 1.  The diagonal neighbour needs no flag:
+//   the corner comes through the upper neighbour's row face.
 //
 // Memory ordering.  A face row is written by one SM and read by another while
 // the kernel runs, and adjacent rows share 128-byte lines (a row is 7 x wc

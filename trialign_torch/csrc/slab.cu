@@ -42,11 +42,20 @@
 // "pin" and "bwd" start at plane 0, so progress starts at -1.
 //
 // Per-tile form (trialign/kernels/slab.py:make_slab_block_call, which the
-// halo-sharded traceback runs one block a call): a launch runs any run of
-// one anti-diagonal's tiles, (jb_lo .. jb_lo + ntiles - 1, d - jb).  Tile
-// indices are always global, so borders, the variant's fill, the target
-// tile and the symbols are decided as in the whole sweep; the per-tile scalar
-// table names the face slabs a tile reads and writes.
+// halo-sharded traceback runs one block a call): the same launch over a run
+// of tiles the host lists as (jb, kb, up, left) entries, as K3's per-tile
+// form (csrc/blocked.cu): any run of the tile table, or a band of rows of a
+// stripe's columns.  A neighbour outside the run was swept by an earlier
+// launch and reads as finished.  Tile indices are always global, so
+// borders, the variant's fill, the target tile and the symbols are decided
+// as in the whole sweep.  The wait rule needs a tile's faces to be those of
+// its tile column and row, and so they are in every run: the scalar table
+// (kernels/slab.py _scal_table, one for the whole grid in every state, a
+// stripe's included) names tile (jb, kb)'s slabs kb and jb (columns 13, 14).
+//
+// Kept for comparison only (chip_smoke.py; no entry point of the package
+// reaches it): slab_kernel, the per-tile form as it was, one launch a run of
+// one anti-diagonal with one block a tile (schedule NoWait).
 //
 // Design: the tile plane carries a guard row and column (index -1) that are
 // set to the variant's fill and never written, so an edge cell's
@@ -301,7 +310,7 @@ __device__ __forceinline__ void slab_tile(
 }
 
 // Tiles (jb_lo .. jb_lo + gridDim.x - 1, d - jb), one block each, after the
-// launches of the earlier diagonals on the same stream.
+// launches of the earlier diagonals on the same stream (the earlier design).
 __global__ void __launch_bounds__(kThreads)
     slab_kernel(const int* __restrict__ a_ext, const int* __restrict__ b_ext,
                 const int* __restrict__ c_ext, SlabGeom g, int d, int jb_lo,
@@ -315,29 +324,44 @@ __global__ void __launch_bounds__(kThreads)
             out, cap, sync);
 }
 
-// The whole tile table in one launch.  next_tile: the hand-out counter (0);
-// done: one progress word a tile, row jb * n_kb + kb (-1).  The whole-grid
-// sweep names the faces of tile (jb, kb) by their tile column and row
-// (scal columns 13, 14), which the wait rule assumes.
+// Entry of a run's table, as csrc/blocked.cu RunEntry: (jb, kb, up, left).
+using RunEntry = int4;
+
+// The tile table in one launch: the whole grid in table order (run ==
+// nullptr, ntiles = n_jb * n_kb), or the ntiles entries of run, in which
+// every neighbour of the run comes before its tile.  next_tile: the hand-out
+// counter (0); done: one progress word a tile (-1), row jb * n_kb + kb of
+// the whole grid or the entry of the run.
 __global__ void __launch_bounds__(kThreads)
     slab_persistent(const int* __restrict__ a_ext,
                     const int* __restrict__ b_ext,
-                    const int* __restrict__ c_ext, SlabGeom g, int chunk,
+                    const int* __restrict__ c_ext, SlabGeom g,
+                    const RunEntry* __restrict__ run, int ntiles, int chunk,
                     const int* __restrict__ scal, const int* __restrict__ sub,
                     StepScoring s, int* rf, int* cf, int* __restrict__ out,
                     int* __restrict__ cap, int* next_tile, int* done) {
   extern __shared__ int smem[];
-  const int ntiles = g.n_jb * g.n_kb;
   const int tb = g.hb - 1, tc = g.wc - 1, nq = g.la + tb + tc;
   const int first = g.variant == kPin || g.variant == kBwd ? 0 : 1;
   for (;;) {
     const int t = take_tile(next_tile);
     if (t >= ntiles) return;
     int jb, kb;
-    table_tile(t, g.n_jb, g.n_kb, jb, kb);
-    int* me = done + jb * g.n_kb + kb;
-    PlaneWait sync(me, jb > 0 ? me - g.n_kb : nullptr,
-                   kb > 0 ? me - 1 : nullptr, tb, tc, nq, chunk, first);
+    int *me, *up, *left;
+    if (run != nullptr) {
+      const RunEntry e = run[t];
+      jb = e.x;
+      kb = e.y;
+      me = done + t;
+      up = e.z >= 0 ? done + e.z : nullptr;
+      left = e.w >= 0 ? done + e.w : nullptr;
+    } else {
+      table_tile(t, g.n_jb, g.n_kb, jb, kb);
+      me = done + jb * g.n_kb + kb;
+      up = jb > 0 ? me - g.n_kb : nullptr;
+      left = kb > 0 ? me - 1 : nullptr;
+    }
+    PlaneWait sync(me, up, left, tb, tc, nq, chunk, first);
     slab_tile(smem, a_ext, b_ext, c_ext, g, jb, kb, scal, sub, s, rf, cf, out,
               cap, sync);
   }
@@ -358,19 +382,23 @@ cudaError_t persistent_per_sm(int hb, int wc, int* per_sm) {
 }
 
 int launch_persistent(const int* a, const int* b, const int* c,
-                      const SlabGeom& g, int chunk, int max_blocks,
-                      const int* scal, const int* sub, StepScoring s, int* rf,
-                      int* cf, int* out, int* cap, int* next_tile, int* done,
+                      const SlabGeom& g, const RunEntry* run, int ntiles,
+                      int chunk, int max_blocks, const int* scal,
+                      const int* sub, StepScoring s, int* rf, int* cf,
+                      int* out, int* cap, int* next_tile, int* done,
                       cudaStream_t stream) {
-  if (!valid(g, s) || chunk < 1 || max_blocks < 0)
+  if (!valid(g, s) || chunk < 1 || max_blocks < 0 || ntiles < 1 ||
+      (run == nullptr && ntiles != g.n_jb * g.n_kb) ||
+      ntiles > g.n_jb * g.n_kb || (uintptr_t)run % sizeof(int4) != 0)
     return (int)cudaErrorInvalidValue;
   int per_sm = 0, blocks = 0;
   cudaError_t err = persistent_per_sm(g.hb, g.wc, &per_sm);
   if (err == cudaSuccess)
-    err = persistent_grid(per_sm, g.n_jb * g.n_kb, max_blocks, &blocks);
+    err = persistent_grid(per_sm, ntiles, max_blocks, &blocks);
   if (err != cudaSuccess) return (int)err;
   slab_persistent<<<blocks, kThreads, shared_bytes(g.hb, g.wc), stream>>>(
-      a, b, c, g, chunk, scal, sub, s, rf, cf, out, cap, next_tile, done);
+      a, b, c, g, run, ntiles, chunk, scal, sub, s, rf, cf, out, cap,
+      next_tile, done);
   return (int)cudaGetLastError();
 }
 
@@ -402,9 +430,9 @@ int trialign_slab_shared_bytes(int hb, int wc) {
   return (int)trialign::shared_bytes(hb, wc);
 }
 
-// Launch K5 for tiles (jb_lo .. jb_lo + ntiles - 1, d - jb) of tile
-// anti-diagonal d on `stream`.  a: A_i at index i for 0 <= i <= |A| (index 0
-// a sentinel); b: n_jb * tb + 1 symbols (B_j at index j), c likewise with
+// K5's per-tile form as it was, for comparison: launch tiles (jb_lo ..
+// jb_lo + ntiles - 1, d - jb) of tile anti-diagonal d on `stream`.  a: A_i
+// at index i for 0 <= i <= |A| (index 0 a sentinel); b: n_jb * tb + 1 symbols (B_j at index j), c likewise with
 // n_kb * tc + 1; scal: (n_jb * n_kb, 16) ints, one row per tile (row
 // jb * n_kb + kb), whose columns 13 and 14 name the tile's row- and
 // column-face slabs; rf: 7 * wc ints a row, nrows rows a slab; cf: 7 * hb
@@ -422,21 +450,28 @@ int trialign_slab_tiles(const int* a, const int* b, const int* c,
                           out, cap, (cudaStream_t)stream);
 }
 
-// Launch the whole-grid slab sweep as one persistent launch on `stream`:
-// arrays as trialign_slab_tiles takes them, on a fresh state whose scal
-// names tile (jb, kb)'s faces by its column and row.  chunk: local planes
+// Launch K5 as one persistent launch on `stream`: arrays as
+// trialign_slab_tiles takes them, on a state whose scal names tile (jb,
+// kb)'s faces by its column and row.  run == nullptr: the whole grid on a
+// fresh state (ntiles = n_jb * n_kb).  Otherwise run holds ntiles entries of
+// 4 ints (jb, kb, up, left), up and left the entries of the tile's
+// neighbours within the run (earlier entries) or -1; a neighbour outside the
+// run must have been swept by a launch ordered before this one (the same
+// stream, or an event); run is 16-byte aligned.  chunk: local planes
 // between two handshakes (>= 1); max_blocks: caps the grid (0: as many
-// blocks as the SMs hold at once); next_tile: 1 int, 0; done: n_jb * n_kb
-// ints, -1.  A wait past the watchdog traps (csrc/schedule.cuh).  Returns
+// blocks as the SMs hold at once); next_tile: 1 int, 0; done: ntiles ints,
+// -1.  A wait past the watchdog traps (csrc/schedule.cuh).  Returns
 // cudaGetLastError() (or the error of the occupancy query).
 int trialign_slab_sweep(const int* a, const int* b, const int* c,
-                        trialign::SlabGeom g, const int* scal, const int* sub,
+                        trialign::SlabGeom g, const int* run, int ntiles,
+                        const int* scal, const int* sub,
                         trialign::StepScoring s, int* rf, int* cf, int* out,
                         int* cap, int chunk, int max_blocks, int* next_tile,
                         int* done, void* stream) {
-  return trialign::launch_persistent(a, b, c, g, chunk, max_blocks, scal, sub,
-                                     s, rf, cf, out, cap, next_tile, done,
-                                     (cudaStream_t)stream);
+  return trialign::launch_persistent(
+      a, b, c, g, reinterpret_cast<const trialign::RunEntry*>(run), ntiles,
+      chunk, max_blocks, scal, sub, s, rf, cf, out, cap, next_tile, done,
+      (cudaStream_t)stream);
 }
 
 // Blocks of the persistent slab sweep one SM holds at tile plane hb x wc,

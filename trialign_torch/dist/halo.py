@@ -11,12 +11,17 @@ to stripe d + 1, which needs it for its tile (jb, kb1).
 
 What the reference does differently, and why:
 
-* Its device d sweeps one block row a step, one block a call (halo.py:
-  228-261).  On the card that would be one launch a tile.  Here each stripe
-  sweeps its own tiles by global tile anti-diagonal, one launch a diagonal,
-  through K3's per-tile form (``blocked.sweep_tiles``): any contiguous run
-  of one diagonal's tiles is a legal launch, with global tile indices, so
-  borders, symbols and the target tile are the whole sweep's.
+* Its device d sweeps one block row a step, one block a call, and passes
+  the row's column face on (halo.py:228-261).  Here a step is a band of R
+  tile rows: stripe d sweeps rows [r R, (r + 1) R) of its columns in one
+  persistent launch of K3's per-tile form (``blocked.sweep_run``, global
+  tile indices, so borders, symbols and the target tile are the whole
+  sweep's), then hands the band's R column faces on at once.  Band r of
+  stripe d starts after its band r - 1 (stream order) and after stripe
+  d - 1 handed it band r's faces (an event, or a message from another
+  process); neither neighbour is waited on inside a kernel.  Each band
+  ends with a whole pillar, so R trades the pipeline's fill against those
+  drains: :func:`halo_efficiency` picks it.  One stripe is one band.
 * Its stripes pad the tile columns to a multiple of the stripe count
   (halo.py:193-199).  Here columns split unevenly, and a stripe may get
   none when there are more stripes than columns.
@@ -26,13 +31,15 @@ What the reference does differently, and why:
 
 Each stripe keeps a full-size state on its own device (the face slabs of
 every column and row, of which it writes its own) and runs on a CUDA stream
-of its own, waiting on one event per face it is handed.  ``overlap`` picks
-the schedule: True copies a face on a copy stream while the stripe sweeps
-its next diagonal, False copies it on the stripe's own stream.  Both give
-the same score.  The copy is made even when both stripes share a card, so
-that one card runs the handoff as several would.  A stripe whose neighbour
-lives in another process sends the face through a pinned host buffer
-(``gloo``; ``dist/mesh.py`` says why not ``nccl``).
+of its own, waiting on one event per band of faces it is handed.
+``overlap`` picks the schedule: True copies the faces on a copy stream
+while the stripe sweeps its next band, False copies them on the stripe's
+own stream.  Both give the same score.  The copy is made even when both
+stripes share a card, so that one card runs the handoff as several would;
+each launch sizes its grid to the whole card all the same.  A stripe whose
+neighbour lives in another process
+sends the faces through a pinned host buffer (``gloo``; ``dist/mesh.py``
+says why not ``nccl``).
 
 Nothing falls back: a failed launch, copy or collective raises.
 """
@@ -50,13 +57,16 @@ from trialign_torch.config import NUM_MATRICES, Scoring
 from trialign_torch.dist import mesh as dmesh
 from trialign_torch.kernels import blocked as bk
 
-# K3's time a tile-plane step at its 33 x 33 tile plane: 155.07 ms at 1024^3
-# over 63 launches of 1088 planes (PERF.md section 6, chip_smoke.py timings,
-# NVIDIA H100 80GB HBM3 at 700 W).  One launch takes its tiles' planes in
-# turn, whatever the number of tiles up to the SMs.
-STEP_S = 155.07e-3 / (63 * 1088)
-# Tiles one card runs at once in the model: one a streaming multiprocessor.
-SMS = 132
+# The persistent schedule's tile-plane step on a full card: K3 swept 1024^3
+# (1024 tiles of 1088 planes) in 23.16703987121582 ms with RESIDENT blocks
+# at once (PERF.md section 6, chip_smoke.py timings, NVIDIA H100 80GB HBM3
+# at 700 W).
+RESIDENT = 264  # two 512-thread blocks of the 33 x 33 plane on each of 132 SMs
+STEP_S = 23.16703987121582e-3 * RESIDENT / (1024 * 1088)
+# Planes a tile trails its upper or left neighbour: fitted to K3 at 512^3
+# (256 tiles, all resident: 576 planes and 30 diagonals of lag in
+# 7.86243200302124 ms, the same run).
+LAG = (7.86243200302124e-3 / STEP_S - 576) / 30
 # Device-to-device bytes a second of one face handoff (a 1.0 MB column face
 # at 1024^3, copied on one card): chip_smoke.py's halo phase measured
 # 5.87e10 to 1.13e11 in three runs on an NVIDIA H100 80GB HBM3 at 700 W,
@@ -79,6 +89,13 @@ def stripe_columns(n_kb: int, ndev: int) -> List[Tuple[int, int]]:
     return [(d * n_kb // ndev, (d + 1) * n_kb // ndev) for d in range(ndev)]
 
 
+def bands(n_jb: int, band_rows: int) -> List[Tuple[int, int]]:
+    """Tile rows [r0, r1) of each band of ``band_rows`` rows (the last one
+    may be shorter)."""
+    return [(r0, min(r0 + band_rows, n_jb))
+            for r0 in range(0, n_jb, band_rows)]
+
+
 def choose_halo_shape(la: int, lb: int, lc: int,
                       ndev: int) -> Tuple[int, int]:
     """The tile plane (hb, wc) of a halo over ``ndev`` stripes: K3's tile
@@ -91,55 +108,82 @@ def choose_halo_shape(la: int, lb: int, lc: int,
     return hb, wc
 
 
-def _diag_tiles(n_jb: int, t: int, kb0: int, kb1: int) -> int:
-    return max(0, min(n_jb - 1, t - kb0) - max(0, t - (kb1 - 1)) + 1)
+def launch_seconds(rows: int, cols: int, nq: int) -> float:
+    """The model's time of one persistent launch over a rectangle of
+    ``rows`` x ``cols`` tiles of ``nq`` planes on a card of its own: the
+    last tile's pillar after rows + cols - 2 lags, or the card's step rate
+    when more tiles than it holds at once keep it full."""
+    return max(nq + (rows + cols - 2) * LAG,
+               rows * cols * nq / RESIDENT) * STEP_S
+
+
+def _pipeline_seconds(n_jb: int, cols, nq: int, band_rows: int,
+                      face_s: float, overlap: bool) -> float:
+    """The model's wall time of the stripes ``cols``, each on a card of its
+    own, in bands: a band starts after the stripe's band before it (and, in
+    the tight schedule, that band's handoff) and after the left stripe's
+    faces for it arrive; handoffs on one copy stream go one after another."""
+    handed = [0.0] * len(bands(n_jb, band_rows))
+    wall = 0.0
+    for pos, (k0, k1) in enumerate(cols):
+        last = pos == len(cols) - 1
+        free = copier = 0.0
+        arrive = []
+        for r, (r0, r1) in enumerate(bands(n_jb, band_rows)):
+            end = max(free, handed[r]) + launch_seconds(r1 - r0, k1 - k0, nq)
+            free = end
+            if not last:
+                copier = max(copier, end) + (r1 - r0) * face_s
+                arrive.append(copier)
+                if not overlap:
+                    free = copier
+        handed = arrive
+        wall = max(wall, free)
+    return wall
 
 
 def halo_efficiency(la: int, lb: int, lc: int, ndev: int,
                     block_shape: Optional[Tuple[int, int]] = None,
                     overlap: Optional[bool] = None,
-                    copy_bytes_per_s: Optional[float] = None) -> dict:
+                    copy_bytes_per_s: Optional[float] = None,
+                    band_rows: Optional[int] = None) -> dict:
     """Model of a halo over ``ndev`` stripes, each on a card of its own, as
     :func:`align_sharded_triplet` runs it: uneven columns, one launch a
-    stripe and diagonal, a face handed at each boundary.
+    stripe and band (:func:`launch_seconds`), a band's faces handed at each
+    boundary at ``copy_bytes_per_s`` (``FACE_COPY_BYTES_PER_S`` by default,
+    nrows x 7 x hb int32 a face).
 
-    A launch of n tiles takes ceil(n / SMS) x nq x STEP_S; a handoff
-    moves nrows x 7 x hb int32 at ``copy_bytes_per_s``
-    (``FACE_COPY_BYTES_PER_S`` by default).  Returns {'pipeline': one
-    card's modelled time over ndev times the stripes' compute, 'j_fill',
-    'k_fill': real over swept cells, 'transfer': compute over compute and
-    the handoffs the schedule does not hide, 'overlap', 'seconds', 'total':
-    the product of the four shares}.  ``overlap`` None models both
-    schedules and returns the better."""
+    Returns {'pipeline': one card's modelled time over ndev times the
+    stripes' time without handoffs, 'j_fill', 'k_fill': real over swept
+    cells, 'transfer': the time without handoffs over the time with them,
+    'overlap', 'band': the band's tile rows, 'seconds', 'total': the product
+    of the four shares}.  ``band_rows`` None takes the band with the least
+    modelled time (the larger one of equal times; all rows for one stripe);
+    ``overlap`` None models both schedules and returns the better."""
     if overlap is None:
         return max((halo_efficiency(la, lb, lc, ndev, block_shape, ov,
-                                    copy_bytes_per_s) for ov in (True, False)),
+                                    copy_bytes_per_s, band_rows)
+                    for ov in (True, False)),
                    key=lambda e: e["total"])
     hb, wc = block_shape or choose_halo_shape(la, lb, lc, ndev)
     dims = bk.plan_dims(max(la, 1), max(lb, 1), max(lc, 1), hb, wc)
     n_jb, n_kb, nq = dims.n_jb, dims.n_kb, dims.nq
-    rate = copy_bytes_per_s or FACE_COPY_BYTES_PER_S
-    xfer = dims.nrows * NUM_MATRICES * hb * 4 / rate
+    face_s = dims.nrows * NUM_MATRICES * hb * 4 / (copy_bytes_per_s or
+                                                   FACE_COPY_BYTES_PER_S)
     cols = [c for c in stripe_columns(n_kb, ndev) if c[1] > c[0]]
-    one = compute = wall = 0.0
-    for t in range(n_jb + n_kb - 1):
-        launch = -(-_diag_tiles(n_jb, t, 0, n_kb) // SMS) * nq * STEP_S
-        step = max(-(-_diag_tiles(n_jb, t, k0, k1) // SMS)
-                   for k0, k1 in cols) * nq * STEP_S
-        # A face crosses a boundary kb1 on diagonal t if row t - (kb1 - 1)
-        # exists.
-        moves = any(0 <= t - (k1 - 1) < n_jb for _, k1 in cols[:-1])
-        one += launch
-        compute += step
-        wall += max(step, xfer) if overlap and moves else \
-            step + (xfer if moves else 0.0)
-    pipeline = one / (ndev * compute)
+    if band_rows is None:
+        band_rows = n_jb if len(cols) == 1 else min(
+            range(n_jb, 0, -1), key=lambda r: _pipeline_seconds(
+                n_jb, cols, nq, r, face_s, overlap))
+    wall = _pipeline_seconds(n_jb, cols, nq, band_rows, face_s, overlap)
+    compute = _pipeline_seconds(n_jb, cols, nq, band_rows, 0.0, overlap)
+    pipeline = launch_seconds(n_jb, n_kb, nq) / (ndev * compute)
     transfer = compute / wall
     j_fill = lb / (n_jb * (hb - 1))
     k_fill = lc / (n_kb * (wc - 1))
     return {"pipeline": pipeline, "j_fill": j_fill, "k_fill": k_fill,
-            "transfer": transfer, "overlap": overlap, "seconds": wall,
-            "total": pipeline * j_fill * k_fill * transfer}
+            "transfer": transfer, "overlap": overlap, "band": band_rows,
+            "seconds": wall, "total": pipeline * j_fill * k_fill * transfer}
 
 
 # ------------------------------------------------------------- the stripes
@@ -205,17 +249,20 @@ def _recv(t: torch.Tensor, stripe: Stripe, src: int, tag: int) -> None:
 
 
 def run_stripes(dims: bk.Dims, row: Sequence[dmesh.Slot], overlap: bool,
-                start: Callable, sweep: Callable) -> List[Stripe]:
+                start: Callable, sweep: Callable,
+                band_rows: Optional[int] = None) -> List[Stripe]:
     """Sweep the tile grid of ``dims`` in stripes over the slots ``row``
-    (one stripe a slot, columns by :func:`stripe_columns`).
+    (one stripe a slot, columns by :func:`stripe_columns`), each in bands of
+    ``band_rows`` tile rows (all rows by default).
 
     ``start(device)`` returns (symbol arrays, state) on a device, the state
     a NamedTuple with a ``cf`` field (n_jb, nrows, 7, hb);
-    ``sweep(arrs, state, idx0, count)`` runs tiles idx0 .. idx0 + count - 1
-    of ``blocked.tile_table`` (a per-tile form).  Returns the stripes that
-    hold columns, in order; those of this process carry their state.  On
-    return the current stream of every local device has waited for every
-    stripe and copy, so results read there are complete."""
+    ``sweep(arrs, state, tiles)`` runs the list ``tiles`` of (jb, kb), a
+    band of the stripe in ``blocked.rect_tiles`` order, with a per-tile
+    form (``sweep_run``).  Returns the stripes that hold
+    columns, in order; those of this process carry their state.  On return
+    the current stream of every local device has waited for every stripe
+    and copy, so results read there are complete."""
     cols = stripe_columns(dims.n_kb, len(row))
     stripes = [Stripe(d, k0, k1, row[d]) for d, (k0, k1) in enumerate(cols)
                if k1 > k0]
@@ -229,50 +276,46 @@ def run_stripes(dims: bk.Dims, row: Sequence[dmesh.Slot], overlap: bool,
             s.stream.wait_stream(torch.cuda.current_stream(s.device))
             if overlap:
                 s.copy_stream = torch.cuda.Stream(s.device)
-    ready = {}          # (receiving stripe, jb) -> event or None (done)
+    rows = bands(dims.n_jb, band_rows or dims.n_jb)
+    ready = {}          # (receiving stripe, band) -> event or None (done)
     works, keep = [], []
-    for t in range(dims.n_jb + dims.n_kb - 1):
+    for r, (r0, r1) in enumerate(rows):
         for pos, s in enumerate(stripes):
             if not s.local:
                 continue
-            lo, hi = max(0, t - (s.kb1 - 1)), min(dims.n_jb - 1, t - s.kb0)
-            if lo > hi:
-                continue
             left = stripes[pos - 1] if pos > 0 else None
             right = stripes[pos + 1] if pos + 1 < len(stripes) else None
-            jb_in = t - s.kb0
-            if left is not None and lo <= jb_in <= hi:
+            if left is not None:
                 if left.local:
-                    event = ready.pop((s.index, jb_in))
+                    event = ready.pop((s.index, r))
                     if event is not None:
                         s.stream.wait_event(event)
                 else:
-                    _recv(s.state.cf[jb_in], s, left.rank,
-                          left.index * dims.n_jb + jb_in)
+                    _recv(s.state.cf[r0:r1], s, left.rank,
+                          left.index * len(rows) + r)
             with s.on_stream():
-                sweep(s.arrs, s.state, bk.tile_index(dims, t, lo),
-                      hi - lo + 1)
-            jb_out = t - (s.kb1 - 1)
-            if right is None or not lo <= jb_out <= hi:
+                sweep(s.arrs, s.state, bk.rect_tiles((r0, r1),
+                                                     (s.kb0, s.kb1)))
+            if right is None:
                 continue
-            face = s.state.cf[jb_out]
+            faces = s.state.cf[r0:r1]
             if not right.local:
-                _send(face, s, right.rank, s.index * dims.n_jb + jb_out,
-                      works, keep)
+                _send(faces, s, right.rank, s.index * len(rows) + r, works,
+                      keep)
                 continue
-            dst = right.state.cf[jb_out]
+            dst = right.state.cf[r0:r1]
             if not s.cuda:
-                dst.copy_(face)
-                ready[(right.index, jb_out)] = None
+                dst.copy_(faces)
+                ready[(right.index, r)] = None
                 continue
             copier = s.copy_stream or s.stream
             if copier is not s.stream:
                 copier.wait_stream(s.stream)
             with s.on_stream(copier):
-                dst.copy_(face, non_blocking=True)
+                dst.copy_(faces, non_blocking=True)
             event = torch.cuda.Event()
             event.record(copier)
-            ready[(right.index, jb_out)] = event
+            ready[(right.index, r)] = event
     for s in mine:
         if s.cuda:
             here = torch.cuda.current_stream(s.device)
@@ -301,28 +344,32 @@ def from_owner(stripes: Sequence[Stripe], owner: Stripe, value: Callable,
 
 def sweep_stripes(a, b, c, scoring: Scoring, row: Sequence[dmesh.Slot],
                   block_shape: Optional[Tuple[int, int]] = None,
-                  overlap: Optional[bool] = None):
+                  overlap: Optional[bool] = None,
+                  band_rows: Optional[int] = None):
     """Sweep one triplet (|A|, |B|, |C| >= 1) in stripes over the slots
-    ``row`` on K3's per-tile form; (dims, stripes), the stripes of this
-    process carrying their ``blocked.BlockedState``."""
+    ``row`` on K3's per-tile form, in bands of ``band_rows`` tile rows;
+    (dims, stripes), the stripes of this process carrying their
+    ``blocked.BlockedState``.  ``overlap`` and ``band_rows`` None take
+    :func:`halo_efficiency`'s."""
     a, b, c = np.asarray(a), np.asarray(b), np.asarray(c)
     la, lb, lc = len(a), len(b), len(c)
     if min(la, lb, lc) < 1:
         raise ValueError("the halo needs |A|, |B|, |C| >= 1")
     hb, wc = block_shape or choose_halo_shape(la, lb, lc, len(row))
-    if overlap is None:
-        overlap = bool(halo_efficiency(la, lb, lc, len(row),
-                                       (hb, wc))["overlap"])
+    if overlap is None or band_rows is None:
+        model = halo_efficiency(la, lb, lc, len(row), (hb, wc), overlap,
+                                band_rows=band_rows)
+        overlap, band_rows = model["overlap"], model["band"]
     dims = bk.plan_dims(la, lb, lc, hb, wc)
 
     def start(device):
         return (bk.prep_blocked(a, b, c, dims, device),
                 bk.new_state(dims, device))
 
-    def sweep(arrs, state, idx0, count):
-        bk.sweep_tiles(*arrs, la, lb, lc, dims, state, idx0, count, scoring)
+    def sweep(arrs, state, tiles):
+        bk.sweep_run(*arrs, la, lb, lc, dims, state, tiles, scoring)
 
-    return dims, run_stripes(dims, row, overlap, start, sweep)
+    return dims, run_stripes(dims, row, overlap, start, sweep, band_rows)
 
 
 def halo_values(a, b, c, scoring: Scoring = Scoring(),
@@ -359,14 +406,14 @@ def align_sharded_triplet(
 
     ``mesh`` defaults to every device on the model axis; ``block_shape`` is
     the tile plane (hb, wc), :func:`choose_halo_shape`'s by default;
-    ``overlap`` True copies a handed face on a copy stream under the next
-    diagonal, False on the stripe's own stream, None lets
-    :func:`halo_efficiency` choose.  ``return_alignment`` True returns
-    (score, rows) from ``dist.halo_tb.hirschberg_align_sharded`` on the same
-    mesh, tile plane and schedule (the reference drops the last two,
-    halo.py:349-354).  There is no ``interpret``: the mesh's devices say
-    where the stripes run, and a CPU device runs the kernels' plain
-    versions."""
+    ``overlap`` True copies a band's handed faces on a copy stream under the
+    next band, False on the stripe's own stream, None lets
+    :func:`halo_efficiency` choose, as it chooses the band's rows.
+    ``return_alignment`` True returns (score, rows) from
+    ``dist.halo_tb.hirschberg_align_sharded`` on the same mesh, tile plane
+    and schedule (the reference drops the last two, halo.py:349-354).
+    There is no ``interpret``: the mesh's devices say where the stripes
+    run, and a CPU device runs the kernels' plain versions."""
     if return_alignment:
         from trialign_torch.dist.halo_tb import hirschberg_align_sharded
 

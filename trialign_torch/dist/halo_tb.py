@@ -4,10 +4,11 @@ Port of ``trialign/dist/halo_tb.py``.  The split at i = m needs the F slab
 (the forward sweep of a[:m], captured at i = m), the G slab (the backward
 sweep of a[m:]) and the argmax of their sum.  Both sweeps run here as the
 halo runs the score (``dist/halo.py``): stripes of tile columns over the
-mesh's 'model' axis, each on K5's per-tile form (``kernels/slab.sweep_tiles``)
-with global tile indices, so that the variant's fill (zero faces for "free",
-NEG walls for "pin" and "bwd") lands on the global borders only and a stripe
-that starts past column 0 reads the face it was handed.
+mesh's 'model' axis, in bands of tile rows, each band one launch of K5's
+per-tile form (``kernels/slab.sweep_run``) with global tile indices, so that
+the variant's fill (zero faces for "free", NEG walls for "pin" and "bwd")
+lands on the global borders only and a stripe that starts past column 0
+reads the faces it was handed.
 
 The argmax: G sweeps reversed sequences, so its stripes hold other cells
 than F's, and a per-stripe argmax would also break ties by stripe rather
@@ -43,26 +44,27 @@ Column = Tuple[int, int, int]
 
 
 def _sharded_sweep(a, b, c, scoring: Scoring, row, variant: str, ev,
-                   block_shape, overlap):
-    """One slab sweep in stripes over ``row``; (dims, stripes), the local
-    stripes carrying their SlabState."""
+                   block_shape, overlap, band_rows=None):
+    """One slab sweep in stripes over ``row``, in bands of ``band_rows``
+    tile rows (``overlap`` and ``band_rows`` None: the halo model's);
+    (dims, stripes), the local stripes carrying their SlabState."""
     la, lb, lc = len(a), len(b), len(c)
     hb_, wc = block_shape or dh.choose_halo_shape(la, lb, lc, len(row))
     dims = sk._plan(la, lb, lc, (hb_, wc))
-    if overlap is None:
-        overlap = bool(dh.halo_efficiency(la, lb, lc, len(row),
-                                          (hb_, wc))["overlap"])
+    if overlap is None or band_rows is None:
+        model = dh.halo_efficiency(la, lb, lc, len(row), (hb_, wc), overlap,
+                                   band_rows=band_rows)
+        overlap, band_rows = model["overlap"], model["band"]
     ev = sk._ev(ev)
 
     def start(device):
         return (sk.prep_blocked(a, b, c, dims, device),
                 sk.new_state(la, lb, lc, dims, ev, device))
 
-    def sweep(arrs, state, idx0, count):
-        sk.sweep_tiles(*arrs, la, lb, lc, dims, variant, state, idx0, count,
-                       scoring)
+    def sweep(arrs, state, tiles):
+        sk.sweep_run(*arrs, la, lb, lc, dims, variant, state, tiles, scoring)
 
-    return dims, dh.run_stripes(dims, row, overlap, start, sweep)
+    return dims, dh.run_stripes(dims, row, overlap, start, sweep, band_rows)
 
 
 # Message tags of the capture gather: past every face tag of a halo.

@@ -17,25 +17,28 @@ its tile column, the right column to row q - tc of the column-face slab of
 its tile row (blocked.py:6-12).
 
 A problem's tiles form a table in anti-diagonal order: d ascending, then jb
-ascending.  Two schedules sweep it.  The per-tile form
-(:func:`sweep_tiles`) runs one anti-diagonal jb + kb = d at a time on a
-sweep state (:class:`BlockedState`: the face slabs and the output rows) that
-stays on the device from launch to launch, so it can run any run of the
-table, and a sweep may stop and resume between any two tiles.  The
-whole-grid sweep (:func:`final_values`, :func:`chain_values`) is one
-persistent launch in which each tile advances, a chunk of planes at a time,
-as soon as its neighbours have finished the planes whose faces the chunk
-reads (:func:`planes_needed`).  Both give the same state.
+ascending.  Every sweep on the card is one persistent launch in which each
+tile advances, a chunk of planes at a time, as soon as its neighbours have
+finished the planes whose faces the chunk reads (:func:`planes_needed`):
+over the whole table on a fresh state (:func:`final_values`,
+:func:`chain_values`), or over a run of tiles on a sweep state
+(:class:`BlockedState`: the face slabs and the output rows) that stays on
+the device from launch to launch (the per-tile form: :func:`sweep_tiles`
+for any run of the table, so that a sweep may stop and resume between any
+two tiles; :func:`sweep_run` for any list of tiles whose neighbours come
+first, such as a band of a stripe's rows).  A neighbour outside the run was
+swept by an earlier launch and counts as finished.  All give the same
+state.  :func:`sweep_diagonals` keeps the per-tile form's earlier design,
+one launch a run of one anti-diagonal, for ``chip_smoke.py`` to compare.
 
 Chain mode (:func:`plan_dims_packed`): ``npack`` problems of equal |A|
 stacked along i at pitch d = |A| + 1, sharing B and C, swept as one problem
 of |A| = npack * d - 1 whose cells with i = 0 (mod d) are zero borders; the
 last tile captures slot m's seven values into output row m.
 
-On a CUDA tensor the wrappers launch ``csrc/blocked.cu``: once per run of a
-tile anti-diagonal (the per-tile form), once per sweep (the whole grid).  On
+On a CUDA tensor the wrappers launch ``csrc/blocked.cu``, once a call.  On
 a CPU tensor they run :func:`blocked_ref`, the plain torch version of the
-same tile table, face layout and state, in anti-diagonal order.
+same tile table, face layout and state, in the run's order.
 """
 
 from __future__ import annotations
@@ -229,22 +232,62 @@ def planes_needed(q1: int, dims: Dims) -> Tuple[int, int]:
             min(q1 - 1 + dims.wc - 1, dims.nq))
 
 
-def _runs(dims: Dims, idx0: int, count: int) -> Iterator[Tuple[int, int, int]]:
-    """Tiles idx0 .. idx0 + count - 1 of :func:`tile_table` as runs of one
-    anti-diagonal each: (d, first jb, tiles)."""
+def table_run(dims: Dims, idx0: int, count: int) -> List[Tuple[int, int]]:
+    """Tiles idx0 .. idx0 + count - 1 of :func:`tile_table`; raises
+    ValueError for a range past the table."""
     if idx0 < 0 or count < 0 or idx0 + count > n_tiles(dims):
         raise ValueError(f"tiles {idx0} .. {idx0 + count - 1} are not in a "
                          f"grid of {n_tiles(dims)}")
-    run = None
-    for jb, kb in tile_table(dims)[idx0:idx0 + count]:
-        if run is not None and run[0] == jb + kb:
-            run[2] += 1
-            continue
-        if run is not None:
-            yield tuple(run)
-        run = [jb + kb, jb, 1]
-    if run is not None:
-        yield tuple(run)
+    return tile_table(dims)[idx0:idx0 + count]
+
+
+def rect_tiles(rows: Tuple[int, int],
+               cols: Tuple[int, int]) -> List[Tuple[int, int]]:
+    """The tiles of rows [r0, r1) and columns [k0, k1) in anti-diagonal
+    order (jb + kb ascending, then jb), in which each tile's neighbours in
+    the rectangle come first: a band of a stripe (dist/halo.py)."""
+    return sorted(((jb, kb) for jb in range(*rows) for kb in range(*cols)),
+                  key=lambda t: (t[0] + t[1], t[0]))
+
+
+# Columns of a run's table (csrc/blocked.cu RunEntry): the tile, then the
+# entries of its upper and left neighbours within the run, -1 outside it.
+RUN_FIELDS = ("jb", "kb", "up", "left")
+
+
+def run_table(dims: Dims, tiles: Sequence[Tuple[int, int]]) -> np.ndarray:
+    """The (len(tiles), 4) int32 table of a run (:data:`RUN_FIELDS`).
+    Raises ValueError for a tile outside the grid, a tile listed twice or a
+    neighbour listed after its tile."""
+    index = {}
+    table = np.empty((len(tiles), len(RUN_FIELDS)), np.int32)
+    for e, (jb, kb) in enumerate(tiles):
+        if not (0 <= jb < dims.n_jb and 0 <= kb < dims.n_kb) or \
+                (jb, kb) in index:
+            raise ValueError(f"tile {(jb, kb)} is outside a grid of "
+                             f"{dims.n_jb} x {dims.n_kb} or listed twice")
+        index[jb, kb] = e
+        table[e] = jb, kb, index.get((jb - 1, kb), -1), \
+            index.get((jb, kb - 1), -1)
+    for (jb, kb), e in index.items():
+        for nb in ((jb + 1, kb), (jb, kb + 1)):
+            if index.get(nb, e) < e:
+                raise ValueError(f"tile {(jb, kb)} comes after {nb}, which "
+                                 "it feeds")
+    return table
+
+
+def diagonal_groups(tiles: Sequence[Tuple[int, int]]) -> Iterator[list]:
+    """Consecutive tiles of one anti-diagonal, which do not feed each
+    other, as lists."""
+    group: list = []
+    for t in tiles:
+        if group and sum(group[0]) != sum(t):
+            yield group
+            group = []
+        group.append(t)
+    if group:
+        yield group
 
 
 def pillar_steps(a_ext, b_ext, c_ext, lb: int, lc: int, dims: Dims,
@@ -330,25 +373,27 @@ def pillar_steps(a_ext, b_ext, c_ext, lb: int, lc: int, dims: Dims,
 def blocked_ref(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                 scoring: Scoring = Scoring(), score_bits: int = 0,
                 state: Optional[BlockedState] = None, idx0: int = 0,
-                count: Optional[int] = None) -> torch.Tensor:
+                count: Optional[int] = None, tiles=None) -> torch.Tensor:
     """Plain torch version of K3: sweeps tiles idx0 .. idx0 + count - 1 of
-    :func:`tile_table` (all by default) from ``state`` (a fresh one by
+    :func:`tile_table` (all by default), or the list ``tiles`` in its order
+    (each tile's neighbours swept before it), from ``state`` (a fresh one by
     default), updating it in place, and returns its final values: (7,) for
     one problem, (npack, 7) for a chain.
 
     Same tile table, face slabs, halo install order, face entries written
-    and capture as the kernel; the tiles of one anti-diagonal run as one
-    batch (:func:`pillar_steps`).  ``la`` is the problem's |A| (a slot's in
-    chain mode)."""
+    and capture as the kernel; consecutive tiles of one anti-diagonal run as
+    one batch (:func:`pillar_steps`).  ``la`` is the problem's |A| (a
+    slot's in chain mode)."""
     dev = a_ext.device
     if state is None:
         state = new_state(dims, dev)
-    if count is None:
-        count = n_tiles(dims) - idx0
-    for d, jb_lo, n in _runs(dims, idx0, count):
-        jbs = torch.arange(jb_lo, jb_lo + n, device=dev)
+    if tiles is None:
+        tiles = table_run(dims, idx0, n_tiles(dims) - idx0 if count is None
+                          else count)
+    for group in diagonal_groups(tiles):
+        jbs, kbs = torch.tensor(group, device=dev).view(-1, 2).unbind(1)
         for _ in pillar_steps(a_ext, b_ext, c_ext, lb, lc, dims, state, jbs,
-                              d - jbs, scoring, score_bits):
+                              kbs, scoring, score_bits):
             pass
     return state.out if dims.d else state.out[0]
 
@@ -393,35 +438,6 @@ def _geom(lb: int, lc: int, dims: Dims):
                               dims.d or sweep_la + 1, dims.npack)
 
 
-def _sweep(a_ext, b_ext, c_ext, la, lb, lc, dims, state, idx0, count,
-           scoring, score_bits, threads) -> BlockedState:
-    """Tiles idx0 .. idx0 + count - 1 on ``state``: blocked_ref on a CPU
-    tensor, K3 (one launch a run of one anti-diagonal, counted on
-    :func:`sweep_tiles`) on a CUDA tensor, never a fallback."""
-    dev = a_ext.device
-    _check_state(state, dims, dev)
-    if dev.type == "cpu":
-        blocked_ref(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring,
-                    score_bits, state, idx0, count)
-        return state
-    if dev.type != "cuda":
-        raise ValueError(f"no blocked kernel for device {dev}")
-    lib = _build.load("blocked")
-    step, table = _build.kernel_scoring(scoring, score_bits, dev)
-    geom = _geom(lb, lc, dims)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for d, jb_lo, n in _runs(dims, idx0, count):
-            code = lib.trialign_blocked_tiles(
-                a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(), geom, d,
-                jb_lo, n, table.data_ptr(), step, state.rf.data_ptr(),
-                state.cf.data_ptr(), state.out.data_ptr(), threads, stream,
-            )
-            _build.check(lib, code, f"blocked kernel launch (diagonal {d})")
-            sweep_tiles.launches += 1
-    return state
-
-
 def check_schedule(chunk: int, blocks: Optional[int]) -> None:
     """Raise ValueError for a chunk or a grid cap the persistent sweeps do
     not take."""
@@ -431,32 +447,65 @@ def check_schedule(chunk: int, blocks: Optional[int]) -> None:
         raise ValueError(f"blocks must be >= 1 or None, not {blocks}")
 
 
-def _sweep_grid(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, scoring,
-                score_bits, threads, chunk, blocks) -> BlockedState:
-    """The whole tile table on a fresh state: blocked_ref on a CPU tensor;
-    on a CUDA tensor K3's persistent sweep, one launch counted on
+class Work(NamedTuple):
+    """What one persistent launch of K3 or K5 reads beside the sweep, in one
+    int32 tensor on the device: the run's table (:data:`RUN_FIELDS` rows;
+    none for the whole grid), the hand-out counter (0) and one progress word
+    a tile (-1)."""
+
+    buf: torch.Tensor
+    run: Optional[int]  # address of the table, None for the whole grid
+    ntiles: int
+    next_tile: int      # address of the counter
+    done: int           # address of the progress words
+
+
+def launch_work(dims: Dims, table: Optional[np.ndarray], device) -> Work:
+    """The :class:`Work` of a launch over a run's ``table`` (None: the whole
+    grid), copied to ``device`` from pinned memory on the current stream, so
+    that the host never waits for the card."""
+    n = n_tiles(dims) if table is None else len(table)
+    rows = 0 if table is None else table.size
+    host = torch.empty(rows + 1 + n, dtype=torch.int32, pin_memory=True)
+    h = host.numpy()
+    if table is not None:
+        h[:rows] = table.reshape(-1)
+    h[rows] = 0
+    h[rows + 1:] = -1
+    buf = host.to(device, non_blocking=True)
+    ptr = buf.data_ptr()
+    return Work(buf, None if table is None else ptr, n, ptr + 4 * rows,
+                ptr + 4 * (rows + 1))
+
+
+def _persistent(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, state,
+                tiles, scoring, score_bits, threads, chunk,
+                blocks) -> BlockedState:
+    """``tiles`` (None: the whole table) on ``state``: blocked_ref on a CPU
+    tensor; on a CUDA tensor one persistent launch of K3, counted on
     ``counter``, which raises if refused and never falls back."""
     check_schedule(chunk, blocks)
     dev = a_ext.device
-    state = new_state(dims, dev)
+    _check_state(state, dims, dev)
+    run = None if tiles is None else run_table(dims, tiles)
+    if run is not None and not len(run):
+        return state
     if dev.type == "cpu":
         blocked_ref(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring,
-                    score_bits, state)
+                    score_bits, state, tiles=tiles)
         return state
     if dev.type != "cuda":
         raise ValueError(f"no blocked kernel for device {dev}")
     lib = _build.load("blocked")
     step, table = _build.kernel_scoring(scoring, score_bits, dev)
     with torch.cuda.device(dev):
-        # The hand-out counter and one progress word a tile, on the stream.
-        next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
-        done = torch.full((n_tiles(dims),), -1, dtype=torch.int32,
-                          device=dev)
+        work = launch_work(dims, run, dev)
         code = lib.trialign_blocked_sweep(
             a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
-            _geom(lb, lc, dims), table.data_ptr(), step, state.rf.data_ptr(),
-            state.cf.data_ptr(), state.out.data_ptr(), threads, chunk,
-            blocks or 0, next_tile.data_ptr(), done.data_ptr(),
+            _geom(lb, lc, dims), work.run, work.ntiles, table.data_ptr(),
+            step, state.rf.data_ptr(), state.cf.data_ptr(),
+            state.out.data_ptr(), threads, chunk, blocks or 0,
+            work.next_tile, work.done,
             torch.cuda.current_stream().cuda_stream,
         )
         _build.check(lib, code, "blocked kernel launch (persistent sweep)")
@@ -478,16 +527,71 @@ def blocks_per_sm(dims: Dims, threads: int = THREADS) -> int:
 def sweep_tiles(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                 state: BlockedState, idx0: int, count: int,
                 scoring: Scoring = Scoring(), score_bits: int = 0,
-                threads: int = THREADS) -> BlockedState:
+                threads: int = THREADS, chunk: int = CHUNK,
+                blocks: Optional[int] = None) -> BlockedState:
     """The per-tile form (blocked.py make_block_call): runs tiles idx0 ..
     idx0 + count - 1 of :func:`tile_table` on ``state`` in place and returns
     it; ``state.out`` holds the final values once the last tile has run.  A
-    run may end in the middle of an anti-diagonal.  On a CPU tensor this is
-    :func:`blocked_ref`; on a CUDA tensor it launches K3 once per run of one
-    anti-diagonal and never falls back.  Nothing waits for the card."""
+    run may end in the middle of an anti-diagonal.  :func:`sweep_run` of
+    those tiles: on a CUDA tensor one persistent launch of K3 (``chunk`` and
+    ``blocks`` as :func:`final_values`), which never falls back.  Nothing
+    waits for the card."""
+    return sweep_run(a_ext, b_ext, c_ext, la, lb, lc, dims, state,
+                     table_run(dims, idx0, count), scoring, score_bits,
+                     threads, chunk, blocks)
+
+
+def sweep_run(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
+              state: BlockedState, tiles: Sequence[Tuple[int, int]],
+              scoring: Scoring = Scoring(), score_bits: int = 0,
+              threads: int = THREADS, chunk: int = CHUNK,
+              blocks: Optional[int] = None) -> BlockedState:
+    """The per-tile form over the list ``tiles`` of (jb, kb): each tile's
+    neighbours in the list come before it (ValueError otherwise), and every
+    other neighbour must have been swept on ``state`` before, by work that
+    the current stream has waited for (the earlier bands of a stripe, or the
+    faces another stripe handed over; dist/halo.py).  On a CPU tensor this
+    is :func:`blocked_ref` in the list's order; on a CUDA tensor one
+    persistent launch of K3, counted on ``sweep_tiles.launches``, which
+    raises if refused and never falls back.  An empty list launches
+    nothing."""
     _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
-    return _sweep(a_ext, b_ext, c_ext, la, lb, lc, dims, state, idx0, count,
-                  scoring, score_bits, threads)
+    return _persistent(sweep_tiles, a_ext, b_ext, c_ext, la, lb, lc, dims,
+                       state, list(tiles), scoring, score_bits, threads,
+                       chunk, blocks)
+
+
+def sweep_diagonals(a_ext, b_ext, c_ext, la: int, lb: int, lc: int,
+                    dims: Dims, state: BlockedState, idx0: int, count: int,
+                    scoring: Scoring = Scoring(), score_bits: int = 0,
+                    threads: int = THREADS) -> BlockedState:
+    """K3's per-tile form as it was, on a CUDA tensor: one launch a run of
+    one tile anti-diagonal, a thread block a tile, stream order carrying the
+    faces (``csrc/blocked.cu`` blocked_kernel).  The same state as
+    :func:`sweep_tiles`; ``chip_smoke.py`` holds the two equal and times
+    them in turns.  No entry point of the package calls it."""
+    _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
+    dev = a_ext.device
+    _check_state(state, dims, dev)
+    if dev.type != "cuda":
+        raise ValueError("sweep_diagonals runs on a CUDA device")
+    lib = _build.load("blocked")
+    step, table = _build.kernel_scoring(scoring, score_bits, dev)
+    geom = _geom(lb, lc, dims)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for group in diagonal_groups(table_run(dims, idx0, count)):
+            jb_lo, kb = group[0]
+            code = lib.trialign_blocked_tiles(
+                a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(), geom,
+                jb_lo + kb, jb_lo, len(group), table.data_ptr(), step,
+                state.rf.data_ptr(), state.cf.data_ptr(),
+                state.out.data_ptr(), threads, stream,
+            )
+            _build.check(lib, code, f"blocked kernel launch (diagonal "
+                         f"{jb_lo + kb})")
+            sweep_diagonals.launches += 1
+    return state
 
 
 def final_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
@@ -503,8 +607,9 @@ def final_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
     _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
     if dims.d:
         raise ValueError("chain dims: use chain_values")
-    return _sweep_grid(final_values, a_ext, b_ext, c_ext, la, lb, lc, dims,
-                       scoring, score_bits, threads, chunk, blocks).out[0]
+    return _persistent(final_values, a_ext, b_ext, c_ext, la, lb, lc, dims,
+                       new_state(dims, a_ext.device), None, scoring,
+                       score_bits, threads, chunk, blocks).out[0]
 
 
 def chain_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
@@ -520,16 +625,19 @@ def chain_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
     _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
     if not dims.d:
         raise ValueError("chain_values needs plan_dims_packed's dims")
-    return _sweep_grid(chain_values, a_ext, b_ext, c_ext, la, lb, lc, dims,
-                       scoring, score_bits, threads, chunk, blocks).out
+    return _persistent(chain_values, a_ext, b_ext, c_ext, la, lb, lc, dims,
+                       new_state(dims, a_ext.device), None, scoring,
+                       score_bits, threads, chunk, blocks).out
 
 
 # Launches of the CUDA kernel since the count was last set to 0, for each
 # entry point: the whole-grid sweep (final_values), the per-tile form
-# (sweep_tiles) and chain mode (chain_values).
+# (sweep_tiles and sweep_run), chain mode (chain_values) and the per-tile
+# form's earlier design (sweep_diagonals).
 final_values.launches = 0
 sweep_tiles.launches = 0
 chain_values.launches = 0
+sweep_diagonals.launches = 0
 
 
 def align_blocked_async(a, b, c, scoring: Scoring = Scoring(),

@@ -24,15 +24,18 @@ kernels/blocked.py), :func:`_scal_table`, :func:`_assemble`,
 :func:`split_point_blocked_async`; each ``*_async`` function enqueues its work
 on ``device`` and returns a fetch closure.  On a CUDA tensor
 :func:`slab_sweep` launches K5; on a CPU tensor it runs :func:`slab_ref`,
-the plain torch version of the same tiles, faces and capture in
-anti-diagonal order.
+the plain torch version of the same tiles, faces and capture in the run's
+order.
 
 The sweep state (:class:`SlabState`) stays on the device between launches,
 so :func:`sweep_tiles` runs any run of the tile table with global tile
-indices: K5's per-tile form, the port of ``make_slab_block_call``, on which
-the stripes of ``dist/halo_tb.py`` run, one launch per run of one
-anti-diagonal.  :func:`slab_sweep` computes the same state over the whole
-table in one launch.
+indices, and :func:`sweep_run` any list of tiles whose neighbours come first
+(a band of a stripe's rows): K5's per-tile form, the port of
+``make_slab_block_call``, on which the stripes of ``dist/halo_tb.py`` run,
+one persistent launch a call as K3's (``kernels/blocked.py``).
+:func:`slab_sweep` computes the same state over the whole table in one
+launch.  :func:`sweep_diagonals` keeps the per-tile form's earlier design,
+one launch a run of one anti-diagonal, for ``chip_smoke.py`` to compare.
 """
 
 from __future__ import annotations
@@ -286,27 +289,28 @@ def pillar_steps(a_ext, b_ext, c_ext, la: int, dims: Dims, variant: str,
 def slab_ref(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
              variant: str, ev, scoring: Scoring = Scoring(),
              state: Optional[SlabState] = None, idx0: int = 0,
-             count: Optional[int] = None):
+             count: Optional[int] = None, tiles=None):
     """Plain torch version of K5: sweeps tiles idx0 .. idx0 + count - 1 of
-    ``blocked.tile_table`` (all by default) from ``state`` (a fresh one with
-    origin vector ``ev`` by default; ``ev`` is ignored when a state is
-    given), updating it in place, and returns its (final (7,), cap
+    ``blocked.tile_table`` (all by default), or the list ``tiles`` in its
+    order (each tile's neighbours swept before it), from ``state`` (a fresh
+    one with origin vector ``ev`` by default; ``ev`` is ignored when a state
+    is given), updating it in place, and returns its (final (7,), cap
     (n_blocks, 7, hb, wc)), both int32 on the inputs' device.
 
     The same tile schedule, guarded plane ring, face slabs, categories of
     position (row face, column face, zero face, origin, step) and capture
-    as the kernel, read from the same scalar table; the tiles of one run
-    go as one batch (:func:`pillar_steps`).  Tile indices are global, so a
-    run may be any part of the grid (a stripe of tile columns, a segment
-    that ends mid-diagonal)."""
+    as the kernel, read from the same scalar table; consecutive tiles of one
+    anti-diagonal go as one batch (:func:`pillar_steps`).  Tile indices are
+    global, so a run may be any part of the grid (a stripe's band of tile
+    rows, a segment that ends mid-diagonal)."""
     dev = a_ext.device
     if state is None:
         state = new_state(la, lb, lc, dims, ev, dev)
-    if count is None:
-        count = bk.n_tiles(dims) - idx0
-    for d, jb_lo, n in bk._runs(dims, idx0, count):
-        jb_np = np.arange(jb_lo, jb_lo + n)
-        blks = jb_np * dims.n_kb + (d - jb_np)
+    if tiles is None:
+        tiles = bk.table_run(dims, idx0, bk.n_tiles(dims) - idx0
+                             if count is None else count)
+    for group in bk.diagonal_groups(tiles):
+        blks = np.array([jb * dims.n_kb + kb for jb, kb in group])
         for _ in pillar_steps(a_ext, b_ext, c_ext, la, dims, variant, state,
                               blks, scoring):
             pass
@@ -347,84 +351,106 @@ def _check_state(state: SlabState, dims: Dims, device) -> None:
                              "device of the symbol arrays")
 
 
-def _run(a_ext, b_ext, c_ext, la, lb, lc, dims, variant, state, idx0, count,
-         scoring) -> SlabState:
-    """Tiles idx0 .. idx0 + count - 1 on ``state``: slab_ref on a CPU
-    tensor, K5 (one launch a run of one anti-diagonal, counted on
-    :func:`sweep_tiles`) on a CUDA tensor, never a fallback."""
+def _persistent(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, variant,
+                state, tiles, scoring, chunk, blocks) -> SlabState:
+    """``tiles`` (None: the whole table) on ``state``: slab_ref on a CPU
+    tensor; on a CUDA tensor one persistent launch of K5, counted on
+    ``counter``, which raises if refused and never falls back."""
+    bk.check_schedule(chunk, blocks)
     dev = a_ext.device
     _check_state(state, dims, dev)
+    run = None if tiles is None else bk.run_table(dims, tiles)
+    if run is not None and not len(run):
+        return state
     if dev.type == "cpu":
         slab_ref(a_ext, b_ext, c_ext, la, lb, lc, dims, variant, None,
-                 scoring, state, idx0, count)
+                 scoring, state, tiles=tiles)
         return state
     if dev.type != "cuda":
         raise ValueError(f"no slab kernel for device {dev}")
     lib = _build.load("slab")
     step, table = _build.kernel_scoring(scoring, 0, dev, SUBMATRIX_NSYM_CAP)
-    geom = _build.SlabGeom(la, dims.hb, dims.wc, dims.n_jb, dims.n_kb,
-                           dims.nrows, VARIANTS[variant])
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for d, jb_lo, n in bk._runs(dims, idx0, count):
-            code = lib.trialign_slab_tiles(
-                a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(), geom, d,
-                jb_lo, n, state.scal.data_ptr(), table.data_ptr(), step,
-                state.rf.data_ptr(), state.cf.data_ptr(),
-                state.out.data_ptr(), state.cap.data_ptr(), stream,
-            )
-            _build.check(lib, code, f"slab kernel launch (diagonal {d})")
-            sweep_tiles.launches += 1
+        work = bk.launch_work(dims, run, dev)
+        code = lib.trialign_slab_sweep(
+            a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
+            _geom(dims, la, variant), work.run, work.ntiles,
+            state.scal.data_ptr(), table.data_ptr(), step,
+            state.rf.data_ptr(), state.cf.data_ptr(), state.out.data_ptr(),
+            state.cap.data_ptr(), chunk, blocks or 0, work.next_tile,
+            work.done, torch.cuda.current_stream().cuda_stream,
+        )
+        _build.check(lib, code, "slab kernel launch (persistent sweep)")
+        counter.launches += 1
     return state
+
+
+def _geom(dims: Dims, la: int, variant: str):
+    return _build.SlabGeom(la, dims.hb, dims.wc, dims.n_jb, dims.n_kb,
+                           dims.nrows, VARIANTS[variant])
 
 
 def sweep_tiles(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                 variant: str, state: SlabState, idx0: int, count: int,
-                scoring: Scoring = Scoring()) -> SlabState:
+                scoring: Scoring = Scoring(), chunk: int = bk.CHUNK,
+                blocks: Optional[int] = None) -> SlabState:
     """The per-tile form (slab.py make_slab_block_call): runs tiles idx0 ..
     idx0 + count - 1 of ``blocked.tile_table`` on ``state`` (from
     :func:`new_state`) in place and returns it.  A run may end in the
-    middle of an anti-diagonal, or hold only some of a diagonal's tiles (a
-    stripe's); tile indices stay global.  On a CPU tensor this is
-    :func:`slab_ref`; on a CUDA tensor it launches K5 once per run of one
-    anti-diagonal and never falls back.  Nothing waits for the card."""
+    middle of an anti-diagonal; tile indices stay global.
+    :func:`sweep_run` of those tiles: on a CUDA tensor one persistent launch
+    of K5 (``chunk`` and ``blocks`` as :func:`slab_sweep`), which never
+    falls back.  Nothing waits for the card."""
+    return sweep_run(a_ext, b_ext, c_ext, la, lb, lc, dims, variant, state,
+                     bk.table_run(dims, idx0, count), scoring, chunk, blocks)
+
+
+def sweep_run(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
+              variant: str, state: SlabState, tiles, scoring: Scoring =
+              Scoring(), chunk: int = bk.CHUNK,
+              blocks: Optional[int] = None) -> SlabState:
+    """The per-tile form over the list ``tiles`` of (jb, kb), as
+    ``blocked.sweep_run``: each tile's neighbours in the list come before
+    it, every other neighbour was swept on ``state`` by work the current
+    stream has waited for.  On a CPU tensor this is :func:`slab_ref` in the
+    list's order; on a CUDA tensor one persistent launch of K5, counted on
+    ``sweep_tiles.launches``, which raises if refused and never falls back.
+    An empty list launches nothing."""
     _check(a_ext, b_ext, c_ext, la, lb, lc, dims, variant)
-    return _run(a_ext, b_ext, c_ext, la, lb, lc, dims, variant, state, idx0,
-                count, scoring)
+    return _persistent(sweep_tiles, a_ext, b_ext, c_ext, la, lb, lc, dims,
+                       variant, state, list(tiles), scoring, chunk, blocks)
 
 
-def _sweep_grid(a_ext, b_ext, c_ext, la, lb, lc, dims, variant, state,
-                scoring, chunk, blocks) -> SlabState:
-    """The whole tile table on a fresh ``state``: slab_ref on a CPU tensor;
-    on a CUDA tensor K5's persistent sweep, one launch counted on
-    :func:`slab_sweep`, which raises if refused and never falls back."""
-    bk.check_schedule(chunk, blocks)
+def sweep_diagonals(a_ext, b_ext, c_ext, la: int, lb: int, lc: int,
+                    dims: Dims, variant: str, state: SlabState, idx0: int,
+                    count: int, scoring: Scoring = Scoring()) -> SlabState:
+    """K5's per-tile form as it was, on a CUDA tensor: one launch a run of
+    one tile anti-diagonal, a thread block a tile, stream order carrying the
+    faces (``csrc/slab.cu`` slab_kernel).  The same state as
+    :func:`sweep_tiles`; ``chip_smoke.py`` holds the two equal and times
+    them in turns.  No entry point of the package calls it."""
+    _check(a_ext, b_ext, c_ext, la, lb, lc, dims, variant)
     dev = a_ext.device
     _check_state(state, dims, dev)
-    if dev.type == "cpu":
-        slab_ref(a_ext, b_ext, c_ext, la, lb, lc, dims, variant, None,
-                 scoring, state)
-        return state
     if dev.type != "cuda":
-        raise ValueError(f"no slab kernel for device {dev}")
+        raise ValueError("sweep_diagonals runs on a CUDA device")
     lib = _build.load("slab")
     step, table = _build.kernel_scoring(scoring, 0, dev, SUBMATRIX_NSYM_CAP)
-    geom = _build.SlabGeom(la, dims.hb, dims.wc, dims.n_jb, dims.n_kb,
-                           dims.nrows, VARIANTS[variant])
+    geom = _geom(dims, la, variant)
     with torch.cuda.device(dev):
-        # The hand-out counter and one progress word a tile, on the stream.
-        next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
-        done = torch.full((bk.n_tiles(dims),), -1, dtype=torch.int32,
-                          device=dev)
-        code = lib.trialign_slab_sweep(
-            a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(), geom,
-            state.scal.data_ptr(), table.data_ptr(), step,
-            state.rf.data_ptr(), state.cf.data_ptr(), state.out.data_ptr(),
-            state.cap.data_ptr(), chunk, blocks or 0, next_tile.data_ptr(),
-            done.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-        _build.check(lib, code, "slab kernel launch (persistent sweep)")
-        slab_sweep.launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        for group in bk.diagonal_groups(bk.table_run(dims, idx0, count)):
+            jb_lo, kb = group[0]
+            code = lib.trialign_slab_tiles(
+                a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(), geom,
+                jb_lo + kb, jb_lo, len(group), state.scal.data_ptr(),
+                table.data_ptr(), step, state.rf.data_ptr(),
+                state.cf.data_ptr(), state.out.data_ptr(),
+                state.cap.data_ptr(), stream,
+            )
+            _build.check(lib, code, f"slab kernel launch (diagonal "
+                         f"{jb_lo + kb})")
+            sweep_diagonals.launches += 1
     return state
 
 
@@ -452,16 +478,17 @@ def slab_sweep(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
     if len(ev) != NUM_MATRICES:
         raise ValueError("ev holds one value per matrix")
     state = new_state(la, lb, lc, dims, ev, a_ext.device)
-    _sweep_grid(a_ext, b_ext, c_ext, la, lb, lc, dims, variant, state,
-                scoring, chunk, blocks)
+    _persistent(slab_sweep, a_ext, b_ext, c_ext, la, lb, lc, dims, variant,
+                state, None, scoring, chunk, blocks)
     return state.out, state.cap
 
 
 # Launches of the CUDA kernel since the count was last set to 0, for each
-# entry point: the whole-grid sweep (slab_sweep) and the per-tile form
-# (sweep_tiles).
+# entry point: the whole-grid sweep (slab_sweep), the per-tile form
+# (sweep_tiles and sweep_run) and its earlier design (sweep_diagonals).
 slab_sweep.launches = 0
 sweep_tiles.launches = 0
+sweep_diagonals.launches = 0
 
 
 def _assemble(cap: torch.Tensor, dims: Dims, lb: int, lc: int):

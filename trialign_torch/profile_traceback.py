@@ -3,7 +3,7 @@
 Run on a machine with a CUDA device::
 
     python3 -m trialign_torch.profile_traceback [--sizes 512 1024 2048] \
-        [--seed 0]
+        [--seed 0] [--sharded STRIPES [--single-cells CELLS]]
 
 For each size n it prints one JSON line with, for a random n^3 triplet:
 
@@ -14,7 +14,13 @@ For each size n it prints one JSON line with, for a random n^3 triplet:
   ``torch.cuda.synchronize()``, the walk's steps, and the device's busy
   share over the sweep: the kernel seconds ``torch.profiler`` records (CUDA
   activity only) in a second run of the same sweep, over the first,
-  unprofiled run's seconds.
+  unprofiled run's seconds;
+* ``sharded`` (with ``--sharded``): ``dist.halo_tb.hirschberg_align_sharded``
+  on the same triplet in STRIPES stripes sharing the card, nodes above
+  ``--single-cells`` split on the stripes: its seconds, the seconds of its
+  sweeps on the stripes (every sharded split and ``free_jk`` guard, each
+  ending in a ``torch.cuda.synchronize()``), the rest (the single-device
+  leaves and the host) and the leaves' node lines.
 
 Then the card's name and power limit.  Without a CUDA device it exits 1.
 """
@@ -59,11 +65,49 @@ def kernel_seconds(fn) -> dict:
             "profiled_wall_s": wall}
 
 
+def sharded_seconds(a, b, c, cuda, stripes: int, single_cells: int) -> dict:
+    """One run of the sharded traceback on ``stripes`` stripes sharing the
+    card, its seconds split into the sweeps on the stripes and the rest."""
+    from trialign_torch.dist import halo_tb, mesh
+
+    striped = []
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            out, seconds = _seconds(lambda: fn(*args, **kwargs))
+            striped.append(seconds)
+            return out
+        return run
+
+    real = halo_tb.sharded_split_point, halo_tb._sharded_final_vector
+    halo_tb.sharded_split_point, halo_tb._sharded_final_vector = map(timed,
+                                                                     real)
+    log, saved = io.StringIO(), sys.stderr
+    sys.stderr = log
+    try:
+        (score, _), total = _seconds(lambda: halo_tb.hirschberg_align_sharded(
+            a, b, c, mesh=mesh.make_mesh(1, stripes,
+                                         devices=[cuda] * stripes),
+            single_cells=single_cells))
+    finally:
+        sys.stderr = saved
+        halo_tb.sharded_split_point, halo_tb._sharded_final_vector = real
+    return {"stripes": stripes, "single_cells": single_cells,
+            "score": score, "seconds": total, "striped_s": sum(striped),
+            "striped_calls": len(striped), "rest_s": total - sum(striped),
+            "nodes": log.getvalue().splitlines()}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--sizes", type=int, nargs="+",
                         default=[512, 1024, 2048])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--sharded", type=int, default=0, metavar="STRIPES",
+                        help="also run the sharded traceback in STRIPES "
+                             "stripes sharing the card")
+    parser.add_argument("--single-cells", type=int, default=64 << 20,
+                        help="the sharded traceback's single-device gate")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_traceback: no CUDA device", file=sys.stderr)
@@ -101,6 +145,9 @@ def main() -> int:
             rec["direct"] = {"sweep_s": sweep_s, "walk_s": walk_s,
                              "walk_steps": len(acts), **prof,
                              "busy_share": prof["kernel_s"] / sweep_s}
+        if args.sharded:
+            rec["sharded"] = sharded_seconds(a, b, c, cuda, args.sharded,
+                                             args.single_cells)
         print(json.dumps(rec), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
