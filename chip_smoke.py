@@ -11,7 +11,12 @@ per source, all at once) and prints one JSON line per phase:
 
 1. ``device``: the card, its SM clock, the toolkit, the build time and
    ptxas statistics;
-2. ``wavefront``: K2 against its plain version (the torch sweep), exactly;
+2. ``wavefront``: K2 (one persistent launch over every problem's tiles on
+   the register step) against its plain version (the torch sweep),
+   exactly, all seven values: tiny, ragged and |A|-long shapes under five
+   scorings and ``score_bits=12``, one launch over a batch of 3; then
+   4096 x 255 x 255 and a padded batch of 40 triplets against K2's earlier
+   design (one thread block a problem), exactly;
 3. ``blocked``: K3 against its plain versions (the tiled ``blocked_ref`` and
    the torch sweep), exactly;
 4. ``slab``: K5 against its plain versions (the tiled ``slab_ref`` and the
@@ -114,14 +119,18 @@ per source, all at once) and prints one JSON line per phase:
     ``align_batch_multihost``, a halo whose model axis spans both processes
     and the sharded traceback across them, each equal to this process's
     run of the same functions;
-18. ``tuning``: K2's thread counts; the persistent K3 at 1024^3 over
+18. ``tuning``: K2 at 64^3, 255^3 and 4096 x 255 x 255 over two tile
+    planes and three chunks (each held to the default), its registers and
+    spills; the persistent K3 at 1024^3 over
     three tile planes, two thread counts and four chunks; K5 "free" at the
     2048^3 top split's shape over the chunks; K4 on the batch over its
     chunks, beside its earlier design, and where its warps spend their
     cycles;
 19. ``timings``: each kernel (minimum over distinct inputs after a
     warm-up) beside its plain version (one run) at the main path's
-    sizes, and beside its bound; K3 at 512^3 and 1024^3, both bench chains
+    sizes, and beside its bound; K2 at 64^3, 255^3 and 4096 x 255 x 255 in
+    turns with its earlier design (earlier, new, new, earlier), beside K3
+    on the same triplets; K3 at 512^3 and 1024^3, both bench chains
     and K5 "free" and "bwd" at the split under both schedules in turns
     (diagonal, persistent, persistent, diagonal); K5 against the torch
     engine, exactly and
@@ -284,7 +293,9 @@ def smi(query: str) -> str:
 # Each kernel entry point's launch counter, by the name the summary gives it.
 # The earlier designs of the per-tile forms count apart, so that a main path
 # shows it never took them.
-COUNTERS = {"wavefront": wf.final_values, "blocked": bk.final_values,
+COUNTERS = {"wavefront": wf.final_values,
+            "wavefront_earlier": wf.final_values_earlier,
+            "blocked": bk.final_values,
             "blocked_tiles": bk.sweep_tiles, "blocked_chain": bk.chain_values,
             "hetero": hk.final_values, "hetero_tiles": hk.sweep_tiles,
             "slab": sk.slab_sweep, "slab_tiles": sk.sweep_tiles,
@@ -367,13 +378,41 @@ def phase_wavefront(rng) -> int:
     arrs = [torch.stack([ref.extend(t[x], width, pads[x], CUDA)
                          for t in trips]) for x, width in enumerate((la, lb, lc))]
     lens = [[len(x) for x in t] for t in trips]
+    before = wf.final_values.launches
     got = wf.final_values(*arrs, lens)
+    require(wf.final_values.launches == before + 1, "K2 batch: not 1 launch")
     for p, t in enumerate(trips):
         want = ref.sweep(arrs[0][p], arrs[1][p], arrs[2][p], *lens[p])
         require(cpu_ints(got[p]) == cpu_ints(want), f"K2 batch item {p}")
     checked.append("batch of 3")
+
+    # Against the earlier design where the plain sweep would take seconds:
+    # the longest |A| at the widest plane, and a padded batch of 40.
+    for what, args in (
+            ("(4096, 255, 255)", wf.prep(*triplet(rng, (4096, 255, 255)),
+                                         CUDA)),
+            ("padded batch of 40", padded_args(padded_triplets(rng, 40)))):
+        got, want = wf.final_values(*args), wf.final_values_earlier(*args)
+        err = max(err, _diff(got, want))
+        require(torch.equal(got, want), f"K2 {what}: {cpu_ints(got)[:14]} "
+                f"!= earlier design {cpu_ints(want)[:14]}")
+        checked.append(f"{what}/earlier design")
     emit(phase="wavefront", cases=checked, max_abs_err=err)
     return err
+
+
+def padded_triplets(rng, n):
+    """n triplets for one K2 launch: |A| uniform in [1, 600], |B| and |C|
+    in [1, 255]."""
+    return [triplet(rng, (rng.integers(1, 601), *rng.integers(1, 256, 2)))
+            for _ in range(n)]
+
+
+def padded_args(trips):
+    """K2's inputs for a padded batch, as align_batch makes them."""
+    from trialign_torch.dist.batch import prep_padded
+
+    return prep_padded(trips, CUDA)
 
 
 def blocked_case(a, b, c, scoring, bits, block_shape, tiled_ref):
@@ -877,8 +916,9 @@ def phase_main_path(rng) -> dict:
                      "score": r.score, "oracle": oracle,
                      "oracle_s": oracle_s, "align_s": r.seconds})
     launches = read_launches()
-    require(launches["wavefront"] and launches["blocked"] == 2,
-            f"a kernel did not launch, or K3 not once a sweep: {launches}")
+    require(launches["wavefront"] == 2 and not launches["wavefront_earlier"]
+            and launches["blocked"] == 2,
+            f"K2 not once a call, or K3 not once a sweep: {launches}")
     emit(phase="main_path", runs=runs, launches=launches)
     return launches, headline
 
@@ -1057,6 +1097,13 @@ def phase_batch(rng) -> tuple:
             and not l48["hetero"], f"48-triplet batch launches {l48}")
     want48 = [trialign_torch.align(*t).score for t in small]
     require([r.score for r in res48] == want48, "48-triplet batch != align()")
+    # Its K2 launch alone, in turns with K2's earlier design, on the
+    # triplets inside K2's caps of that batch and two more like it.
+    k2_inputs = [padded_args([t for t in b if wf.fits(*map(len, t))])
+                 for b in [small] + [batch_triplets(rng, 48, (16, 320))
+                                     for _ in range(2)]]
+    k2_turns = turns_old_new(wf.final_values_earlier, wf.final_values,
+                             k2_inputs)
 
     tb = batch_triplets(rng, 16, (64, 200))
     res16, s16 = timed_batch(tb, return_alignment=True)
@@ -1078,7 +1125,10 @@ def phase_batch(rng) -> tuple:
          align_backends=single, checked_against_native=len(native),
          native_s=native_s,
          padded={"triplets": len(small), "past_k2_caps": n_long,
-                 "seconds": s48, "launches": l48},
+                 "seconds": s48, "launches": l48,
+                 "k2_ms": k2_turns["ms"],
+                 "k2_old_design_ms": k2_turns["old_design_ms"],
+                 "k2_turns_ms": k2_turns["turns_ms"]},
          alignments={"triplets": len(tb), "seconds": s16,
                      "backends": sorted({r.backend for r in res16})})
     return launches["hetero"], trips, scores
@@ -2055,9 +2105,14 @@ def _inputs(rng, shape, count=4):
     return [triplet(rng, shape) for _ in range(count)]
 
 
-def time_wavefront(trips, threads=wf.THREADS):
-    args = [(*wf.prep(*t, CUDA), DEFAULT, 0, threads) for t in trips]
-    return time_cuda_ms(wf.final_values, args)
+def wavefront_inputs(trips):
+    return [wf.prep(*t, CUDA) for t in trips]
+
+
+def time_wavefront(trips, block=wf.TILE, chunk=wf.CHUNK):
+    return time_cuda_ms(functools.partial(wf.final_values, block=block,
+                                          chunk=chunk),
+                        wavefront_inputs(trips))
 
 
 def blocked_inputs(trips, block_shape=None):
@@ -2212,14 +2267,42 @@ TUNE_CHUNKS = (4, 8, 32, 128)
 
 # K4's chunks in the tuning phase.
 TUNE_HETERO_CHUNKS = (2, 4, 8)
+# K2's candidates: tile planes and chunks, at the shapes of its timings.
+TUNE_K2_TILES = ((17, 17), (33, 17), (33, 33))
+TUNE_K2_CHUNKS = (2, 4, 8)
+K2_SHAPES = ((64, 64, 64), (255, 255, 255), (4096, 255, 255))
+
+
+def tune_wavefront(rng) -> dict:
+    """K2 over TUNE_K2_TILES x TUNE_K2_CHUNKS at each of K2_SHAPES (3
+    inputs each; every candidate's values equal the default's on the
+    first), and its registers and spills by tile plane and register width."""
+    out = {}
+    for shape in K2_SHAPES:
+        inputs = wavefront_inputs(_inputs(rng, shape, 3))
+        want = wf.final_values(*inputs[0])
+        row = {}
+        for block in TUNE_K2_TILES:
+            for chunk in TUNE_K2_CHUNKS:
+                fn = functools.partial(wf.final_values, block=block,
+                                       chunk=chunk)
+                require(torch.equal(fn(*inputs[0]), want),
+                        f"K2 {shape} at {block} / chunk {chunk} differs")
+                row[f"{block[0]}x{block[1]}/{chunk}"] = time_cuda_ms(
+                    fn, inputs)
+        out["x".join(map(str, shape))] = row
+    out["resources"] = {
+        f"{b[0]}x{b[1]}/score_bits={bits}": wf.step_resources(
+            b, score_bits=bits) for b in TUNE_K2_TILES for bits in (0, 12)}
+    return out
 
 
 def phase_tuning(rng, batch) -> None:
-    """K2's thread counts; the persistent K3 at 1024^3 over every tile
-    plane, thread count and chunk of TUNE_*; K5 "free" at the 2048^3 top
-    split's shape over the chunks; K4 on the batch over its chunks."""
-    trips = _inputs(rng, (255, 255, 255))
-    k2 = {t: time_wavefront(trips, t) for t in (256, 512, 1024)}
+    """K2 over tile planes and chunks; the persistent K3 at 1024^3 over
+    every tile plane, thread count and chunk of TUNE_*; K5 "free" at the
+    2048^3 top split's shape over the chunks; K4 on the batch over its
+    chunks."""
+    k2 = tune_wavefront(rng)
     trips = _inputs(rng, (1024, 1024, 1024))
     k3 = {}
     for tile in TUNE_TILES:
@@ -2250,14 +2333,14 @@ def phase_tuning(rng, batch) -> None:
                                       for name in hk.PHASES},
                        "planes_cycles_per_plane":
                            row["planes"] / (row["chunks"] * hk.CHUNK)})
-    emit(phase="tuning", wavefront_255_ms_by_threads=k2,
+    emit(phase="tuning", wavefront_ms_by_tile_chunk=k2,
          blocked_1024_ms_by_tile_threads_chunk=k3,
          slab_free_split_ms_by_chunk=k5,
          hetero_batch_ms_by_chunk=k4,
          hetero_resources=hk.step_resources(hb_, wc_),
          hetero_batch_ms_earlier_design=k4_old,
          hetero_batch_phase_shares=phases,
-         chosen={"wavefront_threads": wf.THREADS,
+         chosen={"wavefront_tile": wf.TILE, "wavefront_chunk": wf.CHUNK,
                  "blocked_tile": bk.choose_block_shape(0, 0, 0),
                  "blocked_threads": bk.THREADS, "chunk": bk.CHUNK,
                  "hetero_chunk": hk.CHUNK})
@@ -2280,14 +2363,9 @@ def phase_timings(rng, dev, batch) -> tuple:
     new, old): ``ms`` is the persistent sweep's, ``diagonal_ms`` the
     diagonal schedule's (the per-tile form over the whole table)."""
     rows = {}
-    trips = _inputs(rng, (255, 255, 255))
-    ms = time_wavefront(trips)
-    plain_ms = time_plain(trips[0])
-    bms, by = bound(255 ** 3, 4 * (3 * 255 + NUM_MATRICES + 1), dev)
-    rows["wavefront_255"] = {"ms": ms, "gcups": gcups(255 ** 3, ms),
-                             "plain_ms": plain_ms,
-                             "plain_gcups": gcups(255 ** 3, plain_ms),
-                             "bound_ms": bms, "bound_by": by}
+    for shape in K2_SHAPES:
+        rows["wavefront_" + "x".join(map(str, shape))] = time_k2(
+            rng, shape, dev)
     for n in (512, 1024):
         trips = _inputs(rng, (n, n, n))
         row = in_turns(diagonal_k3, bk.final_values, blocked_inputs(trips))
@@ -2366,6 +2444,43 @@ def phase_timings(rng, dev, batch) -> tuple:
     rows["hetero_sample"] = time_hetero(rng, batch, dev)
     emit(phase="timings", **rows, slab_split_max_abs_err=split_err)
     return rows, split_err
+
+
+def time_k2(rng, shape, dev) -> dict:
+    """K2 at ``shape`` (3 inputs) in turns with its earlier design
+    (earlier, new, new, earlier); its launches a call; 20 calls queued
+    without waiting: the host's microseconds a call and the card's
+    milliseconds a call between two events around them (the card's time
+    where it outpaces the host); K3 on the same triplets; the plain sweep
+    at 255^3 and below (one run); the bound."""
+    trips = _inputs(rng, shape, 3)
+    inputs = wavefront_inputs(trips)
+    row = turns_old_new(wf.final_values_earlier, wf.final_values, inputs)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        wf.final_values(*inputs[0])
+    row["host_us_a_call"] = (time.perf_counter() - t0) / 20 * 1e6
+    end.record()
+    end.synchronize()
+    row["queued_ms_a_call"] = start.elapsed_time(end) / 20
+    row["launches_a_call"] = read_launches()["wavefront"] / 20
+    row["k3_ms"] = time_cuda_ms(bk.final_values, blocked_inputs(trips))
+    cells = int(np.prod(shape))
+    row["gcups"] = gcups(cells, row["ms"])
+    if max(shape) <= 255:
+        row["plain_ms"] = time_plain(trips[0])
+        row["plain_gcups"] = gcups(cells, row["plain_ms"])
+    else:
+        row["plain_ms"] = None
+    # Inputs read once (3 symbol vectors), the final vector written.
+    row["bound_ms"], row["bound_by"] = bound(
+        cells, 4 * (sum(shape) + NUM_MATRICES + 1), dev)
+    return row
 
 
 def one_block_an_sm(whole, quarters, halo, trips) -> dict:
@@ -2475,7 +2590,13 @@ def main() -> int:
                      "diagonal_ms"])
     kernels = [
         ("wavefront", "wavefront", "trialign/kernels/wavefront.py:112",
-         k2_err, rows["wavefront_255"], {}),
+         k2_err, rows["wavefront_255x255x255"],
+         {"shape": "255^3",
+          "old_design_ms": rows["wavefront_255x255x255"]["old_design_ms"],
+          "k3_ms": rows["wavefront_255x255x255"]["k3_ms"],
+          **{f"{k}_{shape}": rows[f"wavefront_{shape}"][k]
+             for shape in ("64x64x64", "4096x255x255")
+             for k in ("ms", "old_design_ms", "k3_ms", "bound_ms")}}),
         ("blocked", "blocked", "trialign/kernels/blocked.py:225", k3_err,
          k3_row, {"diagonal_ms": k3_row["diagonal_ms"],
                   "ms_512": rows["blocked_512"]["ms"],

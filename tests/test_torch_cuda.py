@@ -65,6 +65,144 @@ def test_wavefront_kernel_matches_sweep(card, dims, name):
     assert got.cpu().tolist() == want.cpu().tolist()
 
 
+# K2's tiles on the card: the shapes of chip_smoke.py's wavefront phase
+# (ragged last tiles, tiny problems, |A| much longer than |B| and |C|) at
+# the tile planes its tuning chooses between and a plane of 4 x 8 cells.
+K2_SHAPES = [(1, 1, 1), (6, 5, 7), (40, 4, 6), (50, 1, 60), (64, 64, 64),
+             (255, 255, 255), (4096, 16, 16)]
+K2_PLANES = [(17, 17), (33, 17), (33, 33), (5, 9)]
+WIDE = Scoring(match=60, mismatch=-20, gap_open=80, gap_extend=10)
+
+
+@pytest.mark.parametrize("block", K2_PLANES)
+@pytest.mark.parametrize("dims", K2_SHAPES)
+def test_wavefront_tiles_match_sweep(card, dims, block):
+    """One launch a call, all seven values the plain sweep's, at chunks 1,
+    4 and the longest, and grids of 1 and 3 blocks and the occupancy's."""
+    args = wf.prep(*triplet(4, dims), card)
+    want = ref.sweep(args[0][0], args[1][0], args[2][0], *dims)
+    for chunk, blocks in ((1, 1), (4, 3), (hetero.MAX_CHUNK, None)):
+        before = wf.final_values.launches
+        got = wf.final_values(*args, block=block, chunk=chunk,
+                              blocks=blocks)
+        assert wf.final_values.launches == before + 1
+        assert got[0].cpu().tolist() == want.cpu().tolist()
+
+
+@pytest.mark.parametrize("name", sorted(SCORINGS))
+@pytest.mark.parametrize("dims", [(64, 64, 64), (255, 255, 255)])
+def test_wavefront_tiles_under_each_scoring(card, dims, name):
+    scoring, nsym = SCORINGS[name]
+    args = wf.prep(*triplet(5, dims, nsym), card)
+    got = wf.final_values(*args, scoring, block=(17, 17))[0]
+    want = ref.sweep(args[0][0], args[1][0], args[2][0], *dims, scoring)
+    assert got.cpu().tolist() == want.cpu().tolist()
+
+
+@pytest.mark.parametrize("block", K2_PLANES)
+def test_wavefront_score_bits_on_card(card, block):
+    """score_bits=12 where the wrap changes the answer: the register step's
+    wrap equals the plain sweep's and the golden model's."""
+    rng = np.random.default_rng(6)
+    a = rng.integers(0, 4, 64).astype(np.uint8)
+    b, c = a.copy(), a.copy()
+    b[::7] = (b[::7] + 1) % 4
+    c[::5] = (c[::5] + 2) % 4
+    args = wf.prep(a, b, c, card)
+    got = wf.final_values(*args, WIDE, 12, block=block)[0]
+    want = ref.sweep(args[0][0], args[1][0], args[2][0], 64, 64, 64, WIDE, 12)
+    assert got.cpu().tolist() == want.cpu().tolist()
+    g12 = align_planes_numpy(a, b, c, WIDE, score_bits=12)
+    assert int(got.max()) == g12 != align_planes_numpy(a, b, c, WIDE)
+
+
+def padded_batch(card, seed, n=40):
+    """A padded batch of mixed lengths, |B| and |C| up to 255, |A| up to
+    600, with an empty sequence among them."""
+    from trialign_torch.dist.batch import prep_padded
+
+    rng = np.random.default_rng(seed)
+    lens = [(int(rng.integers(1, 601)), int(rng.integers(1, 256)),
+             int(rng.integers(1, 256))) for _ in range(n)]
+    lens[3] = (0, 10, 10)
+    trips = [tuple(rng.integers(0, 4, x).astype(np.uint8) for x in t)
+             for t in lens]
+    return trips, prep_padded(trips, card)
+
+
+@pytest.mark.parametrize("name", sorted(SCORINGS))
+def test_wavefront_matches_earlier_design_on_a_padded_batch(card, name):
+    """40 triplets in one launch of each design, all seven values equal;
+    the earlier design counts apart."""
+    scoring, _ = SCORINGS[name]
+    _, args = padded_batch(card, 7)
+    before = (wf.final_values.launches, wf.final_values_earlier.launches)
+    got = wf.final_values(*args, scoring)
+    want = wf.final_values_earlier(*args, scoring)
+    assert (wf.final_values.launches, wf.final_values_earlier.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want)
+    assert got[3].tolist() == [0] * 7
+
+
+def test_wavefront_launches_split_at_the_budget(card, monkeypatch):
+    """Faces past the share of the card one launch takes, and past the
+    budget: launches of consecutive problems, the same values."""
+    _, args = padded_batch(card, 8, 12)
+    want = wf.final_values(*args)
+    monkeypatch.setattr(wf, "ONE_LAUNCH_SHARE", 0)
+    monkeypatch.setattr(hetero, "default_budget", lambda dev: 1)
+    before = wf.final_values.launches
+    got = wf.final_values(*args)
+    assert wf.final_values.launches == before + 11  # the empty one: none
+    assert torch.equal(got, want)
+
+
+def test_wavefront_on_two_streams_at_once(card):
+    """Two persistent launches, each sized to the whole card, on two
+    streams at once: each has its own progress words, neither waits on the
+    other."""
+    from trialign_torch.dist import mesh
+
+    inputs = [padded_batch(card, s)[1] for s in (9, 10)]
+    want = [wf.final_values(*x) for x in inputs]
+    streams = mesh.SlotStreams([card, card])
+    got = []
+    for k, x in enumerate(inputs):
+        with streams.on(k):
+            got.append(wf.final_values(*x))
+    streams.join()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("bits", [0, 12])
+@pytest.mark.parametrize("block,threads", [((33, 33), 256), ((33, 17), 128),
+                                           ((17, 17), 128)])
+def test_wavefront_step_resources(card, block, threads, bits):
+    res = wf.step_resources(block, score_bits=bits)
+    assert res["threads"] == threads
+    assert res["blocks_per_sm"] >= 1 and res["registers"] > 0
+
+
+def test_hetero_entry_refuses_score_bits(card):
+    """K4's C entry refuses score_bits: K2's mode of the step is not K4's."""
+    from trialign_torch import _build
+
+    batch = hetero_batch(card, 25, (33, 33))
+    state = hetero.new_state(batch)
+    lib = _build.load("hetero")
+    step, table = _build.kernel_scoring(Scoring(), 12, card)
+    nxt = torch.zeros(1, dtype=torch.int32, device=card)
+    code = lib.trialign_hetero_sweep(
+        batch.syms.data_ptr(), batch.geom_dev.data_ptr(),
+        batch.table_dev.data_ptr(), 0, len(batch.tiles), batch.hb, batch.wc,
+        table.data_ptr(), step, state.rf.data_ptr(), state.cf.data_ptr(),
+        state.out.data_ptr(), state.done.data_ptr(), nxt.data_ptr(),
+        hetero.CHUNK, 0, 0, torch.cuda.current_stream().cuda_stream)
+    assert code != 0
+
+
 @pytest.mark.parametrize("name", sorted(SCORINGS))
 @pytest.mark.parametrize("dims,block", [((10, 40, 50), (16, 128)),
                                         ((37, 70, 45), (9, 17)),

@@ -221,3 +221,51 @@ def test_sub_tiles_under_each_scoring(name):
     assert got.out.max(dim=1).values.tolist() == [
         align_planes_numpy(*t, jscoring(scoring)) if min(map(len, t)) else 0
         for t in trips]
+
+
+# K2's mode of the step (score_bits): each value wraps where it is made.
+@pytest.mark.parametrize("strip,chunk", [(2, 1), (4, 3)])
+@pytest.mark.parametrize("name", sorted(SCORINGS))
+def test_score_bits_each_tile_equals_blocked_ref(name, strip, chunk):
+    """Values wrapped to 4 bits, which wraps many cells: entry after entry
+    of the table, the model's state equals K3's plain version with the same
+    wrap (hetero_ref with score_bits), whose faces differ from the
+    unwrapped ones."""
+    scoring, nsym = SCORINGS[name]
+    _, batch = dispatch(8, nsym, [(9, 10, 13), (6, 9, 17)])
+    got, want = hetero.new_state(batch), hetero.new_state(batch)
+    for e in range(len(batch.tiles)):
+        hetero.step_layout_ref(batch, scoring, got, e, 1, strip, chunk,
+                               score_bits=4)
+        hetero.hetero_ref(batch, scoring, want, e, 1, score_bits=4)
+        assert_states_equal(got, want)
+    plain = hetero.new_state(batch)
+    hetero.hetero_ref(batch, scoring, plain)
+    assert not torch.equal(want.rf, plain.rf)
+
+
+def test_score_bits_equal_the_golden_wrap():
+    """score_bits=12 where the wrap changes the answer: the step's model
+    gives the JAX package's golden score with the wrap."""
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, 4, 30).astype(np.uint8)
+    b, c = a.copy(), a.copy()
+    b[::7] = (b[::7] + 1) % 4
+    c[::5] = (c[::5] + 2) % 4
+    wide = Scoring(match=60, mismatch=-20, gap_open=80, gap_extend=10)
+    batch = hetero.prep_hetero([(a, b, c)], 9, 17, "cpu")
+    got = hetero.step_layout_ref(batch, wide, strip=4, chunk=3, score_bits=12)
+    want = align_planes_numpy(a, b, c, jscoring(wide), score_bits=12)
+    assert want != align_planes_numpy(a, b, c, jscoring(wide))
+    assert int(got.max()) == want
+
+
+def test_k4_refuses_score_bits():
+    """K4 has no register width (the reference's hetero path has none):
+    its entry points take no score_bits."""
+    _, batch = dispatch(10)
+    with pytest.raises(TypeError):
+        hetero.final_values(batch, Scoring(), score_bits=12)
+    with pytest.raises(TypeError):
+        hetero.sweep_tiles(batch, hetero.new_state(batch), 0, 1, Scoring(),
+                           score_bits=12)

@@ -1,8 +1,9 @@
 """TriAlign on PyTorch and CUDA: the port of the JAX package ``trialign``.
 
 The score path of ``align(a, b, c)`` runs on an NVIDIA Hopper GPU through two
-CUDA kernels written for ``sm_90a`` (``csrc/``): the single-block wavefront
-sweep for |B|, |C| <= 255 and the blocked, sliced sweep beyond.
+CUDA kernels written for ``sm_90a`` (``csrc/``): the wavefront sweep for
+|B|, |C| <= 255 (a call's tiles over the whole card in one launch) and the
+blocked, sliced sweep beyond.
 ``align_batch`` scores a large batch through the heterogeneous batch kernel,
 many triplets a launch, and smaller ones through the first two.
 ``align(..., return_alignment=True)`` recovers an alignment through the

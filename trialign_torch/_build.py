@@ -70,9 +70,13 @@ _P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 # Entry points of each kernel library: name -> (restype, argtypes).
 SIGNATURES = {
     "wavefront": {
-        "trialign_wavefront_scratch_ints": (_I, [_I, _I]),
         "trialign_wavefront": (
-            _I, [_P, _I, _P, _P, _P, _I, _I, _I, _P, StepScoring, _P, _P, _I,
+            _I, [_P, _P, _P, _P, _P, _I, _I, _I, _P, StepScoring, _P, _P, _P,
+                 _P, _P, _I, _I, _P]),
+        "trialign_wavefront_resources": (_I, [_I, _I, _I, _I, _IP]),
+        "trialign_wavefront_scratch_ints": (_I, [_I, _I]),
+        "trialign_wavefront_earlier": (
+            _I, [_P, _I, _P, _P, _P, _I, _I, _I, _P, StepScoring, _P, _P,
                  _P]),
     },
     "blocked": {
@@ -212,29 +216,37 @@ def check_submatrix(scoring, cap: int = SUBMATRIX_NSYM_CAP) -> None:
         )
 
 
-def kernel_scoring(scoring, score_bits: int, device,
-                   cap: int = SUBMATRIX_NSYM_CAP):
-    """(StepScoring, submatrix table on ``device``) for a launch.
+def step_scoring(scoring, score_bits: int, cap: int = SUBMATRIX_NSYM_CAP):
+    """(StepScoring, submatrix table as a host int32 array) for a launch.
 
     The table is the top-left (nsym+1)^2 corner of ``Scoring.sub_lookup()``:
     its last row and column hold the clamped floor that every code >= nsym
-    scores, which is how the kernels index it.  Without a submatrix it is a
-    one-int placeholder the kernels do not read.  Raises ValueError for a
-    submatrix past ``cap`` symbols, the kernel's table."""
-    import torch
-
+    scores, which is how the kernels index it; without a submatrix it is
+    empty.  Raises ValueError for a submatrix past ``cap`` symbols, the
+    kernel's table."""
     check_submatrix(scoring, cap)
     nsym = 0 if scoring.submatrix is None else len(scoring.submatrix)
-    if nsym:
-        table = torch.from_numpy(
-            scoring.sub_lookup()[: nsym + 1, : nsym + 1].copy()
-        ).to(device)
-    else:
-        table = torch.zeros(1, dtype=torch.int32, device=device)
+    table = scoring.sub_lookup()[: nsym + 1, : nsym + 1].copy() if nsym \
+        else None
     step = StepScoring(
         scoring.match, scoring.mismatch, scoring.gap_open, scoring.gap_extend,
         int(scoring.s3_mode == "rtl"), nsym, score_bits,
     )
+    return step, table
+
+
+def kernel_scoring(scoring, score_bits: int, device,
+                   cap: int = SUBMATRIX_NSYM_CAP):
+    """(StepScoring, submatrix table on ``device``) for a launch
+    (:func:`step_scoring`); without a submatrix the table is a one-int
+    placeholder the kernels do not read."""
+    import torch
+
+    step, table = step_scoring(scoring, score_bits, cap)
+    if table is not None:
+        table = torch.from_numpy(table).to(device)
+    else:
+        table = torch.zeros(1, dtype=torch.int32, device=device)
     return step, table
 
 

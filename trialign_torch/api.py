@@ -67,8 +67,8 @@ NATIVE_TB_CELLS = 64 * 2**20
 
 
 def _pick_backend(la: int, lb: int, lc: int) -> str:
-    # The reference's routing (trialign/api.py:59-62): the single-block
-    # kernel up to its caps, the blocked sweep beyond.
+    # The reference's routing (trialign/api.py:59-62): the wavefront kernel
+    # (K2) up to its caps, the blocked sweep beyond.
     return "wavefront" if fits(la, lb, lc) else "blocked"
 
 

@@ -213,8 +213,8 @@ def cmd_bench(args) -> int:
     if args.mode == "wavefront" and n > 255:
         # Honor the explicit mode request instead of silently switching.
         raise SystemExit(
-            f"--mode wavefront requires --size <= 255 (single-block kernel "
-            f"limit); got {n}. Use --mode blocked or auto."
+            f"--mode wavefront requires --size <= 255 (the wavefront "
+            f"kernel's |B|, |C| cap); got {n}. Use --mode blocked or auto."
         )
     parity_check(sc, device=args.device)
     with profile_trace(args.profile, args.device):

@@ -16,19 +16,21 @@
 // its row of a geometry table.  The host lists the dispatch's tiles in a
 // table (kernels/hetero.py TABLE_FIELDS): global tile anti-diagonal by
 // diagonal, the longest problems first within one, each entry with the
-// entries of its upper and left neighbours.  One persistent launch
-// (hetero_sweep) runs any run [idx0, idx0 + count) of the table: as many
-// blocks as the SMs hold at once, each taking the next entry from a global
-// counter in table order and sweeping its tile to the end before it takes
-// another; a tile starts each chunk of planes once its neighbours' progress
-// words (one a table entry, kept in the sweep state) show the planes whose
-// face rows the chunk reads (kernels/blocked.planes_needed).  A neighbour
-// swept by an earlier run already reads as finished.  Every entry a block
-// waits on was taken earlier by a running block (csrc/schedule.cuh), so the
-// sweep cannot deadlock whatever the grid and whatever else runs on the
-// card.  The whole dispatch is one launch (final_values), and so is every
-// run of the per-tile form (sweep_tiles), which may stop and resume between
-// any two entries with faces, outputs and progress words in device memory.
+// entries of its upper and left neighbours (the layout, and a tile's
+// decoding, are csrc/warp_sweep.cuh's, which K2 shares).  One persistent
+// launch (hetero_sweep) runs any run [idx0, idx0 + count) of the table: as
+// many blocks as the SMs hold at once, each taking the next entry from a
+// global counter in table order and sweeping its tile to the end before it
+// takes another; a tile starts each chunk of planes once its neighbours'
+// progress words (one a table entry, kept in the sweep state) show the
+// planes whose face rows the chunk reads (kernels/blocked.planes_needed).
+// A neighbour swept by an earlier run already reads as finished.  Every
+// entry a block waits on was taken earlier by a running block
+// (csrc/schedule.cuh), so the sweep cannot deadlock whatever the grid and
+// whatever else runs on the card.  The whole dispatch is one launch
+// (final_values), and so is every run of the per-tile form (sweep_tiles),
+// which may stop and resume between any two entries with faces, outputs
+// and progress words in device memory.
 //
 // The tile step is csrc/pillar_warp.cuh: each lane owns a tile row, each
 // warp a strip of four columns, a cell's values stay in registers as the
@@ -52,106 +54,12 @@
 #include <stdint.h>
 
 #include "pillar.cuh"
-#include "pillar_warp.cuh"
+#include "warp_sweep.cuh"
 
 namespace trialign {
-
-// Columns of the per-problem geometry table (int64), as
-// trialign_torch/kernels/hetero.py GEOM_FIELDS lists them.
-enum GeomField {
-  kLa,      // |A|
-  kNjb,     // tile rows
-  kNkb,     // tile columns
-  kNrows,   // rows of each face slab (local planes 0 .. |A| + tb + tc)
-  kJlstar,  // final cell (|B|, |C|) in the last tile, local coordinates
-  kKlstar,
-  kAOff,    // offsets (ints) of the problem's A, B, C in the symbol buffer
-  kBOff,
-  kCOff,
-  kRfOff,   // offsets (ints) of its row and column face slabs
-  kCfOff,
-  kGeomFields
-};
-
-// Columns of the table of tiles (int32), as kernels/hetero.py TABLE_FIELDS.
-enum TableField { kProblem, kJb, kKb, kUp, kLeft, kTableFields };
-
 namespace {
 
 constexpr int kSmemThreads = 512;
-
-// Table entry e of a dispatch: the problem's arrays and faces, the tile
-// and its neighbours' progress words.
-struct Entry {
-  const int *a, *b, *c;  // the problem's A, B, C arrays
-  int *rface, *cface;    // the tile's face slabs
-  int *out, *done, *up, *left;
-  int la, jb, kb, jlstar, klstar;
-  bool target;
-};
-
-__device__ __forceinline__ Entry table_entry(const int* syms,
-                                             const long long* geom,
-                                             const int* table, int e, int hb,
-                                             int wc, int* rf, int* cf,
-                                             int* out, int* done) {
-  const int* row = table + (size_t)e * kTableFields;
-  const int p = row[kProblem];
-  const long long* g = geom + (size_t)p * kGeomFields;
-  Entry t;
-  t.jb = row[kJb];
-  t.kb = row[kKb];
-  t.la = (int)g[kLa];
-  t.jlstar = (int)g[kJlstar];
-  t.klstar = (int)g[kKlstar];
-  t.target = t.jb == (int)g[kNjb] - 1 && t.kb == (int)g[kNkb] - 1;
-  const int nrows = (int)g[kNrows];
-  // The problem's face slabs: row faces [n_kb][nrows][7][wc], column faces
-  // [n_jb][nrows][7][hb].
-  t.rface = rf + g[kRfOff] + (size_t)t.kb * nrows * kNumMatrices * wc;
-  t.cface = cf + g[kCfOff] + (size_t)t.jb * nrows * kNumMatrices * hb;
-  t.a = syms + g[kAOff];
-  t.b = syms + g[kBOff];
-  t.c = syms + g[kCOff];
-  t.out = out + (size_t)p * kNumMatrices;
-  t.done = done + e;
-  t.up = row[kUp] >= 0 ? done + row[kUp] : nullptr;
-  t.left = row[kLeft] >= 0 ? done + row[kLeft] : nullptr;
-  return t;
-}
-
-// Sub-tile (j0, k0) of entry t's tile as the warp pillar takes it: its
-// symbols and the tile's face slabs shifted to its corner; only the last
-// sub-tile publishes the tile's progress, only the first row waits for the
-// upper tile and the first column for the left one.
-__device__ __forceinline__ WarpTile sub_tile(const Entry& t, int hb, int wc,
-                                             int j0, int k0) {
-  const int tb = hb - 1, tc = wc - 1;
-  WarpTile w;
-  w.a = t.a;
-  w.b = t.b + t.jb * tb + j0;
-  w.c = t.c + t.kb * tc + k0;
-  w.rface = t.rface + (size_t)k0 * kNumMatrices * wc + k0;
-  w.cface = t.cface + (size_t)j0 * kNumMatrices * hb + j0;
-  w.out = t.out;
-  w.done = j0 + kSubRows >= tb && k0 + kSubCols >= tc ? t.done : nullptr;
-  w.up = j0 == 0 ? t.up : nullptr;
-  w.left = k0 == 0 ? t.left : nullptr;
-  w.la = t.la;
-  w.hb = hb;
-  w.wc = wc;
-  w.j0 = j0;
-  w.k0 = k0;
-  w.tb = min(kSubRows, tb - j0);
-  w.tc = min(kSubCols, tc - k0);
-  w.jlstar = t.jlstar - j0;
-  w.klstar = t.klstar - k0;
-  w.target = t.target && w.jlstar >= 1 && w.jlstar <= w.tb &&
-             w.klstar >= 1 && w.klstar <= w.tc;
-  w.has_row = t.jb > 0 || j0 > 0;
-  w.has_col = t.kb > 0 || k0 > 0;
-  return w;
-}
 
 // Two blocks an SM: 8 strips of 4 columns, 128 registers a thread.
 template <bool SUB, bool RTL, bool CLOCK>
@@ -182,8 +90,8 @@ __global__ void __launch_bounds__(32 * kMaxStrips, 2)
         // register while a sub-tile is swept (they would spill).
         const int e = idx0 + *reinterpret_cast<volatile int*>(&entry);
         warp_pillar<SUB, RTL, CLOCK>(
-            sub_tile(table_entry(syms, geom, table, e, hb, wc, rf, cf, out,
-                                 done),
+            sub_tile(table_entry(syms, syms, syms, geom, table, e, hb, wc,
+                                 rf, cf, out, kNumMatrices, done, 1),
                      hb, wc, j0, k0),
             ring, stage, sub_s, s, K, chunk);
         // The rings and staging buffers serve the next sub-tile, which
@@ -204,13 +112,23 @@ __global__ void __launch_bounds__(kSmemThreads)
                 const int* __restrict__ sub, StepScoring s, int* rf, int* cf,
                 int* out, int* done) {
   extern __shared__ int smem[];
-  const Entry t = table_entry(syms, geom, table, blockIdx.x, hb, wc, rf, cf,
-                              out, done);
+  const Entry t = table_entry(syms, syms, syms, geom, table, blockIdx.x, hb,
+                              wc, rf, cf, out, kNumMatrices, done, 1);
   NoWait sync;
   tile_pillar<kSmemThreads, false>(
       smem, t.a, t.b, t.c, hb, wc, t.la, t.la + 1, t.jb, t.kb, t.target,
       t.jlstar, t.klstar, sub, s, t.rface, t.cface, t.out, sync);
   if (threadIdx.x == 0) *t.done = t.la + hb + wc - 2;
+}
+
+// Blocks of fn one SM holds with `threads` threads and `smem` bytes.
+template <class Fn>
+cudaError_t per_sm(Fn fn, int threads, size_t smem, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, threads,
+                                                       smem);
 }
 
 using SweepFn = void (*)(const int*, const long long*, const int*, int, int,
@@ -230,28 +148,6 @@ SweepFn pick(int mode, bool clock) {
   return nullptr;
 }
 
-// Threads and shared bytes of a block at tile plane hb x wc, or false for
-// a plane or chunk the sweep does not take.
-bool sweep_block(int hb, int wc, int chunk, int* threads, size_t* smem) {
-  const int tb = hb - 1, tc = wc - 1;
-  if (tb < 1 || tc < 1 || chunk < 1 || chunk > kMaxChunk) return false;
-  const int need = (tc + kStrip - 1) / kStrip;
-  const int strips = need < kMaxStrips ? need : kMaxStrips;
-  *threads = 32 * strips;
-  *smem = warp_pillar_shared_bytes(strips, chunk);
-  return true;
-}
-
-// Blocks of fn one SM holds with `threads` threads and `smem` bytes.
-template <class Fn>
-cudaError_t per_sm(Fn fn, int threads, size_t smem, int* blocks) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, threads,
-                                                       smem);
-}
-
 }  // namespace
 }  // namespace trialign
 
@@ -267,7 +163,8 @@ extern "C" {
 // kMaxChunk); max_blocks caps the grid (0: as many blocks as the SMs hold
 // at once); clock: the build with the phase clock (default scoring only).
 // Runs go in table order.  A wait past the watchdog traps
-// (csrc/schedule.cuh).  Returns cudaGetLastError() (or the error of the
+// (csrc/schedule.cuh).  score_bits is refused: the reference's hetero path
+// has no register width.  Returns cudaGetLastError() (or the error of the
 // occupancy query).
 int trialign_hetero_sweep(const int* syms, const long long* geom,
                           const int* table, int idx0, int count, int hb,

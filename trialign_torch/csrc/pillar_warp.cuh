@@ -1,11 +1,13 @@
-// K4's tile step: a tile swept with every cell in a register of its lane.
+// The register tile step of K4 and K2: a tile swept with every cell in a
+// register of its lane.
 //
 // Replaces, for K4 (csrc/hetero.cu), the shared-memory pillar K3 keeps
 // (csrc/pillar.cuh): the body of trialign/kernels/blocked.py:_block_sweep
 // that make_hetero_grid_call and make_hetero_block_call run, one tile of
 // tb x tc cells swept through its local planes q (cell (jl, kl) of plane q
 // holds global i = q - jl - kl), with a one-cell halo taken from the faces
-// its upper and left neighbours wrote.
+// its upper and left neighbours wrote.  K2 (csrc/wavefront.cu) sweeps a
+// small triplet's tiles on it too, each tile one sub-tile.
 //
 // Bound on the card: csrc/pillar.cuh keeps 25 planes of the tile in shared
 // memory, so each cell is 42 shared loads and a block-wide barrier ends
@@ -74,6 +76,23 @@
 //
 // Cells with i < 1 are zero (masked while q <= 32 + the strip's last
 // column); cells with i > |A| compute values that only such cells read.
+//
+// Progress a strip (STRIP_WORDS, K2).  A tile's strips trail each other
+// by a chunk, so a neighbour that waits for the last strip trails the
+// first by W chunks more than its halo needs.  With a word a strip, strip
+// w of a tile waits for strip w of the upper tile, which has written the
+// halo row over its columns (column k0 comes through the ring), and strip
+// 0 for the left tile's last strip; each strip publishes its own word
+// after each chunk.  A single small triplet's critical path
+// crosses a tile diagonal per step, so this cuts its ramp; K4's many tiles
+// keep one word a tile.
+//
+// Register width (BITS, K2's score_bits).  A cell's seven values wrap to a
+// score_bits-wide signed register where they are made, before they are
+// reduced to partials or written to a face, so a partial is the grouped
+// max-plus of stored, wrapped values: what cell_step computes
+// (csrc/plane_step.cuh wrap_bits).  The instantiation without BITS is the
+// one K4 runs.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -163,8 +182,9 @@ struct PhaseClock<true> {
 // One sub-tile of one problem's tile, as the warp pillar takes it.
 struct WarpTile {
   const int* a;  // A_i at index i, 1 <= i <= la (index 0: the pad)
-  const int* b;  // B of sub-tile row jl at b[jl] (sentinels past |B|)
-  const int* c;  // C of sub-tile column kl at c[kl]
+  const int* b;  // B of sub-tile row jl at b[min(jl, bmax)]
+  const int* c;  // C of sub-tile column kl at c[min(kl, cmax)]
+  int bmax, cmax;  // the last row and column whose symbol b and c hold
   // The tile's row-face slab (nrows rows of 7 x wc) and column-face slab
   // (nrows rows of 7 x hb), shifted so that the sub-tile's halo row at its
   // plane q is rface[q * 7 wc + m * wc + kl] and its halo column
@@ -187,8 +207,11 @@ struct WarpTile {
 // ring and stage: the shared buffers of warp_pillar_shared_bytes for the
 // block's warps (stage: the halo-row buffers, then the bottom-row ones);
 // sub: the submatrix table in shared memory (SUB); chunk: planes between
-// handshakes.  CLOCK keeps the phase clock.
-template <bool SUB, bool RTL, bool CLOCK>
+// handshakes.  CLOCK keeps the phase clock; BITS wraps each value to
+// s.score_bits; STRIP_WORDS gives each strip a progress word of its own
+// (t.done, t.up and t.left then point at kMaxStrips words a tile).
+template <bool SUB, bool RTL, bool CLOCK, bool BITS = false,
+          bool STRIP_WORDS = false>
 __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
                                             int4* stage, const int* sub,
                                             const StepScoring& s,
@@ -222,12 +245,12 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
   }
 
   // Symbols: the lane's B_j, the strip's C_k, A_i shifted along the strip.
-  const int bsym = t.b[min(jl, tb)];
+  const int bsym = t.b[min(jl, t.bmax)];
   const int nsub = SUB ? s.nsym + 1 : 0;
   int csym[R + 1], sbc[R + 1], a[R + 1];
 #pragma unroll
   for (int r = 1; r <= R; ++r) {
-    csym[r] = t.c[min(k0 + r, tc)];
+    csym[r] = t.c[min(k0 + r, t.cmax)];
     if constexpr (SUB)
       sbc[r] = sub[min(bsym, s.nsym) * nsub + min(csym[r], s.nsym)];
     else
@@ -235,6 +258,9 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
     a[r] = t.a[0];
   }
   int a_next = t.a[0];  // every cell of plane 1 has i < 1
+  // The register's range, as wrap_bits takes it (BITS only).
+  const int half = BITS ? 1 << (s.score_bits - 1) : 0;
+  const int low = BITS ? (1 << s.score_bits) - 1 : 0;
 
   // Partials by column (0: the boundary column) and age: own row's Ix (x),
   // Iz (z), Ixz (xz); the row above's Iy (y), Ixy (xy), Iyz (yz), M (m).
@@ -272,9 +298,18 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
     // whose face rows it reads.
     if (w > 0) asm volatile("bar.sync %0, 64;" ::"r"(w) : "memory");
     if (lane == 0) {
-      PlaneWait::await(t.up, min(q1 - 1 + plane0 + t.hb - 1, last), seen_up);
+      int* up = t.up;
+      int* left = t.left;
+      if constexpr (STRIP_WORDS) {
+        // The upper tile's strip w has written the halo row over this
+        // strip's columns (strip w - 1's before it); the left tile's last
+        // strip, the halo column.
+        up = up != nullptr ? up + w : nullptr;
+        left = left != nullptr ? left + W - 1 : nullptr;
+      }
+      PlaneWait::await(up, min(q1 - 1 + plane0 + t.hb - 1, last), seen_up);
       if (w == 0)
-        PlaneWait::await(t.left, min(q1 - 1 + plane0 + t.wc - 1, last),
+        PlaneWait::await(left, min(q1 - 1 + plane0 + t.wc - 1, last),
                          seen_left);
     }
     __syncwarp();
@@ -390,6 +425,11 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
         v[4] = xy2[r] + sab;
         v[5] = yz2[r - 1] + sbc[r];
         v[6] = xz2[r - 1] + sac;
+        if constexpr (BITS) {
+#pragma unroll
+          for (int m = 0; m < kNumMatrices; ++m)
+            v[m] = ((v[m] + half) & low) - half;
+        }
         const int k = k0 + r, i = q - jl - k;
         if (ramp && i < 1) {
 #pragma unroll
@@ -481,17 +521,24 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
     }
 
     phases.mark(3);
-    if (w + 1 < W) {
-      // Hand the chunk to strip w + 1.
-      asm volatile("bar.sync %0, 64;" ::"r"(w + 1) : "memory");
-    } else if (t.done != nullptr) {
-      // Every strip has finished the chunk: publish it, in tile planes.
+    // Publish the chunk, in tile planes, once the strips the word stands
+    // for have finished it.
+    auto publish = [&](int* word) {
       __syncwarp();
       if (lane == 0) {
         __threadfence();
-        PlaneWait::Flag(*t.done).store(q1 - 1 + plane0,
-                                       cuda::memory_order_release);
+        PlaneWait::Flag(*word).store(q1 - 1 + plane0,
+                                     cuda::memory_order_release);
       }
+    };
+    if (w + 1 < W) {
+      // Hand the chunk to strip w + 1.
+      asm volatile("bar.sync %0, 64;" ::"r"(w + 1) : "memory");
+      if constexpr (STRIP_WORDS) {
+        if (t.done != nullptr) publish(t.done + w);
+      }
+    } else if (t.done != nullptr) {
+      publish(t.done + (STRIP_WORDS ? w : 0));
     }
     phases.mark(4);
   }

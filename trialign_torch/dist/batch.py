@@ -4,10 +4,10 @@ Port of ``trialign/dist/batch.py``: ``prep_padded``, ``align_batch_padded``,
 ``_blocked_group``, ``align_batch_bucketed``, ``align_batch_sharded`` and
 ``align_batch_multihost``.  On the TPU a padded bucket is the wavefront
 kernel vmapped over the batch, and buckets are keyed by compile-friendly
-shapes.  The port's K2 takes each problem's lengths at run time, one thread
-block a problem, so every triplet inside K2's caps goes into one stacked
-bucket and one launch; longer ones run K3 one after another on one stream
-and are read once at the end.  ``_sweep_padded`` (the XLA twin of the
+shapes.  The port's K2 takes each problem's lengths at run time and sweeps
+every problem's tiles in one persistent launch, so every triplet inside
+K2's caps goes into one stacked bucket and one launch; longer ones run K3
+one after another on one stream and are read once at the end.  ``_sweep_padded`` (the XLA twin of the
 vmapped kernel) is not ported: the plain version of K2 is ``ref.sweep``.
 
 Over a mesh (``dist/mesh.py``) each data slot scores a contiguous share of

@@ -47,7 +47,7 @@ from trialign_torch import _build
 from trialign_torch.config import NUM_MATRICES, Scoring
 from trialign_torch.kernels import blocked as bk
 from trialign_torch.kernels.ref import (
-    PAD_A, PAD_B, PAD_C, pair_fn, substitution,
+    PAD_A, PAD_B, PAD_C, pair_fn, substitution, wrap,
 )
 
 # Columns of the geometry table, in csrc/hetero.cu GeomField order.
@@ -253,7 +253,8 @@ def _problem(batch: HeteroBatch, state: HeteroState, p: int):
 
 def hetero_ref(batch: HeteroBatch, scoring: Scoring = Scoring(),
                state: Optional[HeteroState] = None, idx0: int = 0,
-               count: Optional[int] = None) -> torch.Tensor:
+               count: Optional[int] = None,
+               score_bits: int = 0) -> torch.Tensor:
     """Plain torch version of K4: sweeps entries idx0 .. idx0 + count - 1 of
     ``batch.tiles`` (all by default) from ``state`` (a fresh one by
     default), updating it in place, and returns its final values, an (n, 7)
@@ -261,7 +262,10 @@ def hetero_ref(batch: HeteroBatch, scoring: Scoring = Scoring(),
     sequence).  Each problem's tiles of one diagonal run through K3's plain
     version ``blocked_ref`` at the batch's tile plane, on views of the
     dispatch's symbol and face buffers; each swept entry's progress word
-    becomes its tile's last local plane, as the kernel leaves it."""
+    becomes its tile's last local plane, as the kernel leaves it.
+    ``score_bits`` wraps stored values as K2's mode of the register step
+    does (K4 itself refuses it); the tests hold :func:`step_layout_ref`
+    to it."""
     if state is None:
         state = new_state(batch)
     if count is None:
@@ -273,7 +277,7 @@ def hetero_ref(batch: HeteroBatch, scoring: Scoring = Scoring(),
         for r0, r1 in zip(starts, starts[1:] + [n]):
             p, jb0 = int(rows[r0, 0]), int(rows[r0, 1])
             arrs, lens, dims, pstate = _problem(batch, state, p)
-            bk.blocked_ref(*arrs, *lens, dims, scoring, 0, pstate,
+            bk.blocked_ref(*arrs, *lens, dims, scoring, score_bits, pstate,
                            bk.tile_index(dims, d, jb0), r1 - r0)
             state.done[lo + r0:lo + r1] = dims.nq
     return state.out
@@ -327,8 +331,8 @@ def _only(p: torch.Tensor, keep) -> torch.Tensor:
 
 def _warp_tile(batch: HeteroBatch, state: HeteroState, entry: int,
                scoring: Scoring, strip: int, chunk: int,
-               ring_depth: Optional[int], lanes: int,
-               max_strips: int) -> None:
+               ring_depth: Optional[int], lanes: int, max_strips: int,
+               score_bits: int) -> None:
     """One table entry's tile swept in the register step's order, in place:
     sub-tiles of at most ``lanes`` rows and ``max_strips`` strips of
     ``strip`` columns, row after row of them, each on the tile's face slabs
@@ -350,13 +354,13 @@ def _warp_tile(batch: HeteroBatch, state: HeteroState, entry: int,
                 pst.rf[kb][k0:, :, k0:], pst.cf[jb][j0:, :, j0:],
                 min(lanes, tb - j0), min(cols, tc - k0), jb > 0 or j0 > 0,
                 kb > 0 or k0 > 0, k0 > 0, star, state.out[p], scoring,
-                strip, chunk, ring_depth)
+                strip, chunk, ring_depth, score_bits)
 
 
 def _warp_sub_tile(a_ext, b_sub, c_sub, la: int, rf, cf, tb: int, tc: int,
                    has_row: bool, has_col: bool, corner_col: bool, star, out,
                    scoring: Scoring, strip: int, chunk: int,
-                   ring_depth: Optional[int]) -> None:
+                   ring_depth: Optional[int], score_bits: int) -> None:
     """One sub-tile of tb x tc cells swept in the register step's order.
 
     ``b_sub[jl]`` and ``c_sub[kl]`` are its rows' and columns' symbols;
@@ -374,7 +378,9 @@ def _warp_sub_tile(a_ext, b_sub, c_sub, la: int, rf, cf, tb: int, tc: int,
     plane q + 1) or of the halo column (strip 0).  Strips run chunk by
     chunk as the kernel's warps do at their most apart: strip w runs chunk
     c once strip w - 1 has run chunk c + 1, so the ring of ``ring_depth``
-    planes (2 * chunk + 1) is read at its oldest."""
+    planes (2 * chunk + 1) is read at its oldest.  With ``score_bits`` a
+    cell's values wrap where they are made, before they become partials or
+    face entries."""
     dev = a_ext.device
     nq = la + tb + tc
     R, W = strip, -(-tc // strip)
@@ -436,8 +442,8 @@ def _warp_sub_tile(a_ext, b_sub, c_sub, la: int, rf, cf, tb: int, tc: int,
         csym = c_sub[k.clamp(max=len(c_sub) - 1)]
         subs = substitution(a_ext[i.clamp(0, la)], bsym, csym,
                             pair(bsym, csym), scoring, pair)
-        v = v + torch.stack([torch.as_tensor(s, **i32).expand(tb, R)
-                             for s in subs])
+        v = wrap(v + torch.stack([torch.as_tensor(s, **i32).expand(tb, R)
+                                  for s in subs]), score_bits)
         ok = (i >= 1) & (i <= la) & (k <= tc)
         v = torch.where(ok, v, 0)
         P = torch.full((NUM_MATRICES, tb + 1, R + 1), POISON, **i32)
@@ -475,15 +481,15 @@ def step_layout_ref(batch: HeteroBatch, scoring: Scoring = Scoring(),
                     state: Optional[HeteroState] = None, idx0: int = 0,
                     count: Optional[int] = None, strip: int = STRIP,
                     chunk: int = CHUNK, ring_depth: Optional[int] = None,
-                    lanes: int = SUB_ROWS,
-                    max_strips: int = MAX_STRIPS) -> torch.Tensor:
+                    lanes: int = SUB_ROWS, max_strips: int = MAX_STRIPS,
+                    score_bits: int = 0) -> torch.Tensor:
     """:func:`hetero_ref` computed in the register step's layout
     (``csrc/pillar_warp.cuh``), one table entry after another: sub-tiles of
     at most ``lanes`` rows and ``max_strips`` strips of ``strip`` columns
     (the kernel's are 32, 8 and 4), lanes as rows, the partials of
     :data:`PARTIALS` handed down and across, the ring between strips
-    ``ring_depth`` planes deep (2 * chunk + 1 by default).  For the
-    tests."""
+    ``ring_depth`` planes deep (2 * chunk + 1 by default), each value
+    wrapped to ``score_bits`` (K2's mode; 0 is K4's).  For the tests."""
     if state is None:
         state = new_state(batch)
     if count is None:
@@ -491,7 +497,7 @@ def step_layout_ref(batch: HeteroBatch, scoring: Scoring = Scoring(),
     _check_range(batch, idx0, count)
     for e in range(idx0, idx0 + count):
         _warp_tile(batch, state, e, scoring, strip, chunk, ring_depth, lanes,
-                   max_strips)
+                   max_strips, score_bits)
         p = int(batch.table[e, 0])
         state.done[e] = int(batch.geom[p, _G["la"]]) + batch.hb + batch.wc - 2
     return state.out
