@@ -143,7 +143,16 @@ per source, all at once) and prints one JSON line per phase:
     the 1024^3 halo in 2 stripes in bands of 1 to 32 rows, and in 4
     stripes in bands of 16 and 32 rows in turns; K3's whole grid, its
     quarters and the 2-stripe halo at 1024^3 with the grid capped at one
-    block an SM, in turns with the occupancy's grid.
+    block an SM, in turns with the occupancy's grid;
+20. ``bench``: the port's bench parent (``python -m trialign_torch.bench``)
+    under a budget of ``BENCH_BUDGET_S`` seconds, which leaves it the probe
+    and the headline: it must exit 0 with ``blocked_1k`` exact against the
+    C++ oracle on the measured 1024^3 triplet, K3 launched, and the card's
+    name and power limit in its line; then the bench's own runner in this
+    process: the probe, ``traceback_4k`` cut by a cap of ``BENCH_CUT_S``
+    seconds (named in the next line) and the child stages
+    ``parity_fixtures`` and ``single_stream_255``, whose lines still come,
+    each exact and with its kernels launched.
 
 Then a summary of the kernels, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any mismatch or error exits
@@ -156,8 +165,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import io
 import json
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -171,7 +182,7 @@ import numpy as np
 import torch
 
 import trialign_torch
-from trialign_torch import _build, benchmarks, resilience
+from trialign_torch import _build, bench, benchmarks, resilience
 from trialign_torch.benchmarks import gcups, time_cuda_ms
 from trialign_torch.config import NUM_MATRICES, Scoring
 from trialign_torch.dist import halo as dh
@@ -236,6 +247,11 @@ CHAIN_SAMPLE = (128, 4)
 CHAIN_BENCH = ((512, 16), (1024, 8))
 # HBM bytes a second of one H100 SXM (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
+# The bench phase: the parent's budget (the probe and the headline take
+# about 42 s on an H100, after which less than the 75 s the bench needs
+# to start a stage is left), and the cap that cuts traceback_4k (about
+# 63 s on an H100).
+BENCH_BUDGET_S, BENCH_CUT_S = 100, 20.0
 
 CUDA = torch.device("cuda")
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2510,6 +2526,81 @@ def one_block_an_sm(whole, quarters, halo, trips) -> dict:
     return out
 
 
+def bench_lines(out: str) -> list:
+    return [json.loads(ln) for ln in out.splitlines() if ln.strip()]
+
+
+def phase_bench(dev) -> None:
+    """The port's bench: its parent under a small budget, then its runner
+    here with one stage cut by a cap (see the module's docstring)."""
+    t0 = time.perf_counter()
+    env = {**os.environ, "TRIALIGN_BENCH_BUDGET_S": str(BENCH_BUDGET_S)}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "trialign_torch.bench"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_BUDGET_S + 120)
+    finally:
+        if proc.returncode is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    parent_s = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"bench parent exited {proc.returncode}: {err[-3000:]}")
+    lines = bench_lines(out)
+    final = lines[-1]
+    name, power = (v.strip() for v in dev["smi"].split(","))
+    require(final["parity"] == "exact" and final["backend"] == "cuda"
+            and final["value"] == round(final["blocked_1024_gcups"], 3)
+            and final["blocked_1k_launches"].get("blocked", 0) > 0,
+            f"bench headline not exact on K3: {final}")
+    require((final["device"], final["power_limit"]) == (name, power),
+            f"bench line's card {final['device']}, {final['power_limit']} "
+            f"!= nvidia-smi's {dev['smi']}")
+    # Every stage landed (its launches in the line) or is named with its
+    # reason; a stage cut by its timeout is followed by later lines.
+    failed, skipped = final.get("failed", {}), final.get("skipped", {})
+    for stage, _, _ in bench.CUDA_STAGES:
+        require(f"{stage}_launches" in final or stage in failed
+                or stage in skipped, f"bench stage {stage} is not named")
+    for stage, reason in failed.items():
+        first = next(i for i, ln in enumerate(lines)
+                     if stage in ln.get("failed", {}))
+        require(reason.startswith("timeout") and (
+            first < len(lines) - 1 or stage == bench.CUDA_STAGES[-1][0]),
+            f"bench stage {stage} failed ({reason}), or no line came "
+            "after its cut")
+    runner = bench.Runner()
+    buf = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        runner.run_stage("probe", 20, force=True)
+        runner.run_stage("traceback_4k", 65, cap=BENCH_CUT_S)
+        runner.run_stage("parity_fixtures", 10)
+        runner.run_stage("single_stream_255", 10)
+    runner_s = time.perf_counter() - t1
+    cut = bench_lines(buf.getvalue())
+    require(runner.failed == {"traceback_4k":
+                              f"timeout after {BENCH_CUT_S:.0f} s"},
+            f"bench stage cut: {runner.failed}")
+    require(runner.landed == ["probe", "parity_fixtures",
+                              "single_stream_255"],
+            f"bench stages after the cut: {runner.landed}")
+    require(len(cut) == 3 and "traceback_4k" in cut[0]["failed"],
+            f"bench lines around the cut: {cut}")
+    last = runner.fields
+    require(last["parity"] == "exact"
+            and last["reference_dat_score"] == align_planes_numpy(
+                *load_reference_triplet())
+            and last["parity_fixtures_launches"].get("wavefront", 0) > 0
+            and last["parity_fixtures_launches"].get("blocked", 0) > 0
+            and last["single_stream_255_launches"].get("wavefront", 0) > 0,
+            f"bench child stages: {last}")
+    emit(phase="bench", parent_s=parent_s, parent_line=final,
+         parent_lines=len(lines), runner_s=runner_s, runner_lines=cut)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -2559,6 +2650,7 @@ def main() -> int:
             p.kill()
     phase_tuning(rng, batch)
     rows, split_err = phase_timings(rng, dev, batch)
+    phase_bench(dev)
     k5_err = max(k5_err, split_err)
     k4 = rows["hetero_sample"]
     k4_err = max(k4_err, k4["max_abs_err"])
