@@ -44,29 +44,39 @@ per source, all at once) and prints one JSON line per phase:
    an empty sequence, one batch cut into several dispatches) at 9 x 17
    tiles, the default tile plane and the planes K4 sweeps as sub-tiles
    (34 x 33, 34 x 65, 16 x 128), under four scorings;
-7. ``main_path``: ``trialign_torch.align`` with backend "auto" against the
+7. ``direct``: the direct engine's two kernels (``traceback/direct.py``)
+   against their plain versions, exactly: the choice-capture kernel against
+   the torch sweep ``_choices`` (the final vector and every cuboid slot of
+   the packed buffers, compared a chunk of planes at a time) and the walk
+   kernel against ``walk_ref`` (steps and stop, from the best end state), on
+   7 ragged shapes (a length of 1, an empty B or C, several tiles) under
+   six scorings (one a 16-symbol submatrix) in the modes "free", "free_jk"
+   and "pin", then at 512^3 in every mode and at 1024^3;
+8. ``main_path``: ``trialign_torch.align`` with backend "auto" against the
    golden model (the ``dat`` triplet), the C++ oracle (64^3 and 512^3) and
    the torch sweep (1024^3, all seven values), with the kernels' launch
    counts (K3 once a sweep: 2);
-8. ``traceback``: ``trialign_torch.align(..., return_alignment=True)`` at
+9. ``traceback``: ``trialign_torch.align(..., return_alignment=True)`` at
    512^3 and 1024^3 (the direct engine), 2048^3 (K5 for the top split) and
    768^3 with lowered caps (K5 on pin nodes); each alignment rescores to the
    score path's score and holds the inputs; seconds, peak memory, the top
-   node's route and K5's launches (those of the 2048^3 run go to the
-   summary);
-9. ``batch``: ``trialign_torch.align_batch`` on 1024 triplets with every
-   length uniform in [128, 512] (K4, one launch; seconds, GCUPS and
-   triplets/s, best of 3 after a warm-up, in turns with K4's earlier design;
-   the card's busy share under ``torch.profiler``), 64 of its scores against
-   ``align()`` and 8 against the C++ oracle; a 48-triplet batch (one K2
-   launch and K3) against ``align()``; 16 alignments that rescore exactly;
-10. ``vpu``: ``benchmarks.roofline()`` (K6's main path): the int32 and
+   node's route, K5's launches and the direct kernels' (one choice and one
+   walk launch a direct node; those of the 2048^3 run go to the summary);
+   a spy holds that the torch choice sweep never ran;
+10. ``batch``: ``trialign_torch.align_batch`` on 1024 triplets with every
+    length uniform in [128, 512] (K4, one launch; seconds, GCUPS and
+    triplets/s, best of 3 after a warm-up, in turns with K4's earlier
+    design; the card's busy share under ``torch.profiler``), 64 of its
+    scores against ``align()`` and 8 against the C++ oracle; a 48-triplet
+    batch (one K2 launch and K3) against ``align()``; 16 alignments that
+    rescore exactly;
+11. ``vpu``: ``benchmarks.roofline()`` (K6's main path): the int32 and
     DPX rates beside the rate ``int32_peak_ops()`` assumes, with the SM
     clock read during the run.  The faster measured rate is the peak that
     every later bound divides by.  Then K6 against its plain version,
     exactly, in both op mixes, on a sample that must take at least its
     bound;
-11. ``checkpoint``: K3's per-tile form against ``blocked_ref`` (the whole
+12. ``checkpoint``: K3's per-tile form against ``blocked_ref`` (the whole
     state, in runs of tiles that end mid-diagonal, under five scorings);
     the main path's 1024^3 triplet checkpointed a quarter of its grid at a
     time, stopped after two segments and resumed by a new aligner from the
@@ -78,13 +88,13 @@ per source, all at once) and prints one JSON line per phase:
     dispatched again, scores equal to the batch's); the per-tile form's
     time on a 192^3 sample in turns with its earlier design, beside
     ``blocked_ref``'s;
-12. ``chain``: K3's chain mode against ``blocked_ref`` on multi-tile shapes
+13. ``chain``: K3's chain mode against ``blocked_ref`` on multi-tile shapes
     (9 x 17 and 33 x 33 tiles, 1 to 5 slots, five scorings, and
     ``score_bits=12``); then the bench's chains, 16 slots of 512^3 and 8 of
     1024^3 (ms per alignment, GCUPS, bound, launches): every slot's seven
     values equal the torch sweep of its triplet, two slots' scores equal
     ``align()`` and one the C++ oracle;
-13. ``halo``: the halo (``dist/halo.py``) on stripes that share the card,
+14. ``halo``: the halo (``dist/halo.py``) on stripes that share the card,
     each on its own CUDA stream, each in bands of tile rows, one launch a
     band: K3's per-tile form in 2 and 3 stripes with uneven columns, in the
     model's bands and in bands of 1 and 2 rows, against ``blocked_ref``
@@ -93,7 +103,7 @@ per source, all at once) and prints one JSON line per phase:
     sweep, launches one a band a stripe; ms in turns with the earlier
     design (one launch a stripe and tile diagonal), beside K3's; the
     measured face-copy rate and the model's time on separate cards;
-14. ``halo_tb``: K5's per-tile form against ``slab_ref`` (capture and final
+15. ``halo_tb``: K5's per-tile form against ``slab_ref`` (capture and final
     vector) in runs that end mid-diagonal and in 2 and 3 stripes, every
     variant, default and 16-symbol scoring; ``hirschberg_align_sharded`` on
     the traceback phase's 1024^3 triplet in 2 stripes with two levels of
@@ -102,31 +112,31 @@ per source, all at once) and prints one JSON line per phase:
     that run's top split (512 x 1024 x 1024, 2 stripes) against the torch
     engine, capture and final vector exactly, and timed beside it and in
     turns with the earlier design;
-15. ``sharded_batch``: K4's per-tile form against ``hetero_ref`` in runs
+16. ``sharded_batch``: K4's per-tile form against ``hetero_ref`` in runs
     that end mid-diagonal under two scorings; ``align_batch_sharded`` on
     the 1024-triplet batch over 2 data slots sharing the card (one launch a
     slot), equal to the batch phase's scores, in turns with K4's earlier
     per-tile form; ``align_batch_resilient(mesh=...)`` in dispatches
     of 64 with a failure as a slot packs its second (the dispatches swept
     by then drain; only the rest is dispatched again);
-16. ``cli``: ``python -m trialign_torch.cli`` in four subprocesses at once:
+17. ``cli``: ``python -m trialign_torch.cli`` in four subprocesses at once:
     ``selftest`` (every row OK), ``align --json`` on the bundled ``dat``
     files (equal to golden), ``bench --size 1024 --json`` (parity
     ``exact``; its time shares the card), ``batch --sharded`` on 70
     triplets (equal to ``align_batch``);
-17. ``multihost``: two processes (``python -m trialign_torch.dist.worker``,
+18. ``multihost``: two processes (``python -m trialign_torch.dist.worker``,
     ``gloo``) on the card, started with the cli phase's:
     ``align_batch_multihost``, a halo whose model axis spans both processes
     and the sharded traceback across them, each equal to this process's
     run of the same functions;
-18. ``tuning``: K2 at 64^3, 255^3 and 4096 x 255 x 255 over two tile
+19. ``tuning``: K2 at 64^3, 255^3 and 4096 x 255 x 255 over two tile
     planes and three chunks (each held to the default), its registers and
     spills; the persistent K3 at 1024^3 over
     three tile planes, two thread counts and four chunks; K5 "free" at the
     2048^3 top split's shape over the chunks; K4 on the batch over its
     chunks, beside its earlier design, and where its warps spend their
     cycles;
-19. ``timings``: each kernel (minimum over distinct inputs after a
+20. ``timings``: each kernel (minimum over distinct inputs after a
     warm-up) beside its plain version (one run) at the main path's
     sizes, and beside its bound; K2 at 64^3, 255^3 and 4096 x 255 x 255 in
     turns with its earlier design (earlier, new, new, earlier), beside K3
@@ -143,8 +153,11 @@ per source, all at once) and prints one JSON line per phase:
     the 1024^3 halo in 2 stripes in bands of 1 to 32 rows, and in 4
     stripes in bands of 16 and 32 rows in turns; K3's whole grid, its
     quarters and the 2-stripe halo at 1024^3 with the grid capped at one
-    block an SM, in turns with the occupancy's grid;
-20. ``bench``: the port's bench parent (``python -m trialign_torch.bench``)
+    block an SM, in turns with the occupancy's grid; the direct engine's
+    choice kernel at 1024^3 beside its torch sweep, its walk kernel beside
+    ``walk_ref``, and ``direct_traceback`` at 1024^3 in turns with the plain
+    engine (kernels, plain, plain, kernels);
+21. ``bench``: the port's bench parent (``python -m trialign_torch.bench``)
     under a budget of ``BENCH_BUDGET_S`` seconds, which leaves it the probe
     and the headline: it must exit 0 with ``blocked_1k`` exact against the
     C++ oracle on the measured 1024^3 triplet, K3 launched, and the card's
@@ -248,10 +261,11 @@ CHAIN_BENCH = ((512, 16), (1024, 8))
 # HBM bytes a second of one H100 SXM (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 # The bench phase: the parent's budget (the probe and the headline take
-# about 42 s on an H100, after which less than the 75 s the bench needs
-# to start a stage is left), and the cap that cuts traceback_4k (about
-# 63 s on an H100).
-BENCH_BUDGET_S, BENCH_CUT_S = 100, 20.0
+# about 40 s on an H100, after which less than the 75 s the bench needs
+# to start a stage is left), and the cap that cuts traceback_4k (18 s on an
+# H100: about 7 s to start, then a first run, two timed runs and the score
+# path).
+BENCH_BUDGET_S, BENCH_CUT_S = 100, 10.0
 
 CUDA = torch.device("cuda")
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -317,7 +331,8 @@ COUNTERS = {"wavefront": wf.final_values,
             "slab": sk.slab_sweep, "slab_tiles": sk.sweep_tiles,
             "vpu": vpu.vpu_chains, "blocked_diagonals": bk.sweep_diagonals,
             "slab_diagonals": sk.sweep_diagonals,
-            "hetero_diagonals": hk.sweep_diagonals}
+            "hetero_diagonals": hk.sweep_diagonals,
+            "direct_choices": direct.choices, "direct_walk": direct.walk}
 
 
 def reset_launches() -> None:
@@ -903,6 +918,94 @@ def phase_hetero(rng) -> int:
     return err
 
 
+# The direct engine's kernels (traceback/direct.py) against their plain
+# versions: ragged shapes (a length of 1, an empty B or C, several 33 x 33
+# tiles) under every scoring K5 takes, in every mode, then the main path's
+# direct sizes.  The packed buffers at scale are compared a chunk of
+# DIRECT_ROWS planes at a time, so that the comparison adds little to the
+# two buffers' 9.7 GB each at 1024^3.
+DIRECT_SHAPES = ((1, 1, 1), (1, 40, 3), (30, 1, 45), (12, 0, 40), (3, 50, 0),
+                 (9, 70, 40), (40, 34, 66))
+DIRECT_MODES = ("free", "free_jk", "pin")
+DIRECT_ROWS = 64
+
+
+def direct_v0(rng, mode):
+    """The start vector of "pin" (small values, NEG walls), else None."""
+    if mode != "pin":
+        return None
+    v0 = rng.integers(-9, 10, NUM_MATRICES).astype(np.int32)
+    v0[rng.random(NUM_MATRICES) < 0.5] = NEG
+    v0[rng.integers(NUM_MATRICES)] = 0
+    return v0
+
+
+def packed_diff(got, want, lens) -> tuple:
+    """(largest difference of the final vectors and of the packed entries on
+    the cuboid's slots, count of differing entries) of two results of the
+    choice-capture sweep, DIRECT_ROWS planes at a time."""
+    err, bad, qmax = _diff(got[0], want[0]), 0, sum(lens)
+    for q0 in range(0, qmax, DIRECT_ROWS):
+        q1 = min(q0 + DIRECT_ROWS, qmax)
+        on = direct.cuboid_slots(*lens, q0, q1, CUDA)
+        for g, w in zip(got[1:], want[1:]):
+            d = (g[q0:q1].int() - w[q0:q1].int()).abs() * on
+            err, bad = max(err, int(d.max())), bad + int((d != 0).sum())
+    return err, bad
+
+
+def direct_case(trip, scoring, mode, v0) -> tuple:
+    """The choice kernel (one launch) against direct._choices, and the walk
+    kernel against direct.walk_ref from the best end state on the kernel's
+    buffers, exactly; (largest differences of both, the walk's steps)."""
+    lens = tuple(len(x) for x in trip)
+    what = f"direct {lens} {mode}"
+    before = direct.choices.launches
+    got = direct.choices(*trip, scoring, mode, v0, CUDA)
+    require(direct.choices.launches == before + 1,
+            f"{what}: not one launch of the choice kernel")
+    err, bad = packed_diff(got, direct._choices(*trip, scoring, mode, v0,
+                                                CUDA), lens)
+    require(err == 0, f"{what}: {bad} packed entries or the final vector "
+            f"differ from the torch sweep's (largest difference {err})")
+    t0 = int(torch.argmax(got[0]))
+    res = direct.walk(got[1], got[2], t0, *lens, mode)
+    want = direct.walk_ref(got[1], got[2], t0, *lens, mode)
+    n = int(want[0])
+    walk_err = _diff(res[:4 + n], want[:4 + n])
+    require(walk_err == 0, f"{what}: the walk kernel's steps or stop differ "
+            "from walk_ref's")
+    return err, walk_err, n
+
+
+def phase_direct(rng) -> dict:
+    """The direct engine's two kernels against their plain versions; returns
+    each one's largest difference."""
+    errs, walk_errs, runs = [], [], []
+    for name, (scoring, _, nsym) in SLAB_VARIANTS.items():
+        for mode in DIRECT_MODES:
+            for shape in DIRECT_SHAPES:
+                err, walk_err, _ = direct_case(triplet(rng, shape, nsym),
+                                               scoring, mode,
+                                               direct_v0(rng, mode))
+                errs.append(err)
+                walk_errs.append(walk_err)
+    for n, modes in ((512, DIRECT_MODES), (1024, ("free",))):
+        trip = triplet(rng, (n, n, n))
+        for mode in modes:
+            t0 = time.perf_counter()
+            err, walk_err, steps = direct_case(trip, DEFAULT, mode,
+                                               direct_v0(rng, mode))
+            errs.append(err)
+            walk_errs.append(walk_err)
+            runs.append({"n": n, "mode": mode, "walk_steps": steps,
+                         "seconds": time.perf_counter() - t0})
+    emit(phase="direct", small_cases=len(SLAB_VARIANTS) * len(DIRECT_MODES)
+         * len(DIRECT_SHAPES), scorings=list(SLAB_VARIANTS), runs=runs,
+         max_abs_err=max(errs), walk_max_abs_err=max(walk_errs))
+    return {"direct_choices": max(errs), "direct_walk": max(walk_errs)}
+
+
 def phase_main_path(rng) -> dict:
     reset_launches()
     runs = []
@@ -967,9 +1070,12 @@ def traceback_case(a, b, c, label, native):
     torch.cuda.reset_peak_memory_stats()
     before = read_launches()
     with _Spy(direct, "direct_traceback") as dspy, \
+            _Spy(direct, "_choices") as pspy, \
             _Spy(sk, "split_point_blocked_async") as sspy:
         r = trialign_torch.align(a, b, c, return_alignment=True)
         torch.cuda.synchronize()
+    require(not pspy.calls, f"{label}: the torch choice sweep ran on the "
+            f"card path: {pspy.calls}")
     after = read_launches()
     peak = torch.cuda.max_memory_allocated()
     launches = {k: after[k] - before[k] for k in after}
@@ -990,7 +1096,12 @@ def traceback_case(a, b, c, label, native):
            "top_route": "split" if sspy.calls else "direct",
            "slab_split_nodes": sspy.calls,
            "direct_leaves": sum(dspy.calls.values()),
+           "torch_sweeps": sum(pspy.calls.values()),
            "launches": launches}
+    require(launches["direct_choices"] == launches["direct_walk"]
+            == rec["direct_leaves"] > 0,
+            f"{label}: the direct kernels did not launch once a direct "
+            f"node: {launches}, {rec['direct_leaves']} direct nodes")
     if native:
         t0 = time.perf_counter()
         want = score_native(a, b, c)
@@ -1000,9 +1111,11 @@ def traceback_case(a, b, c, label, native):
 
 
 def phase_traceback(rng) -> tuple:
-    """The slice's path; returns K5's launches in the run of the 2048^3 case,
-    the one size whose default route reaches K5, and the 1024^3 triplet with
-    its record."""
+    """The slice's path; returns the launches of K5 and of the direct
+    engine's kernels in the run of the 2048^3 case (the one size whose
+    default route reaches K5; the direct kernels run in its leaves, and on
+    the whole triplet at 512^3 and 1024^3), and the 1024^3 triplet with its
+    record.  Every case holds that the torch choice sweep never ran."""
     recs = []
     for n in (512, 1024, 2048):
         trip = triplet(rng, (n, n, n))
@@ -1015,7 +1128,8 @@ def phase_traceback(rng) -> tuple:
         recs.append(rec)
         if n == 1024:
             case_1024 = trip, rec
-    slab_launches = rec["launches"]["slab"]
+    launches_2048 = {k: rec["launches"][k]
+                     for k in ("slab", "direct_choices", "direct_walk")}
     # Pin nodes on K5: the direct cap lowered to 16 Mi cells and the slab
     # kernel's to 8 Mi, so that the right half of the 768^3 split (a pin
     # node) splits again through K5.
@@ -1029,9 +1143,9 @@ def phase_traceback(rng) -> tuple:
     require(rec["slab_split_nodes"].get("pin", 0) > 0,
             f"no pin node ran K5: {rec['slab_split_nodes']}")
     recs.append(rec)
-    emit(phase="traceback", runs=recs, slab_launches_2048=slab_launches,
+    emit(phase="traceback", runs=recs, launches_2048=launches_2048,
          slab_launches_pin_splits=rec["launches"]["slab"])
-    return slab_launches, case_1024
+    return launches_2048, case_1024
 
 
 def old_final_values(batch, scoring=DEFAULT):
@@ -2179,6 +2293,9 @@ def hetero_dispatch(trips):
     |A| first); the batch must fit one."""
     rot = [mosaic._rotate(t, DEFAULT) for t in trips]
     hb_, wc_ = bk.choose_block_shape(0, 0, 0)
+    # The plan reads the card's free memory: not what earlier phases left
+    # in torch's cache.
+    torch.cuda.empty_cache()
     plan = hk.plan_dispatches([list(map(len, t)) for t in rot], hb_, wc_,
                               hk.default_budget(CUDA))
     require(len(plan) == 1, f"the batch took {len(plan)} dispatches")
@@ -2458,8 +2575,71 @@ def phase_timings(rng, dev, batch) -> tuple:
         blocked_inputs([t for t, in trips]), quarters, halo_sweep(2, None),
         trips)
     rows["hetero_sample"] = time_hetero(rng, batch, dev)
+    rows["direct_1024"] = time_direct(rng, dev)
     emit(phase="timings", **rows, slab_split_max_abs_err=split_err)
     return rows, split_err
+
+
+def time_direct(rng, dev, n=1024) -> dict:
+    """The direct engine's kernels at 1024^3, the main path's direct size:
+    the choice kernel (minimum over 3 triplets after a warm-up) beside one
+    run of its plain version, the walk kernel on the kernel's buffers
+    beside walk_ref, each with its bound; then direct_traceback (host
+    seconds, synchronised) in turns with the plain engine (kernel, plain,
+    plain, kernel), the results equal."""
+    lens = (n, n, n)
+    trips = _inputs(rng, lens, 3)
+
+    def sweep(a, b, c):
+        return direct.choices(a, b, c, DEFAULT, "free", None, CUDA)
+
+    ms = time_cuda_ms(sweep, trips)
+    plain_ms = event_ms(direct._choices, *trips[0], DEFAULT, "free", None,
+                        CUDA)[0]
+    cells = (n + 1) ** 3
+    # Symbols read once; 3 B of choices written for every cuboid slot and
+    # the final vector.
+    bms, by = bound(cells, 4 * (3 * n + NUM_MATRICES) + 3 * cells, dev)
+    choices_row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                   "bound_by": by, "gcups": gcups(cells, ms),
+                   "plain": "direct._choices (torch sweep)"}
+    walks = []
+    for t in trips:
+        final, lo, hi = sweep(*t)
+        walks.append((lo, hi, int(torch.argmax(final)), *lens, "free"))
+    ms = time_cuda_ms(direct.walk, walks)
+    plain_ms, res = event_ms(direct.walk_ref, *walks[0])
+    steps = int(res[0])
+    del walks
+    torch.cuda.empty_cache()
+    # A step reads 3 B and writes one 4-byte state.
+    bms, by = bound(0, 7 * steps + 16, dev)
+    walk_row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                "bound_by": by, "walk_steps": steps,
+                "plain": "direct.walk_ref (torch operations)"}
+
+    def traceback(plain):
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(mock.patch.object(
+                    direct, "choices", direct._choices))
+                stack.enter_context(mock.patch.object(
+                    direct, "walk", direct.walk_ref))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = direct.direct_traceback(*trips[0], device=CUDA)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, out
+
+    turns = [traceback(p) for p in (False, True, True, False)]
+    require(all(out == turns[0][1] for _, out in turns),
+            "direct_traceback at 1024^3: the plain engine's alignment "
+            "differs from the kernels'")
+    seconds = [t for t, _ in turns]
+    return {"choices": choices_row, "walk": walk_row,
+            "traceback_1024": {"kernels_s": min(seconds[0], seconds[3]),
+                               "plain_s": min(seconds[1], seconds[2]),
+                               "turns_s": seconds}}
 
 
 def time_k2(rng, shape, dev) -> dict:
@@ -2576,7 +2756,7 @@ def phase_bench(dev) -> None:
     t1 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         runner.run_stage("probe", 20, force=True)
-        runner.run_stage("traceback_4k", 65, cap=BENCH_CUT_S)
+        runner.run_stage("traceback_4k", 20, cap=BENCH_CUT_S)
         runner.run_stage("parity_fixtures", 10)
         runner.run_stage("single_stream_255", 10)
     runner_s = time.perf_counter() - t1
@@ -2619,8 +2799,11 @@ def main() -> int:
     k3_err = max(k3_err, sched_err["blocked"])
     k5_err = max(k5_err, sched_err["slab"])
     k4_err = max(phase_hetero(rng), sched_err["hetero"])
+    # Its own generator, so that every other phase draws what it drew before.
+    direct_err = phase_direct(np.random.default_rng([args.seed, 13]))
     launches, headline = phase_main_path(rng)
-    launches["slab"], tb_case = phase_traceback(rng)
+    tb_launches, tb_case = phase_traceback(rng)
+    launches.update(tb_launches)
     launches["hetero"], batch, batch_scores = phase_batch(rng)
     # K6's measured peak first: every bound below divides by it.
     k6 = phase_vpu(rng, dev)
@@ -2660,14 +2843,17 @@ def main() -> int:
     hetero_tiles.update(tiles_at_scale)
     require("jax" not in sys.modules and "trialign" not in sys.modules,
             "JAX or the JAX package was imported")
+    direct_rows = rows["direct_1024"]
     split = "x".join(map(str, SPLIT_SHAPE))
     # K3's per-tile form's, chain mode's and K6's ms, plain_ms and bound_ms
     # are of a sample on which the plain version finishes (it would take
     # minutes to hours at the main path's shapes), with the main path's
     # kernel ms beside them; K4's and its per-tile form's are of two of the
     # batch's problems, its largest and its smallest; K5's per-tile form's
-    # are at the 1024^3 sharded traceback's top split.  Eight pallas_call
-    # sites, nine rows: K3's chain mode keeps a row of its own.  K3, its
+    # are at the 1024^3 sharded traceback's top split; the direct engine's
+    # at 1024^3.  Eight pallas_call sites, nine rows: K3's chain mode keeps a
+    # row of its own; then the direct engine's two programs, which are XLA
+    # in the JAX package, not pallas_call sites.  K3, its
     # chain mode and K5 give the diagonal schedule's time of the same run
     # beside the persistent sweep's, the per-tile forms of K3 and K5 their
     # earlier design's.
@@ -2712,6 +2898,16 @@ def main() -> int:
          slab_tiles.pop("max_abs_err"), slab_tiles, slab_tiles),
         ("vpu", "vpu", "trialign/benchmarks.py:286", k6.pop("max_abs_err"),
          k6, k6),
+        # The direct engine is XLA in the JAX package, not a pallas_call.
+        ("direct_choices", "slab", "trialign/traceback/direct.py:157",
+         direct_err["direct_choices"], direct_rows["choices"],
+         {"tpu_form": "XLA (lax.scan), not a pallas_call", "shape": "1024^3",
+          "gcups": direct_rows["choices"]["gcups"],
+          "traceback_1024": direct_rows["traceback_1024"]}),
+        ("direct_walk", "walk", "trialign/traceback/direct.py:321",
+         direct_err["direct_walk"], direct_rows["walk"],
+         {"tpu_form": "XLA (while_loop), not a pallas_call",
+          "shape": "1024^3", "walk_steps": direct_rows["walk"]["walk_steps"]}),
     ]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     emit(kernels=[

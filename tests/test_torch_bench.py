@@ -246,6 +246,48 @@ def test_traceback_stage_splits_on_k5s_plain_version(monkeypatch, name, n):
     assert calls, "no split swept on K5's plain version"
 
 
+TRACEBACK_CAPS = {
+    "traceback_512": ({"BASE_CELLS": 500, "DIRECT_CELLS": 10**9}, 20),
+    "traceback_1k": ({"BASE_CELLS": 500, "DIRECT_CELLS": 10**9}, 24),
+    "traceback_2k": ({"BASE_CELLS": 500, "DIRECT_CELLS": 6000}, 26),
+    "traceback_4k": ({"BASE_CELLS": 500, "DIRECT_CELLS": 6000}, 28),
+    "traceback_8k": ({"BASE_CELLS": 500, "DIRECT_CELLS": 6000}, 30),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TRACEBACK_CAPS))
+def test_traceback_stage_runs_the_direct_kernels(monkeypatch, name):
+    """Every traceback stage requires the direct engine's two kernels on a
+    card (STAGE_KERNELS, counted by _counters), and reaches them through
+    their wrappers: at toy size, with the caps lowered so that the top node
+    (512, 1k) or the leaves below the splits (2k and up) are direct, each
+    wrapper runs."""
+    from trialign_torch.traceback import direct
+
+    assert {"direct_choices", "direct_walk"} <= set(
+        bench.STAGE_KERNELS[name])
+    counters = bench._counters()
+    assert counters["direct_choices"] is direct.choices
+    assert counters["direct_walk"] is direct.walk
+    caps, n = TRACEBACK_CAPS[name]
+    for attr, value in caps.items():
+        monkeypatch.setattr(hirschberg, attr, value)
+    calls = []
+
+    def spy(fn):
+        def run(*args, **kwargs):
+            calls.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return run
+
+    monkeypatch.setattr(direct, "choices", spy(direct.choices))
+    monkeypatch.setattr(direct, "walk", spy(direct.walk))
+    fields = bench.STAGE_FNS[name](n=n, device="cpu")
+    assert fields[name + "_s"] > 0
+    assert "choices" in calls and "walk" in calls
+    assert calls.count("choices") == calls.count("walk")
+
+
 def test_probe_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this case needs a machine without a CUDA device")

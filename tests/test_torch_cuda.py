@@ -775,3 +775,110 @@ def test_per_tile_forms_refuse_a_neighbour_after_its_tile(card):
         bk.sweep_run(*arrs, 10, 20, 20, d, bk.new_state(d, card),
                      [(1, 0), (0, 0)])
     assert bk.sweep_tiles.launches == before
+
+
+# The direct engine's kernels (traceback/direct.py): the choice-capture
+# sweep against its plain torch version on every cuboid slot, under every
+# scoring K5 takes and one where every gap charge ties, in every mode, on
+# ragged shapes (a length of 1, an empty B or C, several 33 x 33 tiles);
+# the walk against the host walk.
+DIRECT_SCORINGS = {**SLAB_SCORINGS,
+                   "ties": (Scoring(match=2, mismatch=-1, gap_open=3,
+                                    gap_extend=3), 2)}
+DIRECT_SHAPES = [(1, 1, 1), (1, 40, 3), (30, 1, 45), (12, 0, 40),
+                 (3, 50, 0), (9, 70, 40), (40, 34, 66)]
+
+
+def direct_inputs(seed, dims, nsym, mode):
+    """A triplet of ``dims`` and, for "pin", a start vector: small values
+    with NEG walls."""
+    rng = np.random.default_rng(seed)
+    trip = tuple(rng.integers(0, nsym, n).astype(np.int32) for n in dims)
+    if mode != "pin":
+        return trip, None
+    v0 = rng.integers(-9, 10, 7).astype(np.int32)
+    v0[rng.random(7) < 0.5] = NEG
+    return trip, v0
+
+
+def assert_choices_equal(got, want, dims):
+    """Equal final vectors, and equal packed entries on every cuboid slot."""
+    from trialign_torch.traceback import direct as D
+
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+    on = D.cuboid_slots(*dims, device=got[1].device)
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g[on], w[on])
+
+
+@pytest.mark.parametrize("mode", ["free", "free_jk", "pin"])
+@pytest.mark.parametrize("name", sorted(DIRECT_SCORINGS))
+@pytest.mark.parametrize("dims", DIRECT_SHAPES)
+def test_choice_kernel_matches_plain(card, dims, name, mode):
+    from trialign_torch.traceback import direct as D
+
+    scoring, nsym = DIRECT_SCORINGS[name]
+    (a, b, c), v0 = direct_inputs(7, dims, nsym, mode)
+    before = D.choices.launches
+    got = D.choices(a, b, c, scoring, mode, v0, card)
+    assert D.choices.launches == before + 1
+    assert_choices_equal(got, D._choices(a, b, c, scoring, mode, v0, card),
+                         dims)
+
+
+@pytest.mark.parametrize("mode", ["free", "free_jk", "pin"])
+def test_choice_kernel_at_scale(card, mode):
+    """Many tiles (7 x 8 of 33 x 33), all seven states chosen."""
+    from trialign_torch.traceback import direct as D
+
+    dims = (200, 220, 250)
+    (a, b, c), v0 = direct_inputs(8, dims, 4, mode)
+    got = D.choices(a, b, c, Scoring(), mode, v0, card)
+    assert_choices_equal(got, D._choices(a, b, c, Scoring(), mode, v0, card),
+                         dims)
+
+
+@pytest.mark.parametrize("mode", ["free", "free_jk", "pin"])
+@pytest.mark.parametrize("dims", [(30, 1, 45), (40, 34, 66),
+                                  (120, 90, 100)])
+def test_walk_kernel_matches_host_walk(card, dims, mode):
+    """From every end state: the walk kernel's steps and stop equal the
+    host walk's and its plain version's, on the kernel's buffers."""
+    from trialign_torch.traceback import direct as D
+
+    (a, b, c), v0 = direct_inputs(9, dims, 4, mode)
+    _, lo, hi = D.choices(a, b, c, Scoring(), mode, v0, card)
+    for t0 in range(7):
+        before = D.walk.launches
+        got = D.walk(lo, hi, t0, *dims, mode).cpu()
+        assert D.walk.launches == before + 1
+        want = D.walk_ref(lo, hi, t0, *dims, mode).cpu()
+        n = int(want[0])
+        assert torch.equal(got[:4 + n], want[:4 + n])
+        acts, stop = D._walk(lo, hi, t0, *dims, dims[2] + 1, mode)
+        assert got[4:4 + n].tolist() == acts
+        assert tuple(got[1:4].tolist()) == stop
+
+
+@pytest.mark.parametrize("mode", ["free", "free_jk", "pin"])
+@pytest.mark.parametrize("name", ["sop", "rtl", "sub16", "ties"])
+def test_direct_traceback_on_card_matches_cpu(card, monkeypatch, name,
+                                              mode):
+    """direct_traceback on the card (one launch of each kernel, the torch
+    sweep never called) equals it on the CPU."""
+    from trialign_torch.traceback import direct as D
+
+    scoring, nsym = DIRECT_SCORINGS[name]
+    (a, b, c), v0 = direct_inputs(10, (50, 61, 47), nsym, mode)
+    end = None if mode == "free" else 3
+    want = D.direct_traceback(a, b, c, scoring, mode, v0, end, device="cpu")
+    launches = D.choices.launches, D.walk.launches
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the torch sweep ran on the card path")
+
+    monkeypatch.setattr(D, "_choices", plain)
+    got = D.direct_traceback(a, b, c, scoring, mode, v0, end, device=card)
+    assert (D.choices.launches, D.walk.launches) == (launches[0] + 1,
+                                                     launches[1] + 1)
+    assert got == want

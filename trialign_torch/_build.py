@@ -108,6 +108,12 @@ SIGNATURES = {
             _I, [_P, _P, _P, SlabGeom, _P, _I, _P, _P, StepScoring, _P, _P,
                  _P, _P, _I, _I, _P, _P, _P]),
         "trialign_slab_blocks_per_sm": (_I, [_I, _I, _IP]),
+        "trialign_slab_choices": (
+            _I, [_P, _P, _P, SlabGeom, _P, _P, StepScoring, _P, _P, _P, _P,
+                 _P, _I, _I, _I, _P, _P, _P]),
+    },
+    "walk": {
+        "trialign_walk": (_I, [_P, _P, _I, _I, _I, _I, _I, _P, _P]),
     },
     "vpu": {
         "trialign_vpu_threads": (_I, []),

@@ -352,9 +352,11 @@ STAGE_FNS = {
 }
 
 # The kernels each stage must launch on a card (by their counters' names
-# in _counters); a stage that launched none of one fails.  traceback_512
-# and traceback_1k run the direct engine (torch operations) and K3 for the
-# score path.
+# in _counters); a stage that launched none of one fails.  Every traceback
+# stage runs the direct engine's choice and walk kernels: traceback_512 and
+# traceback_1k on the whole triplet, the larger ones in the leaves below
+# their K5 splits (their score path is K3's, not required here).
+DIRECT = ("direct_choices", "direct_walk")
 STAGE_KERNELS = {
     "blocked_1k": ("blocked",),
     "parity_fixtures": ("wavefront", "blocked"),
@@ -364,9 +366,11 @@ STAGE_KERNELS = {
     "batch_mixed": ("hetero",),
     "blocked_2k": ("blocked",),
     "chain_1k": ("blocked_chain",),
-    "traceback_2k": ("slab",),
-    "traceback_4k": ("slab",),
-    "traceback_8k": ("slab",),
+    "traceback_512": DIRECT,
+    "traceback_1k": DIRECT,
+    "traceback_2k": ("slab", *DIRECT),
+    "traceback_4k": ("slab", *DIRECT),
+    "traceback_8k": ("slab", *DIRECT),
     "roofline": ("vpu",),
     "single_stream_255": ("wavefront",),
 }
@@ -379,33 +383,35 @@ STAGE_KERNELS = {
 # it at least 180 s more.  traceback_8k alone has a cap, so that its worst
 # case leaves the later stages their budget.
 CUDA_STAGES = [
-    ("blocked_1k", 40, None),        # 35 s, 27 s of it the C++ oracle
-    ("traceback_4k", 65, None),      # 63 s: a first run and two timed
-    ("traceback_8k", 135, 300),      # 133 s; runs only if traceback_4k landed
-    ("traceback_1k", 20, None),      # 17 s
-    ("batch_mixed", 90, None),       # 89 s, most of it the golden samples
+    ("blocked_1k", 40, None),        # 32 s, 24 s of it the C++ oracle
+    ("traceback_4k", 20, None),      # 18 s: a first run and two timed
+    ("traceback_8k", 75, 300),       # 72 s; runs only if traceback_4k landed
+    ("traceback_1k", 10, None),      # 9 s
+    ("batch_mixed", 90, None),       # 88 s, most of it the golden samples
     ("chain_512", 10, None),         # 8 s
     ("hetero_512", 10, None),        # 10 s
     ("single_512", 10, None),        # 8 s
-    ("traceback_512", 15, None),     # 15 s
-    ("roofline", 10, None),          # 9 s
-    ("traceback_2k", 35, None),      # 32 s
-    ("chain_1k", 10, None),          # 9 s
-    ("blocked_2k", 10, None),        # 9 s
+    ("traceback_512", 10, None),     # 7 s
+    ("roofline", 10, None),          # 8 s
+    ("traceback_2k", 10, None),      # 9 s
+    ("chain_1k", 10, None),          # 8 s
+    ("blocked_2k", 10, None),        # 8 s
     ("parity_fixtures", 10, None),   # 8 s
-    ("single_stream_255", 10, None),  # 8 s
+    ("single_stream_255", 10, None),  # 9 s
 ]
 
 
 def _counters() -> dict:
     """Each kernel entry point's launch counter, by name."""
     from trialign_torch.kernels import blocked, hetero, slab, vpu, wavefront
+    from trialign_torch.traceback import direct
 
     return {"wavefront": wavefront.final_values,
             "blocked": blocked.final_values,
             "blocked_chain": blocked.chain_values,
             "hetero": hetero.final_values, "slab": slab.slab_sweep,
-            "vpu": vpu.vpu_chains}
+            "vpu": vpu.vpu_chains, "direct_choices": direct.choices,
+            "direct_walk": direct.walk}
 
 
 def child_main(name: str) -> int:

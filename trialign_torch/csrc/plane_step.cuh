@@ -1,6 +1,8 @@
 // The 7-matrix affine-gap cell step shared by the wavefront (K2), blocked
 // (K3) and slab (K5) kernels and K4's earlier design; K4's register step
-// (csrc/pillar_warp.cuh) takes the same groups pre-reduced.
+// (csrc/pillar_warp.cuh) takes the same groups pre-reduced.  The direct
+// engine's choice-capture sweep (csrc/slab.cu, CHOICES) steps with
+// cell_step_choices, which also returns each target's argmax.
 //
 // Replaces trialign/kernels/plane_math.py:fused_plane_update_m7 (K1), the
 // plane-wide grouped max-plus update every Pallas kernel inlines.  On the TPU
@@ -141,6 +143,81 @@ __device__ __forceinline__ int cell_step(const int* p1, const int* p2, int ts,
   out[5] = wrap_bits(iyz, sb);
   out[6] = wrap_bits(ixz, sb);
   return max(max4(out[0], out[1], out[2], out[3]), max3(out[4], out[5], out[6]));
+}
+
+// Axes (bit 0 A, bit 1 B, bit 2 C) matrix t consumes, in the order of
+// trialign_torch/config.py CONSUMES: M, Ix, Iy, Iz, Ixy, Iyz, Ixz.
+__host__ __device__ constexpr int consume_bits(int t) {
+  return t == 0 ? 7 : t == 1 ? 1 : t == 2 ? 2 : t == 3 ? 4 : t == 4 ? 3
+       : t == 5 ? 6 : 5;
+}
+
+// Scoring.weight_matrix()[t][s]: each axis target t gaps costs gap_extend
+// if source s gapped it too, else gap_open.  Unrolled, the indices are
+// constants and this folds to a sum of the two charges.
+__device__ __forceinline__ int transition_weight(int t, int s, int go,
+                                                 int ge) {
+  int charge = 0;
+#pragma unroll
+  for (int axis = 0; axis < 3; ++axis) {
+    if (!((consume_bits(t) >> axis) & 1))
+      charge += ((consume_bits(s) >> axis) & 1) ? go : ge;
+  }
+  return -charge;
+}
+
+// The direct engine's cell step (trialign/traceback/direct.py _choices_seg):
+// cell_step's seven values, unwrapped, and which source each target took.
+// Each target's value is the max over its sources s = 0 .. 6, in that
+// order, of pred[s] + W[t][s], and its choice the first s that reaches it
+// (ties to the lowest source, as jnp.argmax and torch.max take them).
+// Choice t sits in bits 3t .. 3t + 2 of the returned word.  M's sources
+// all carry weight 0, so its value and choice are max7 and its argmax of
+// plane q-3 at (j-1, k-1), m7_ul and a7_ul, carried by the caller.  A
+// target whose predecessor lies outside the cuboid (j < dj: !has_up, or
+// k < dk: !has_left) chooses 0; its value reads the caller's guard cells
+// and the caller overwrites it.  Everything adds in full int32: NEG-valued
+// sources, which do not fit 16 bits, are ranked by their charges.
+__device__ __forceinline__ int cell_step_choices(
+    const int* p1, const int* p2, int ts, int c, int up, int left,
+    int upleft, int m7_ul, int a7_ul, bool has_up, bool has_left, int a,
+    int b, int cc, const StepScoring& s, const int* sub,
+    int out[kNumMatrices]) {
+  const int sab = pair_score(a, b, s, sub);
+  const int sac = pair_score(a, cc, s, sub);
+  const int sbc = pair_score(b, cc, s, sub);
+  int s3;
+  if (s.rtl) {
+    s3 = a == b ? (b == cc ? 3 * s.match : 2 * (s.match + s.mismatch))
+                : 3 * s.mismatch;
+  } else {
+    s3 = sab + sac + sbc;
+  }
+  const int go = s.gap_open, ge = s.gap_extend;
+  // Target t's predecessor offset within planes q-1 (Ix, Iy, Iz) and q-2
+  // (Ixy, Iyz, Ixz), and the substitution it adds.
+  const int* const src[kNumMatrices] = {nullptr, p1 + c, p1 + up, p1 + left,
+                                        p2 + up, p2 + upleft, p2 + left};
+  const int subs[kNumMatrices] = {s3, 0, 0, 0, sab, sbc, sac};
+  const bool has[kNumMatrices] = {has_up && has_left, true, has_up, has_left,
+                                  has_up, has_up && has_left, has_left};
+  out[0] = m7_ul + s3;
+  int word = has[0] ? a7_ul : 0;
+#pragma unroll
+  for (int t = 1; t < kNumMatrices; ++t) {
+    int best = src[t][0] + transition_weight(t, 0, go, ge), arg = 0;
+#pragma unroll
+    for (int u = 1; u < kNumMatrices; ++u) {
+      const int v = src[t][u * ts] + transition_weight(t, u, go, ge);
+      if (v > best) {
+        best = v;
+        arg = u;
+      }
+    }
+    out[t] = best + subs[t];
+    if (has[t]) word |= arg << (3 * t);
+  }
+  return word;
 }
 
 // Copies the host-built submatrix table into shared memory (no-op for the

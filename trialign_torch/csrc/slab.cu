@@ -53,6 +53,25 @@
 // (kernels/slab.py _scal_table, one for the whole grid in every state, a
 // stripe's included) names tile (jb, kb)'s slabs kb and jb (columns 13, 14).
 //
+// The direct engine's choice-capture sweep (choices_persistent, entry
+// trialign_slab_choices) replaces trialign/traceback/direct.py:_choices_seg,
+// which is XLA in the JAX package (a jitted lax.scan a segment of planes),
+// not a pallas_call.  It is this file's whole-grid sweep with the CHOICES
+// flag: no capture plane; every cell with 0 <= i <= |A| on a plane q >= 1
+// steps with cell_step_choices (csrc/plane_step.cuh), which also returns
+// each target's argmax over its seven sources, and writes the 21 bits to
+// the caller's packed buffers (3 bits a matrix: matrices 0-4 into an int16,
+// 5-6 into a byte, row q - 1, (j, k) at j * (|C| + 1) + k, 64-bit
+// offsets).  A target with no predecessor (j < dj or k < dk) chooses 0.  M's
+// choice is the argmax of the seven stored values at (i-1, j-1, k-1), so a
+// ring of 4 byte planes carries the argmax of max7 beside it, taken after
+// the walls.  Cells whose value a wall fixes (the j = 0 / k = 0 faces and
+// i = 0 of "free" and "free_jk") still step, for their choices, which is
+// why the sweep visits i = 0 in every variant.  Bound: the step's 42
+// add/compare/selects a cell (six targets by seven sources, ungrouped: the
+// argmax needs every source) and the 3 B a cell it writes, 3.2 GB at
+// 1024^3, in short rows of a tile's width.
+//
 // Kept for comparison only (chip_smoke.py; no entry point of the package
 // reaches it): slab_kernel, the per-tile form as it was, one launch a run of
 // one anti-diagonal with one block a tile (schedule NoWait).
@@ -64,7 +83,8 @@
 // M row backward) starts at the value every cell has below its first plane:
 // 0 ("free"), 0 on the j = 0 / k = 0 faces and NEG elsewhere ("free_jk"),
 // NEG ("pin", "bwd").  A position is written only on planes where its i is in
-// [1, |A|] ("free", "free_jk") or [0, |A|] ("pin", "bwd"); "pin" and "bwd"
+// [1, |A|] ("free", "free_jk") or [0, |A|] ("pin", "bwd", and every variant
+// of the choice sweep); "pin" and "bwd"
 // start at plane 0, where each tile's corner holds i = 0.  The faces carry
 // every written position of the bottom row and right column, so a
 // neighbour reads only face rows that were written, and no slab needs
@@ -109,25 +129,14 @@ constexpr int kThreads = 512;
 constexpr int kSlabMaxSym = 16;
 constexpr int kSlabSubTable = (kSlabMaxSym + 1) * (kSlabMaxSym + 1);
 
-// Axes (bit 0 A, bit 1 B, bit 2 C) matrix t consumes, in the order of
-// trialign_torch/config.py CONSUMES: M, Ix, Iy, Iz, Ixy, Iyz, Ixz.
-__host__ __device__ constexpr int consume_bits(int t) {
-  return t == 0 ? 7 : t == 1 ? 1 : t == 2 ? 2 : t == 3 ? 4 : t == 4 ? 3
-       : t == 5 ? 6 : 5;
-}
-
-// Scoring.weight_matrix()[t][s]: each axis target t gaps costs gap_extend
-// if source s gapped it too, else gap_open.  Unrolled, the indices are
-// constants and this folds to a sum of the two charges.
-__device__ __forceinline__ int weight(int t, int s, int go, int ge) {
-  int charge = 0;
-#pragma unroll
-  for (int axis = 0; axis < 3; ++axis) {
-    if (!((consume_bits(t) >> axis) & 1))
-      charge += ((consume_bits(s) >> axis) & 1) ? go : ge;
-  }
-  return -charge;
-}
+// Where the choice-capture sweep writes: packed_lo and packed_hi of
+// traceback/direct.py, (|A| + |B| + |C|, (|B| + 1)(|C| + 1)) each; row q - 1
+// holds plane q, (j, k) at j * (|C| + 1) + k.
+struct ChoiceOut {
+  int16_t* lo;  // choices of matrices 0-4, 3 bits each
+  uint8_t* hi;  // matrices 5 and 6
+  int lb, lc;   // |B|, |C|
+};
 
 // The three pairwise scores and S3 of one cell, as cell_step computes them.
 __device__ __forceinline__ void cell_subs(int a, int b, int cc,
@@ -167,10 +176,10 @@ __device__ __forceinline__ void bwd_step(const int* p1, const int* p2,
   const int go = s.gap_open, ge = s.gap_extend;
 #pragma unroll
   for (int t = 0; t < kNumMatrices; ++t) {
-    int acc = e[0] + weight(0, t, go, ge);
+    int acc = e[0] + transition_weight(0, t, go, ge);
 #pragma unroll
     for (int u = 1; u < kNumMatrices; ++u)
-      acc = max(acc, e[u] + weight(u, t, go, ge));
+      acc = max(acc, e[u] + transition_weight(u, t, go, ge));
     out[t] = max(acc, kNeg);
   }
 }
@@ -180,14 +189,22 @@ size_t shared_bytes(int hb, int wc) {
                          kSlabSubTable);
 }
 
+// The choice-capture sweep's shared memory: K5's, and 4 generations of one
+// byte plane, the argmax of max7.
+size_t choices_shared_bytes(int hb, int wc) {
+  return shared_bytes(hb, wc) + (size_t)4 * (hb + 1) * (wc + 1);
+}
+
 // Sweeps tile (jb, kb) under the schedule policy `sync` (csrc/schedule.cuh).
-template <class Sync>
+// CHOICES: the direct engine's choice-capture sweep (see the top of this
+// file) instead of K5's capture; `co` is read only then.
+template <bool CHOICES, class Sync>
 __device__ __forceinline__ void slab_tile(
     int* smem, const int* __restrict__ a_ext, const int* __restrict__ b_ext,
     const int* __restrict__ c_ext, const SlabGeom& g, int jb, int kb,
     const int* __restrict__ scal, const int* __restrict__ sub,
     const StepScoring& s, int* rf, int* cf, int* __restrict__ out,
-    int* __restrict__ cap, Sync& sync) {
+    int* __restrict__ cap, const ChoiceOut& co, Sync& sync) {
   const int hb = g.hb, wc = g.wc, tb = hb - 1, tc = wc - 1;
   // Guarded plane: position (jl, kl) at (jl + 1) * W1 + kl + 1, jl, kl >= -1.
   const int W1 = wc + 1, PG = (hb + 1) * W1;
@@ -196,6 +213,8 @@ __device__ __forceinline__ void slab_tile(
   int* bsym = m4 + 4 * PG;                    // [hb]
   int* csym = bsym + hb;                      // [wc]
   int* sub_s = csym + wc;                     // [kSlabSubTable]
+  // CHOICES: [4 slots][PG], the argmax of each max7 in m4.
+  uint8_t* a4 = reinterpret_cast<uint8_t*>(sub_s + kSlabSubTable);
   const int blk = jb * g.n_kb + kb;
   const int* row = scal + (size_t)blk * kScalCols;
   const int la = g.la, qstar = row[3], jlstar = row[4], klstar = row[5];
@@ -208,6 +227,9 @@ __device__ __forceinline__ void slab_tile(
     const int jl = pos / W1 - 1, kl = pos % W1 - 1;
     const bool border = (jb == 0 && jl == 0) || (kb == 0 && kl == 0);
     planes[x] = variant == kFree || (variant == kFreeJk && border) ? 0 : kNeg;
+  }
+  if (CHOICES) {
+    for (int x = threadIdx.x; x < 4 * PG; x += kThreads) a4[x] = 0;
   }
   for (int x = threadIdx.x; x < hb; x += kThreads)
     bsym[x] = b_ext[jb * tb + x];
@@ -222,9 +244,13 @@ __device__ __forceinline__ void slab_tile(
   int* rface = rf + (size_t)row[13] * g.nrows * rrow;
   int* cface = cf + (size_t)row[14] * g.nrows * crow;
   int* capb = cap + (size_t)blk * kNumMatrices * hb * wc;
-  const int ilo = walls ? 0 : 1;
+  // The choice sweep also steps the cells with i = 0 of "free" and
+  // "free_jk", whose choices the walk may read.
+  const int ilo = walls || CHOICES ? 0 : 1;
   const int nq = la + tb + tc;
   const int npos = hb * wc;
+  // CHOICES: one row of the packed buffers a global plane, 64-bit offsets.
+  const size_t crow_len = (size_t)(co.lb + 1) * (co.lc + 1);
 
   for (int q = walls ? 0 : 1; q <= nq; ++q) {
     sync.before_plane(q);
@@ -233,13 +259,17 @@ __device__ __forceinline__ void slab_tile(
     const int* p2 = planes + ((q + 1) % 3) * kNumMatrices * PG;
     int* m4cur = m4 + (q & 3) * PG;
     const int* m4p3 = m4 + ((q + 1) & 3) * PG;  // slot of plane q - 3
+    uint8_t* a4cur = a4 + (q & 3) * PG;
+    const uint8_t* a4p3 = a4 + ((q + 1) & 3) * PG;
 
     for (int x = threadIdx.x; x < npos; x += kThreads) {
       const int jl = x / wc, kl = x - (x / wc) * wc;
       const int i = q - jl - kl;
       if (i < ilo || i > la) continue;
       const int c = (jl + 1) * W1 + kl + 1;
+      const int gj = jb * tb + jl, gk = kb * tc + kl;
       int v[kNumMatrices];
+      int word = -1;  // CHOICES: the cell's choices, where this tile owns it
       if (jl == 0 && jb > 0) {
         // Halo row from the row face; it wins at the corner.
         const int* src = rface + q * rrow + kl;
@@ -249,6 +279,29 @@ __device__ __forceinline__ void slab_tile(
         const int* src = cface + q * crow + jl;
 #pragma unroll
         for (int t = 0; t < kNumMatrices; ++t) v[t] = sync.load(src + t * hb);
+      } else if (CHOICES && i + gj + gk > 0) {
+        // Every cell chooses from its stored predecessors; its value is then
+        // walled as traceback/torch_engine.py _Grid.mask walls it.
+        word = cell_step_choices(p1, p2, PG, c, c - W1, c - 1, c - W1 - 1,
+                                 m4p3[c - W1 - 1], a4p3[c - W1 - 1], gj > 0,
+                                 gk > 0, a_ext[i], bsym[jl], csym[kl], s,
+                                 sub_s, v);
+        if (!walls && (jl == 0 || kl == 0 || i == 0)) {
+          // j = 0 and k = 0 faces are zero; i = 0 is zero in "free" and a
+          // NEG wall in "free_jk".
+          const int fill = variant == kFree || jl == 0 || kl == 0 ? 0 : kNeg;
+#pragma unroll
+          for (int t = 0; t < kNumMatrices; ++t) v[t] = fill;
+        } else {
+#pragma unroll
+          for (int t = 0; t < kNumMatrices; ++t) {
+            const int cb = consume_bits(t);
+            v[t] = max(v[t], kNeg);
+            if (walls && (i < (cb & 1) || gj < ((cb >> 1) & 1) ||
+                          gk < ((cb >> 2) & 1)))
+              v[t] = kNeg;
+          }
+        }
       } else if ((jl == 0 || kl == 0) && !walls) {
         // A j = 0 or k = 0 face cell of "free" / "free_jk": zero.
 #pragma unroll
@@ -265,7 +318,6 @@ __device__ __forceinline__ void slab_tile(
         if (variant == kPin) {
           // A matrix is a wall where it would consume a symbol that does
           // not exist: i < ca, global j < cb or k < cc.
-          const int gj = jb * tb + jl, gk = kb * tc + kl;
 #pragma unroll
           for (int t = 0; t < kNumMatrices; ++t) {
             const int cb = consume_bits(t);
@@ -278,13 +330,18 @@ __device__ __forceinline__ void slab_tile(
                  bsym[jl], csym[kl], s, sub_s, v);
       }
 
-      int m = v[0];
+      // max7 and, for CHOICES, its first argmax, of the stored values.
+      int m = v[0], am = 0;
 #pragma unroll
       for (int t = 0; t < kNumMatrices; ++t) {
         cur[t * PG + c] = v[t];
-        m = max(m, v[t]);
+        if (v[t] > m) {
+          m = v[t];
+          am = t;
+        }
       }
       m4cur[c] = fwd ? m : v[0];
+      if (CHOICES) a4cur[c] = (uint8_t)am;
       if (jl == tb) {
 #pragma unroll
         for (int t = 0; t < kNumMatrices; ++t)
@@ -295,13 +352,21 @@ __device__ __forceinline__ void slab_tile(
         for (int t = 0; t < kNumMatrices; ++t)
           sync.store(&cface[(q - tc) * crow + t * hb + jl], v[t]);
       }
-      if (i == la) {
+      if (!CHOICES && i == la) {
 #pragma unroll
         for (int t = 0; t < kNumMatrices; ++t) capb[t * npos + x] = v[t];
       }
       if (fwd && q == qstar && jl == jlstar && kl == klstar) {
 #pragma unroll
         for (int t = 0; t < kNumMatrices; ++t) out[t] = v[t];
+      }
+      if (CHOICES && word >= 0 && gj <= co.lb && gk <= co.lc) {
+        // Row i + j + k - 1 (q is the tile's local plane); matrices 0-4 in
+        // the int16 buffer, 5-6 in the byte buffer.
+        const size_t at = (size_t)(i + gj + gk - 1) * crow_len +
+                          (size_t)gj * (co.lc + 1) + gk;
+        co.lo[at] = (int16_t)(word & 0x7FFF);
+        co.hi[at] = (uint8_t)(word >> 15);
       }
     }
     __syncthreads();
@@ -320,8 +385,8 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ int smem[];
   const int jb = jb_lo + blockIdx.x;
   NoWait sync;
-  slab_tile(smem, a_ext, b_ext, c_ext, g, jb, d - jb, scal, sub, s, rf, cf,
-            out, cap, sync);
+  slab_tile<false>(smem, a_ext, b_ext, c_ext, g, jb, d - jb, scal, sub, s, rf,
+                   cf, out, cap, ChoiceOut{}, sync);
 }
 
 // Entry of a run's table, as csrc/blocked.cu RunEntry: (jb, kb, up, left).
@@ -362,8 +427,34 @@ __global__ void __launch_bounds__(kThreads)
       left = kb > 0 ? me - 1 : nullptr;
     }
     PlaneWait sync(me, up, left, tb, tc, nq, chunk, first);
-    slab_tile(smem, a_ext, b_ext, c_ext, g, jb, kb, scal, sub, s, rf, cf, out,
-              cap, sync);
+    slab_tile<false>(smem, a_ext, b_ext, c_ext, g, jb, kb, scal, sub, s, rf,
+                     cf, out, cap, ChoiceOut{}, sync);
+  }
+}
+
+// The direct engine's choice-capture sweep over the whole tile table in one
+// launch, as slab_persistent sweeps it (next_tile 0, done one -1 a tile).
+__global__ void __launch_bounds__(kThreads)
+    choices_persistent(const int* __restrict__ a_ext,
+                       const int* __restrict__ b_ext,
+                       const int* __restrict__ c_ext, SlabGeom g, int chunk,
+                       const int* __restrict__ scal,
+                       const int* __restrict__ sub, StepScoring s, int* rf,
+                       int* cf, int* __restrict__ out, ChoiceOut co,
+                       int* next_tile, int* done) {
+  extern __shared__ int smem[];
+  const int tb = g.hb - 1, tc = g.wc - 1, nq = g.la + tb + tc;
+  const int first = g.variant == kPin ? 0 : 1;
+  for (;;) {
+    const int t = take_tile(next_tile);
+    if (t >= g.n_jb * g.n_kb) return;
+    int jb, kb;
+    table_tile(t, g.n_jb, g.n_kb, jb, kb);
+    int* me = done + jb * g.n_kb + kb;
+    PlaneWait sync(me, jb > 0 ? me - g.n_kb : nullptr,
+                   kb > 0 ? me - 1 : nullptr, tb, tc, nq, chunk, first);
+    slab_tile<true>(smem, a_ext, b_ext, c_ext, g, jb, kb, scal, sub, s, rf,
+                    cf, out, nullptr, co, sync);
   }
 }
 
@@ -399,6 +490,36 @@ int launch_persistent(const int* a, const int* b, const int* c,
   slab_persistent<<<blocks, kThreads, shared_bytes(g.hb, g.wc), stream>>>(
       a, b, c, g, run, ntiles, chunk, scal, sub, s, rf, cf, out, cap,
       next_tile, done);
+  return (int)cudaGetLastError();
+}
+
+cudaError_t choices_per_sm(int hb, int wc, int* per_sm) {
+  const size_t smem = choices_shared_bytes(hb, wc);
+  cudaError_t err = cudaFuncSetAttribute(
+      choices_persistent, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, choices_persistent, kThreads, smem);
+}
+
+int launch_choices(const int* a, const int* b, const int* c,
+                   const SlabGeom& g, int chunk, const int* scal,
+                   const int* sub, StepScoring s, int* rf, int* cf, int* out,
+                   const ChoiceOut& co, int* next_tile, int* done,
+                   cudaStream_t stream) {
+  if (!valid(g, s) || g.variant == kBwd || chunk < 1 || co.lb < 0 ||
+      co.lc < 0 || co.lb > g.n_jb * (g.hb - 1) ||
+      co.lc > g.n_kb * (g.wc - 1) || g.la + co.lb + co.lc < 1)
+    return (int)cudaErrorInvalidValue;
+  int per_sm = 0, blocks = 0;
+  cudaError_t err = choices_per_sm(g.hb, g.wc, &per_sm);
+  if (err == cudaSuccess)
+    err = persistent_grid(per_sm, g.n_jb * g.n_kb, 0, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  choices_persistent<<<blocks, kThreads, choices_shared_bytes(g.hb, g.wc),
+                       stream>>>(a, b, c, g, chunk, scal, sub, s, rf, cf, out,
+                                 co, next_tile, done);
   return (int)cudaGetLastError();
 }
 
@@ -472,6 +593,26 @@ int trialign_slab_sweep(const int* a, const int* b, const int* c,
       a, b, c, g, reinterpret_cast<const trialign::RunEntry*>(run), ntiles,
       chunk, max_blocks, scal, sub, s, rf, cf, out, cap, next_tile, done,
       (cudaStream_t)stream);
+}
+
+// The direct engine's choice-capture sweep (traceback/direct.py choices) as
+// one persistent launch on `stream`: arrays as trialign_slab_sweep takes them
+// for the whole grid (variant "free", "free_jk" or "pin"; scal's final-cell
+// target is (|B|, |C|), which may be 0), no capture.  lo and hi: the packed
+// buffers, (la + lb + lc) rows of (lb + 1) * (lc + 1) entries, each cuboid
+// slot (0 <= i <= la on plane q >= 1) written; the rest is left as it was.
+// out: the 7 values at (la, lb, lc).  next_tile: 1 int, 0; done: n_jb * n_kb
+// ints, -1.  Returns cudaGetLastError() (or the error of the occupancy
+// query).
+int trialign_slab_choices(const int* a, const int* b, const int* c,
+                          trialign::SlabGeom g, const int* scal,
+                          const int* sub, trialign::StepScoring s, int* rf,
+                          int* cf, int* out, int16_t* lo, uint8_t* hi, int lb,
+                          int lc, int chunk, int* next_tile, int* done,
+                          void* stream) {
+  return trialign::launch_choices(a, b, c, g, chunk, scal, sub, s, rf, cf,
+                                  out, trialign::ChoiceOut{lo, hi, lb, lc},
+                                  next_tile, done, (cudaStream_t)stream);
 }
 
 // Blocks of the persistent slab sweep one SM holds at tile plane hb x wc,

@@ -91,11 +91,12 @@ def _plan(la: int, lb: int, lc: int,
 def _scal_table(la: int, lb: int, lc: int, ev, dims: Dims) -> np.ndarray:
     """(n_blocks, 16) int32 rows (la, jb, kb, qstar, jlstar, klstar,
     ev[0..6], row-face slab, column-face slab, pad), row jb * n_kb + kb.
-    The final-vector target is the tile holding (lb, lc); qstar, jlstar
-    and klstar are -1 elsewhere."""
+    The final-vector target is the tile holding (lb, lc) (which may be 0,
+    as in the direct engine's sweeps); qstar, jlstar and klstar are -1
+    elsewhere."""
     tb, tc = dims.hb - 1, dims.wc - 1
     n_blocks = dims.n_jb * dims.n_kb
-    jbstar, kbstar = (lb - 1) // tb, (lc - 1) // tc
+    jbstar, kbstar = max(lb - 1, 0) // tb, max(lc - 1, 0) // tc
     jlstar, klstar = lb - jbstar * tb, lc - kbstar * tc
     idx = np.arange(n_blocks)
     jbs, kbs = idx // dims.n_kb, idx % dims.n_kb

@@ -9,12 +9,14 @@ For each size n it prints one JSON line with, for a random n^3 triplet:
 
 * ``nodes``: every node of the Hirschberg recursion with its shape, mode,
   route and seconds (the engine's ``TRIALIGN_TB_TRACE`` lines);
-* ``direct`` (where the top node is direct): the direct engine's
-  choice-capture sweep and its walk, each in host seconds ending in a
-  ``torch.cuda.synchronize()``, the walk's steps, and the device's busy
-  share over the sweep: the kernel seconds ``torch.profiler`` records (CUDA
-  activity only) in a second run of the same sweep, over the first,
-  unprofiled run's seconds;
+* ``direct`` (where the top node is direct): for each route of the direct
+  engine, ``kernels`` (``direct.choices`` and ``direct.walk``, the CUDA
+  kernels) and ``plain`` (their plain versions ``direct._choices`` and
+  ``direct.walk_ref`` on the card), the choice-capture sweep and the walk,
+  each in host seconds ending in a ``torch.cuda.synchronize()``, the walk's
+  steps, and the device's busy share over the sweep: the kernel seconds
+  ``torch.profiler`` records (CUDA activity only) in a second run of the
+  same sweep, over the first, unprofiled run's seconds;
 * ``sharded`` (with ``--sharded``): ``dist.halo_tb.hirschberg_align_sharded``
   on the same triplet in STRIPES stripes sharing the card, nodes above
   ``--single-cells`` split on the stripes: its seconds, the seconds of its
@@ -65,6 +67,27 @@ def kernel_seconds(fn) -> dict:
             "profiled_wall_s": wall}
 
 
+def direct_seconds(a, b, c, cuda, sweep, walk) -> dict:
+    """One route of the direct engine on a triplet in mode "free": ``sweep``
+    (``direct.choices`` or ``direct._choices``) and ``walk``
+    (``direct.walk`` or ``direct.walk_ref``), timed, and the busy share over
+    the sweep."""
+    from trialign_torch.config import Scoring
+
+    lens = len(a), len(b), len(c)
+
+    def run_sweep():
+        return sweep(a, b, c, Scoring(), "free", None, cuda)
+
+    (final, lo, hi), sweep_s = _seconds(run_sweep)
+    t0 = int(np.argmax(final.cpu().numpy()))
+    res, walk_s = _seconds(lambda: walk(lo, hi, t0, *lens, "free"))
+    del final, lo, hi
+    prof = kernel_seconds(run_sweep)
+    return {"sweep_s": sweep_s, "walk_s": walk_s, "walk_steps": int(res[0]),
+            **prof, "busy_share": prof["kernel_s"] / sweep_s}
+
+
 def sharded_seconds(a, b, c, cuda, stripes: int, single_cells: int) -> dict:
     """One run of the sharded traceback on ``stripes`` stripes sharing the
     card, its seconds split into the sweeps on the stripes and the rest."""
@@ -113,7 +136,6 @@ def main() -> int:
         print("profile_traceback: no CUDA device", file=sys.stderr)
         return 1
     from trialign_torch import _build
-    from trialign_torch.config import Scoring
     from trialign_torch.traceback import direct, hirschberg
 
     _build.build()  # outside the timed runs
@@ -133,18 +155,11 @@ def main() -> int:
         rec = {"n": n, "score": score, "seconds": total,
                "nodes": log.getvalue().splitlines()}
         if hirschberg.DIRECT_CELLS >= (n + 1) ** 3:
-            def sweep():
-                return direct._choices(a, b, c, Scoring(), "free", None, cuda)
-
-            (final, lo, hi), sweep_s = _seconds(sweep)
-            t0 = int(np.argmax(final.cpu().numpy()))
-            (acts, _), walk_s = _seconds(
-                lambda: direct._walk(lo, hi, t0, n, n, n, n + 1, "free"))
-            del final, lo, hi
-            prof = kernel_seconds(sweep)
-            rec["direct"] = {"sweep_s": sweep_s, "walk_s": walk_s,
-                             "walk_steps": len(acts), **prof,
-                             "busy_share": prof["kernel_s"] / sweep_s}
+            rec["direct"] = {
+                "kernels": direct_seconds(a, b, c, cuda, direct.choices,
+                                          direct.walk),
+                "plain": direct_seconds(a, b, c, cuda, direct._choices,
+                                        direct.walk_ref)}
         if args.sharded:
             rec["sharded"] = sharded_seconds(a, b, c, cuda, args.sharded,
                                              args.single_cells)

@@ -1,26 +1,37 @@
-"""Direct device-resident traceback: one choice-capture sweep and one walk.
+"""The direct traceback engine: one choice-capture sweep and one walk.
 
 Port of ``trialign/traceback/direct.py``.  Below the Hirschberg cap
 (hirschberg.DIRECT_CELLS) a subproblem needs no recursion:
 
-* a plane sweep on ``device`` records, per cell and per matrix, WHICH source
-  matrix achieved the max: 7 matrices x 3 bits = 21 bits, packed into an
-  int16 plane (matrices 0-4, bits 0-14) and a uint8 plane (matrices 5-6,
-  bits 15-20 shifted down), 3 B a cell, in (q, (|B|+1)(|C|+1)) buffers (plane
-  q at (j, k) holds cell (i = q-j-k, j, k));
-* a pointer chase from the final cell over the packed buffers emits the
-  consuming-matrix index of each alignment column.
+* :func:`choices` sweeps the cuboid plane by plane and records, per cell and
+  per matrix, WHICH source matrix achieved the max: 7 matrices x 3 bits = 21
+  bits, packed into an int16 entry (matrices 0-4, bits 0-14) and a uint8
+  entry (matrices 5-6, bits 15-20 shifted down), 3 B a cell, in
+  (|A|+|B|+|C|, (|B|+1)(|C|+1)) buffers from ``torch.empty``: row q - 1 holds
+  plane q, whose (j, k) entry is cell (i = q-j-k, j, k).  Only cuboid slots
+  (0 <= i <= |A|) are written, 9.7 GB at 1024^3.  On a CUDA device it is one
+  persistent launch of the choice-capture kernel (``csrc/slab.cu`` with the
+  CHOICES flag: K5's whole-grid sweep on ``cell_step_choices``), the port of
+  the JAX package's ``_choices_seg`` (XLA: a jitted ``lax.scan`` a segment
+  of planes, not a ``pallas_call``).  On the CPU it is its plain version
+  :func:`_choices`, a torch sweep a plane at a time.
+* :func:`walk` chases the pointers from the final cell and emits the
+  consuming-matrix index of each alignment column, newest first: on a CUDA
+  device one thread of ``csrc/walk.cu`` (the port of ``_walk_device``, an
+  XLA ``while_loop``) into a small buffer that the host copies once; on the
+  CPU its plain version :func:`walk_ref`, the same loop in torch operations.
+  :func:`_walk`, which reads one entry a step into the host, is the
+  reference the tests hold both against.
 
-The buffers are allocated once with ``torch.empty`` and filled plane by plane
-in place: the JAX engine donated them to its scan instead.  On the card the
-1024^3 buffers take about 10 GB.  The JAX engine pads shapes to buckets for
-its compile cache; this one sweeps the exact shapes, and keeps the bucketed
-``direct_shapes`` / ``direct_memory_bytes`` as the footprint model that
-routes a problem (an overestimate here), so that every size takes the JAX
-package's route.  The walk reads one packed entry a step from the host,
-where the JAX engine ran a device while-loop: a path has at most
-|A| + |B| + |C| steps.  This engine is XLA in the JAX package, not Pallas;
-a CUDA choice-capture kernel is later speed work.
+Every argmax breaks ties to the lowest source index, as ``jnp.argmax`` and
+``torch.max`` do.  A field whose target has no predecessor in the cuboid (j <
+dj or k < dk, ``plane_math.SHIFTS``) is 0 here; the JAX engine writes the
+argmax of its fill values there.  The walk never reads such a field, so the
+alignments agree (``tests/test_torch_direct_choices.py`` pins both).  The JAX
+engine pads shapes to buckets for its compile cache; this one sweeps the exact
+shapes, and keeps the bucketed ``direct_shapes`` / ``direct_memory_bytes`` as
+the footprint model that routes a problem (an overestimate here), so that
+every size takes the JAX package's route.
 """
 
 from __future__ import annotations
@@ -30,10 +41,15 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from trialign_torch import _build
 from trialign_torch.config import NUM_MATRICES, OFFSETS, Scoring
+from trialign_torch.kernels import blocked as bk
+from trialign_torch.kernels import slab as sk
 from trialign_torch.kernels.plane_math import PLANE_DELTA, SHIFTS
 from trialign_torch.traceback.engine import NEG
 from trialign_torch.traceback.torch_engine import _Grid, init_planes
+
+MODES = ("free", "free_jk", "pin")
 
 # The JAX engine's shape ladder: the footprint model below uses it.
 _LADDER = (16, 32, 64, 96, 128, 192, 256, 320, 384, 448, 512, 520, 576,
@@ -81,8 +97,10 @@ def device_memory_budget(device="cuda") -> int:
 
 
 def _choices(a, b, c, scoring: Scoring, mode: str, v0, device):
-    """The choice-capture sweep: (final (7,), packed_lo (qmax, hb*wc) int16,
-    packed_hi (qmax, hb*wc) uint8) on ``device``; row q-1 holds plane q."""
+    """Plain torch version of the choice kernel, any device: (final (7,)
+    int32, packed_lo (qmax, hb*wc) int16, packed_hi (qmax, hb*wc) uint8),
+    qmax = |A|+|B|+|C|, hb = |B|+1, wc = |C|+1; row q-1 holds plane q.
+    Every entry of a plane is written, the cuboid's slots and the rest."""
     g = _Grid(a, b, c, scoring, device)
     la, hb, wc = g.la, g.hb, g.wc
     qmax = la + len(b) + len(c)
@@ -120,6 +138,72 @@ def _choices(a, b, c, scoring: Scoring, mode: str, v0, device):
     return final, packed_lo, packed_hi
 
 
+def choices(a, b, c, scoring: Scoring, mode: str, v0, device):
+    """The choice-capture sweep on ``device``: (final (7,), packed_lo,
+    packed_hi) as :func:`_choices` gives them, equal on every cuboid slot
+    (0 <= q-j-k <= |A|); the other entries are left as ``torch.empty`` gave
+    them.  On a CPU device this is :func:`_choices`; on a CUDA device one
+    persistent launch of the choice kernel (``csrc/slab.cu``), counted on
+    ``choices.launches``, which raises if it is refused and never falls
+    back.  ``mode`` "free" / "free_jk" / "pin" (the origin holds ``v0``,
+    which the other modes ignore)."""
+    dev = torch.device(device)
+    if mode not in MODES or (mode == "pin" and v0 is None):
+        raise ValueError(f"mode must be one of {MODES}, 'pin' with v0, not "
+                         f"{mode!r}")
+    if dev.type == "cpu":
+        return _choices(a, b, c, scoring, mode, v0, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"no choice kernel for device {dev}")
+    a, b, c = (np.asarray(x, dtype=np.int32) for x in (a, b, c))
+    la, lb, lc = len(a), len(b), len(c)
+    if la + lb + lc < 1:
+        raise ValueError("the choice kernel needs at least one symbol")
+    dims = sk._plan(la, lb, lc)
+    a_ext, b_ext, c_ext = bk.prep_blocked(a, b, c, dims, dev)
+    ev = np.asarray(v0, np.int32) if mode == "pin" else \
+        np.zeros(NUM_MATRICES, np.int32)
+    i32 = dict(dtype=torch.int32, device=dev)
+    # The faces' rows are written before they are read (csrc/slab.cu).
+    rf = torch.empty((dims.n_kb, dims.nrows, NUM_MATRICES, dims.wc), **i32)
+    cf = torch.empty((dims.n_jb, dims.nrows, NUM_MATRICES, dims.hb), **i32)
+    out = torch.empty(NUM_MATRICES, **i32)
+    scal = torch.from_numpy(sk._scal_table(la, lb, lc, ev, dims)).to(dev)
+    qmax, plane = la + lb + lc, (lb + 1) * (lc + 1)
+    packed_lo = torch.empty((qmax, plane), dtype=torch.int16, device=dev)
+    packed_hi = torch.empty((qmax, plane), dtype=torch.uint8, device=dev)
+    lib = _build.load("slab")
+    step, table = _build.kernel_scoring(scoring, 0, dev,
+                                        sk.SUBMATRIX_NSYM_CAP)
+    with torch.cuda.device(dev):
+        work = bk.launch_work(dims, None, dev)
+        code = lib.trialign_slab_choices(
+            a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
+            sk._geom(dims, la, mode), scal.data_ptr(), table.data_ptr(),
+            step, rf.data_ptr(), cf.data_ptr(), out.data_ptr(),
+            packed_lo.data_ptr(), packed_hi.data_ptr(), lb, lc, bk.CHUNK,
+            work.next_tile, work.done,
+            torch.cuda.current_stream().cuda_stream,
+        )
+        _build.check(lib, code, "choice kernel launch")
+        choices.launches += 1
+    return out, packed_lo, packed_hi
+
+
+def cuboid_slots(la: int, lb: int, lc: int, q0: int = 0,
+                 q1: Optional[int] = None, device="cpu") -> torch.Tensor:
+    """Which entries of rows q0 .. q1 - 1 (planes q0 + 1 .. q1) of the packed
+    buffers hold a cell of the cuboid, 0 <= q-j-k <= |A|: a bool tensor of
+    (q1 - q0, (|B|+1)(|C|+1)), the entries :func:`choices` writes."""
+    q1 = la + lb + lc if q1 is None else q1
+    dev = torch.device(device)
+    q = torch.arange(q0 + 1, q1 + 1, dtype=torch.int32, device=dev)
+    jk = (torch.arange(lb + 1, dtype=torch.int32, device=dev).view(-1, 1)
+          + torch.arange(lc + 1, dtype=torch.int32, device=dev)).view(1, -1)
+    i = q.view(-1, 1) - jk
+    return (i >= 0) & (i <= la)
+
+
 def _walk(packed_lo, packed_hi, t0: int, la: int, lb: int, lc: int, wc: int,
           mode: str):
     """Pointer chase from (la, lb, lc) in state t0.  Returns (actions
@@ -141,33 +225,107 @@ def _walk(packed_lo, packed_hi, t0: int, la: int, lb: int, lc: int, wc: int,
     return acts, (i, j, k)
 
 
+def walk_ref(packed_lo, packed_hi, t0: int, la: int, lb: int, lc: int,
+             mode: str) -> torch.Tensor:
+    """Plain torch version of the walk kernel, on the buffers' device, with
+    ``_walk_device``'s semantics: a (4 + |A|+|B|+|C|,) int32 tensor whose
+    entry 0 is the count n of steps, entries 1-3 the (i, j, k) the walk
+    stopped at and entries 4 .. 3 + n the states, newest first (-1 past
+    them)."""
+    dev = packed_lo.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    offs = torch.tensor(OFFSETS, **i64)
+    res = torch.full((4 + la + lb + lc,), -1, dtype=torch.int32, device=dev)
+    i, j, k, t = (torch.tensor(v, **i64) for v in (la, lb, lc, t0))
+    n = 0
+    while bool((i > 0) & (j > 0) & (k > 0) if mode != "pin"
+               else (i > 0) | (j > 0) | (k > 0)):
+        q, pos = i + j + k, j * (lc + 1) + k
+        lo = packed_lo[q - 1, pos].to(torch.int64)
+        hi = packed_hi[q - 1, pos].to(torch.int64)
+        word = torch.where(t < 5, lo, hi)
+        s = (word >> torch.where(t < 5, 3 * t, 3 * t - 15)) & 7
+        res[4 + n] = t
+        i, j, k = i - offs[t, 0], j - offs[t, 1], k - offs[t, 2]
+        t, n = s, n + 1
+    res[0] = n
+    res[1:4] = torch.stack([i, j, k])
+    return res
+
+
+def walk(packed_lo, packed_hi, t0: int, la: int, lb: int, lc: int,
+         mode: str) -> torch.Tensor:
+    """The pointer chase from (|A|, |B|, |C|) in state ``t0`` over the
+    buffers of :func:`choices`, on their device: the result of
+    :func:`walk_ref` (entries past the last state unspecified; a count of -1
+    if a choice was no state or the walk left the cuboid).  On a CPU device
+    this is :func:`walk_ref`; on a CUDA device one launch of the walk kernel
+    (``csrc/walk.cu``, one thread), counted on ``walk.launches``, which
+    raises if it is refused and never falls back.  "free" and "free_jk"
+    stop at the first border, "pin" at the origin."""
+    dev = packed_lo.device
+    shape = (la + lb + lc, (lb + 1) * (lc + 1))
+    if mode not in MODES or not 0 <= t0 < NUM_MATRICES or \
+            packed_lo.dtype != torch.int16 or \
+            packed_hi.dtype != torch.uint8 or packed_lo.shape != shape or \
+            packed_hi.shape != shape or packed_hi.device != dev or \
+            not packed_lo.is_contiguous() or not packed_hi.is_contiguous():
+        raise ValueError("walk takes the packed buffers of choices() for "
+                         f"|A|, |B|, |C| = {la}, {lb}, {lc}, a state in "
+                         f"0..6 and a mode of {MODES}")
+    if dev.type == "cpu":
+        return walk_ref(packed_lo, packed_hi, t0, la, lb, lc, mode)
+    if dev.type != "cuda":
+        raise ValueError(f"no walk kernel for device {dev}")
+    res = torch.empty(4 + la + lb + lc, dtype=torch.int32, device=dev)
+    lib = _build.load("walk")
+    with torch.cuda.device(dev):
+        code = lib.trialign_walk(
+            packed_lo.data_ptr(), packed_hi.data_ptr(), la, lb, lc, t0,
+            int(mode == "pin"), res.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, code, "walk kernel launch")
+        walk.launches += 1
+    return res
+
+
+# Launches of each CUDA kernel since the count was last set to 0.
+choices.launches = 0
+walk.launches = 0
+
+
 def direct_traceback(
     a, b, c, scoring: Scoring = Scoring(), mode: str = "free",
     v0: Optional[np.ndarray] = None, end_state: Optional[int] = None,
     device="cuda",
 ) -> Tuple[int, List[Tuple[int, int, int]]]:
-    """(score, columns) via the direct engine on ``device``.
+    """(score, columns) via the direct engine on ``device``: :func:`choices`
+    and :func:`walk`, one launch each on a CUDA device.
 
     Columns (a_code|-1, b_code|-1, c_code|-1) oldest-first; semantics
     identical to hirschberg's cuboid walk, including the free-mode border
     stop and the unscored leading context."""
     a, b, c = (np.asarray(x, dtype=np.int32) for x in (a, b, c))
     la, lb, lc = len(a), len(b), len(c)
-    final, packed_lo, packed_hi = _choices(a, b, c, scoring, mode, v0,
-                                           device)
+    final, packed_lo, packed_hi = choices(a, b, c, scoring, mode, v0,
+                                          device)
     final = final.cpu().numpy()
     t0 = int(end_state) if end_state is not None else int(np.argmax(final))
     score = int(final[t0])
-    acts, (i, j, k) = _walk(packed_lo, packed_hi, t0, la, lb, lc, lc + 1,
-                            mode)
+    res = walk(packed_lo, packed_hi, t0, la, lb, lc, mode).cpu().numpy()
     del packed_lo, packed_hi
+    n = int(res[0])
+    if n < 0:
+        raise RuntimeError("the direct engine's walk read a choice that is "
+                           "no state, or left the cuboid")
+    acts, (i, j, k) = res[4:4 + n], (int(v) for v in res[1:4])
 
     # Replay the walk's coordinates to emit columns (newest-first), then
     # the unscored leading context for free modes.
     cols: List[Tuple[int, int, int]] = []
     ii, jj, kk = la, lb, lc
     for t in acts:
-        di, dj, dk = OFFSETS[t]
+        di, dj, dk = OFFSETS[int(t)]
         cols.append((int(a[ii - 1]) if di else -1,
                      int(b[jj - 1]) if dj else -1,
                      int(c[kk - 1]) if dk else -1))
