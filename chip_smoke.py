@@ -51,7 +51,8 @@ per source, all at once) and prints one JSON line per phase:
    kernel against ``walk_ref`` (steps and stop, from the best end state), on
    7 ragged shapes (a length of 1, an empty B or C, several tiles) under
    six scorings (one a 16-symbol submatrix) in the modes "free", "free_jk"
-   and "pin", then at 512^3 in every mode and at 1024^3;
+   and "pin", then at 512^3 in every mode, at 1024^3 and on a "pin" leaf
+   of the 2048^3 route, 512 x 1024 x 1024 (packed offsets past 2^31);
 8. ``main_path``: ``trialign_torch.align`` with backend "auto" against the
    golden model (the ``dat`` triplet), the C++ oracle (64^3 and 512^3) and
    the torch sweep (1024^3, all seven values), with the kernels' launch
@@ -332,7 +333,7 @@ COUNTERS = {"wavefront": wf.final_values,
             "vpu": vpu.vpu_chains, "blocked_diagonals": bk.sweep_diagonals,
             "slab_diagonals": sk.sweep_diagonals,
             "hetero_diagonals": hk.sweep_diagonals,
-            "direct_choices": direct.choices, "direct_walk": direct.walk}
+            "direct_choices": sk.choice_sweep, "direct_walk": direct.walk}
 
 
 def reset_launches() -> None:
@@ -921,12 +922,14 @@ def phase_hetero(rng) -> int:
 # The direct engine's kernels (traceback/direct.py) against their plain
 # versions: ragged shapes (a length of 1, an empty B or C, several 33 x 33
 # tiles) under every scoring K5 takes, in every mode, then the main path's
-# direct sizes.  The packed buffers at scale are compared a chunk of
-# DIRECT_ROWS planes at a time, so that the comparison adds little to the
-# two buffers' 9.7 GB each at 1024^3.
+# direct sizes: 512^3 and 1024^3 whole, and a leaf of the 2048^3 route
+# (DIRECT_LEAF, "pin"), whose packed offsets pass 2^31.  The packed buffers
+# at scale are compared a chunk of DIRECT_ROWS planes at a time, so that
+# the comparison adds little to the two buffers' 9.7 GB each at 1024^3.
 DIRECT_SHAPES = ((1, 1, 1), (1, 40, 3), (30, 1, 45), (12, 0, 40), (3, 50, 0),
                  (9, 70, 40), (40, 34, 66))
 DIRECT_MODES = ("free", "free_jk", "pin")
+DIRECT_LEAF = (512, 1024, 1024)
 DIRECT_ROWS = 64
 
 
@@ -960,9 +963,9 @@ def direct_case(trip, scoring, mode, v0) -> tuple:
     buffers, exactly; (largest differences of both, the walk's steps)."""
     lens = tuple(len(x) for x in trip)
     what = f"direct {lens} {mode}"
-    before = direct.choices.launches
+    before = sk.choice_sweep.launches
     got = direct.choices(*trip, scoring, mode, v0, CUDA)
-    require(direct.choices.launches == before + 1,
+    require(sk.choice_sweep.launches == before + 1,
             f"{what}: not one launch of the choice kernel")
     err, bad = packed_diff(got, direct._choices(*trip, scoring, mode, v0,
                                                 CUDA), lens)
@@ -990,15 +993,17 @@ def phase_direct(rng) -> dict:
                                                direct_v0(rng, mode))
                 errs.append(err)
                 walk_errs.append(walk_err)
-    for n, modes in ((512, DIRECT_MODES), (1024, ("free",))):
-        trip = triplet(rng, (n, n, n))
+    for shape, modes in (((512,) * 3, DIRECT_MODES), ((1024,) * 3, ("free",)),
+                         (DIRECT_LEAF, ("pin",))):
+        trip = triplet(rng, shape)
         for mode in modes:
             t0 = time.perf_counter()
             err, walk_err, steps = direct_case(trip, DEFAULT, mode,
                                                direct_v0(rng, mode))
             errs.append(err)
             walk_errs.append(walk_err)
-            runs.append({"n": n, "mode": mode, "walk_steps": steps,
+            runs.append({"shape": list(shape), "mode": mode,
+                         "walk_steps": steps,
                          "seconds": time.perf_counter() - t0})
     emit(phase="direct", small_cases=len(SLAB_VARIANTS) * len(DIRECT_MODES)
          * len(DIRECT_SHAPES), scorings=list(SLAB_VARIANTS), runs=runs,
@@ -2293,9 +2298,6 @@ def hetero_dispatch(trips):
     |A| first); the batch must fit one."""
     rot = [mosaic._rotate(t, DEFAULT) for t in trips]
     hb_, wc_ = bk.choose_block_shape(0, 0, 0)
-    # The plan reads the card's free memory: not what earlier phases left
-    # in torch's cache.
-    torch.cuda.empty_cache()
     plan = hk.plan_dispatches([list(map(len, t)) for t in rot], hb_, wc_,
                               hk.default_budget(CUDA))
     require(len(plan) == 1, f"the batch took {len(plan)} dispatches")
@@ -2479,11 +2481,22 @@ def phase_tuning(rng, batch) -> None:
                  "hetero_chunk": hk.CHUNK})
 
 
-def bound(cells, nbytes, dev) -> tuple:
+# int32 operations a cell of the direct engine's choice step
+# (csrc/plane_step.cuh cell_step_choices), a max that keeps its argmax
+# counted as one: six targets of seven sources each (7 adds of a weight, 6
+# max-with-argmax steps; an argmax takes every source, ungrouped), 3 adds
+# of a pair score (Ixy, Iyz, Ixz), M's add of S3 and the 6 steps of max7
+# with its argmax over the stored values.
+CHOICE_OPS = 6 * (7 + 6) + 3 + 1 + 6
+
+
+def bound(cells, nbytes, dev, ops=None) -> tuple:
     """(least ms the card could take, "bytes" or "operations") for a sweep
-    of ``cells`` cells at op_count(Scoring()) int32 operations a cell, at
-    the peak rate K6 measured in this run, moving ``nbytes``."""
-    ops_ms = cells * op_count(DEFAULT) / dev["int32_ops_per_s"] * 1e3
+    of ``cells`` cells at ``ops`` int32 operations a cell
+    (op_count(Scoring()), the grouped step's, by default), at the peak rate
+    K6 measured in this run, moving ``nbytes``."""
+    ops = op_count(DEFAULT) if ops is None else ops
+    ops_ms = cells * ops / dev["int32_ops_per_s"] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
@@ -2597,9 +2610,10 @@ def time_direct(rng, dev, n=1024) -> dict:
     plain_ms = event_ms(direct._choices, *trips[0], DEFAULT, "free", None,
                         CUDA)[0]
     cells = (n + 1) ** 3
-    # Symbols read once; 3 B of choices written for every cuboid slot and
-    # the final vector.
-    bms, by = bound(cells, 4 * (3 * n + NUM_MATRICES) + 3 * cells, dev)
+    # CHOICE_OPS a cell; symbols read once; 3 B of choices written for
+    # every cuboid slot and the final vector.
+    bms, by = bound(cells, 4 * (3 * n + NUM_MATRICES) + 3 * cells, dev,
+                    CHOICE_OPS)
     choices_row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                    "bound_by": by, "gcups": gcups(cells, ms),
                    "plain": "direct._choices (torch sweep)"}
@@ -2612,10 +2626,14 @@ def time_direct(rng, dev, n=1024) -> dict:
     steps = int(res[0])
     del walks
     torch.cuda.empty_cache()
-    # A step reads 3 B and writes one 4-byte state.
-    bms, by = bound(0, 7 * steps + 16, dev)
+    # A step reads the one packed entry its state names (2 B of the int16
+    # buffer for states 0-4, 1 B of the byte buffer for 5-6) and writes
+    # its 4-byte state; the count and the stop are 16 B.
+    states = res[4:4 + steps]
+    nbytes = int(torch.where(states < 5, 2, 1).sum()) + 4 * steps + 16
+    bms, by = bound(0, nbytes, dev)
     walk_row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                "bound_by": by, "walk_steps": steps,
+                "bound_by": by, "walk_steps": steps, "walk_bytes": nbytes,
                 "plain": "direct.walk_ref (torch operations)"}
 
     def traceback(plain):

@@ -262,12 +262,13 @@ def test_traceback_stage_runs_the_direct_kernels(monkeypatch, name):
     their wrappers: at toy size, with the caps lowered so that the top node
     (512, 1k) or the leaves below the splits (2k and up) are direct, each
     wrapper runs."""
+    from trialign_torch.kernels import slab
     from trialign_torch.traceback import direct
 
     assert {"direct_choices", "direct_walk"} <= set(
         bench.STAGE_KERNELS[name])
     counters = bench._counters()
-    assert counters["direct_choices"] is direct.choices
+    assert counters["direct_choices"] is slab.choice_sweep
     assert counters["direct_walk"] is direct.walk
     caps, n = TRACEBACK_CAPS[name]
     for attr, value in caps.items():

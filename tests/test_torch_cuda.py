@@ -819,9 +819,9 @@ def test_choice_kernel_matches_plain(card, dims, name, mode):
 
     scoring, nsym = DIRECT_SCORINGS[name]
     (a, b, c), v0 = direct_inputs(7, dims, nsym, mode)
-    before = D.choices.launches
+    before = sk.choice_sweep.launches
     got = D.choices(a, b, c, scoring, mode, v0, card)
-    assert D.choices.launches == before + 1
+    assert sk.choice_sweep.launches == before + 1
     assert_choices_equal(got, D._choices(a, b, c, scoring, mode, v0, card),
                          dims)
 
@@ -872,13 +872,13 @@ def test_direct_traceback_on_card_matches_cpu(card, monkeypatch, name,
     (a, b, c), v0 = direct_inputs(10, (50, 61, 47), nsym, mode)
     end = None if mode == "free" else 3
     want = D.direct_traceback(a, b, c, scoring, mode, v0, end, device="cpu")
-    launches = D.choices.launches, D.walk.launches
+    launches = sk.choice_sweep.launches, D.walk.launches
 
     def plain(*args, **kwargs):
         raise AssertionError("the torch sweep ran on the card path")
 
     monkeypatch.setattr(D, "_choices", plain)
     got = D.direct_traceback(a, b, c, scoring, mode, v0, end, device=card)
-    assert (D.choices.launches, D.walk.launches) == (launches[0] + 1,
-                                                     launches[1] + 1)
+    assert (sk.choice_sweep.launches, D.walk.launches) == (
+        launches[0] + 1, launches[1] + 1)
     assert got == want

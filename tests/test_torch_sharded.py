@@ -160,10 +160,24 @@ def test_mosaic_refuses_a_data_axis_across_processes(rng):
 
 def test_memory_budget_is_shared_by_the_slots_of_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev: (1000, 4000))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev: 0)
     card = torch.device("cuda", 0)
     assert hetero.default_budget(card) == 500
     assert hetero.default_budget(card, 2) == 250
     assert hetero.default_budget(CPU, 2) is None
+
+
+def test_memory_budget_counts_torch_cache_as_free(monkeypatch):
+    """Bytes torch's allocator holds unused (reserved, not allocated) are
+    free for a dispatch's faces: a large cache left by earlier work does not
+    cut a batch into more dispatches."""
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev: (1000, 9000))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev: 6000)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev: 2000)
+    card = torch.device("cuda", 0)
+    assert hetero.default_budget(card) == 2500
+    assert hetero.default_budget(card, 5) == 500
 
 
 def test_align_batch_resilient_passes_the_mesh(rng):

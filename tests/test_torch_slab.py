@@ -169,6 +169,27 @@ def test_slab_sweep_checks_its_inputs():
         slab.slab_sweep(*arrs, 4, 5, 6, dims, "free", ev[:6])
 
 
+@pytest.mark.parametrize("case", ["bwd", "planned", "cpu"])
+def test_choice_sweep_checks_its_inputs(case):
+    """The direct engine's choice sweep takes the forward modes only, the
+    arrays prep_blocked planned (an empty B allowed), and runs on a card
+    only: on the CPU, direct.choices runs its plain version instead."""
+    la, lb, lc = 4, 0, 6
+    dims = slab._plan(la, lb, lc)
+    arrs = slab.prep_blocked(np.zeros(la), np.zeros(lb), np.zeros(lc), dims,
+                             "cpu")
+    shape = (la + lb + lc, (lb + 1) * (lc + 1))
+    lo = torch.empty(shape, dtype=torch.int16)
+    hi = torch.empty(shape, dtype=torch.uint8)
+    mode, lens, match = {"bwd": ("bwd", (la, lb, lc), "variant"),
+                         "planned": ("free", (la, lb, 40), "planned"),
+                         "cpu": ("pin", (la, lb, lc), "CUDA")}[case]
+    with pytest.raises(ValueError, match=match):
+        slab.choice_sweep(*arrs, *lens, dims, mode, np.zeros(7, np.int32),
+                          Scoring(), lo, hi)
+    assert slab.choice_sweep.launches == 0
+
+
 def test_slab_takes_every_alphabet(rng):
     """A 16-symbol submatrix (the most Scoring accepts, past K2's and K3's
     8): the slab sweeps equal the JAX package's engine, as its slab kernel

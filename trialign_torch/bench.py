@@ -410,7 +410,7 @@ def _counters() -> dict:
             "blocked": blocked.final_values,
             "blocked_chain": blocked.chain_values,
             "hetero": hetero.final_values, "slab": slab.slab_sweep,
-            "vpu": vpu.vpu_chains, "direct_choices": direct.choices,
+            "vpu": vpu.vpu_chains, "direct_choices": slab.choice_sweep,
             "direct_walk": direct.walk}
 
 

@@ -67,10 +67,12 @@
 // ring of 4 byte planes carries the argmax of max7 beside it, taken after
 // the walls.  Cells whose value a wall fixes (the j = 0 / k = 0 faces and
 // i = 0 of "free" and "free_jk") still step, for their choices, which is
-// why the sweep visits i = 0 in every variant.  Bound: the step's 42
-// add/compare/selects a cell (six targets by seven sources, ungrouped: the
-// argmax needs every source) and the 3 B a cell it writes, 3.2 GB at
-// 1024^3, in short rows of a tile's width.
+// why the sweep visits i = 0 in every variant.  Bound: the step's 88 int32
+// operations a cell (six targets by seven sources, ungrouped, since the
+// argmax needs every source: 42 adds of a weight and 36 max-with-argmax
+// steps; 3 pair-score adds; M's add and the 6 steps of max7 with its
+// argmax), the count chip_smoke.py's bound uses, and the 3 B a cell it
+// writes, 3.2 GB at 1024^3, in short rows of a tile's width.
 //
 // Kept for comparison only (chip_smoke.py; no entry point of the package
 // reaches it): slab_kernel, the per-tile form as it was, one launch a run of

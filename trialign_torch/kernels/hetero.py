@@ -694,12 +694,15 @@ def default_budget(device, sharing: int = 1) -> Optional[int]:
     """Face-slab bytes one dispatch may take: ``BUDGET_SHARE`` of the card's
     free memory over the ``sharing`` dispatches that run on it at once (the
     data slots of a mesh that name one card), or no limit on the CPU (the
-    plain version allocates each problem's faces on its own)."""
+    plain version allocates each problem's faces on its own).  Memory that
+    torch's caching allocator holds but no tensor uses counts as free: the
+    faces are allocated from that cache first."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return None
     free, _ = torch.cuda.mem_get_info(dev)
-    return int(free * BUDGET_SHARE / max(1, sharing))
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return int((free + cached) * BUDGET_SHARE / max(1, sharing))
 
 
 def align_hetero(triplets: Sequence, scoring: Scoring = Scoring(),

@@ -319,11 +319,14 @@ def slab_ref(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
 
 
 def _check(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
-           variant: str) -> None:
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {tuple(VARIANTS)}")
-    if min(la, lb, lc) < 1:
-        raise ValueError("the slab sweep needs |A|, |B|, |C| >= 1")
+           variant: str, variants=VARIANTS, least: int = 1) -> None:
+    """Raises ValueError unless the inputs are ``prep_blocked``'s for
+    ``dims``, planned for |A|, |B|, |C| >= ``least`` (and one symbol at
+    least), under one of ``variants``."""
+    if variant not in variants:
+        raise ValueError(f"variant must be one of {tuple(variants)}")
+    if min(la, lb, lc) < least or la + lb + lc < 1:
+        raise ValueError(f"the slab sweep needs |A|, |B|, |C| >= {least}")
     if dims != bk.plan_dims(la, lb, lc, dims.hb, dims.wc):
         raise ValueError(f"dims {dims} were not planned for {la, lb, lc}")
     if shared_bytes(dims.hb, dims.wc) > bk.SMEM_CAP:
@@ -369,21 +372,33 @@ def _persistent(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, variant,
         return state
     if dev.type != "cuda":
         raise ValueError(f"no slab kernel for device {dev}")
-    lib = _build.load("slab")
-    step, table = _build.kernel_scoring(scoring, 0, dev, SUBMATRIX_NSYM_CAP)
-    with torch.cuda.device(dev):
-        work = bk.launch_work(dims, run, dev)
-        code = lib.trialign_slab_sweep(
-            a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
-            _geom(dims, la, variant), work.run, work.ntiles,
-            state.scal.data_ptr(), table.data_ptr(), step,
-            state.rf.data_ptr(), state.cf.data_ptr(), state.out.data_ptr(),
-            state.cap.data_ptr(), chunk, blocks or 0, work.next_tile,
-            work.done, torch.cuda.current_stream().cuda_stream,
-        )
-        _build.check(lib, code, "slab kernel launch (persistent sweep)")
-        counter.launches += 1
+    _launch(counter, "slab kernel launch (persistent sweep)", dims, run,
+            scoring, dev, lambda lib, step, table, work, stream:
+            lib.trialign_slab_sweep(
+                a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
+                _geom(dims, la, variant), work.run, work.ntiles,
+                state.scal.data_ptr(), table.data_ptr(), step,
+                state.rf.data_ptr(), state.cf.data_ptr(),
+                state.out.data_ptr(), state.cap.data_ptr(), chunk,
+                blocks or 0, work.next_tile, work.done, stream))
     return state
+
+
+def _launch(counter, what: str, dims: Dims, run, scoring: Scoring, device,
+            call) -> None:
+    """One persistent launch of csrc/slab.cu on ``device`` over ``run``
+    (None: the whole tile table): ``call(lib, step, table, work, stream)``
+    makes it and returns its code; a refused launch raises ``what``, and
+    nothing falls back.  Counted on ``counter``."""
+    lib = _build.load("slab")
+    step, table = _build.kernel_scoring(scoring, 0, device,
+                                        SUBMATRIX_NSYM_CAP)
+    with torch.cuda.device(device):
+        work = bk.launch_work(dims, run, device)
+        code = call(lib, step, table, work,
+                    torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, code, what)
+        counter.launches += 1
 
 
 def _geom(dims: Dims, la: int, variant: str):
@@ -484,12 +499,59 @@ def slab_sweep(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
     return state.out, state.cap
 
 
+CHOICE_MODES = ("free", "free_jk", "pin")
+
+
+def choice_sweep(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
+                 mode: str, ev, scoring: Scoring, packed_lo, packed_hi):
+    """The direct engine's choice-capture sweep (csrc/slab.cu, CHOICES) on
+    a CUDA tensor: one persistent launch over the whole tile table, counted
+    on ``choice_sweep.launches``, which raises if refused and never falls
+    back.  |A|, |B|, |C| >= 0 with one symbol at least, arrays from
+    ``prep_blocked``; ``mode`` "free", "free_jk" or "pin" (the origin holds
+    ``ev``).  Writes every cuboid slot (0 <= q-j-k <= |A|) of ``packed_lo``
+    (int16) and ``packed_hi`` (uint8), (|A|+|B|+|C|, (|B|+1)(|C|+1)) each,
+    as ``traceback/direct.py`` lays them out, and leaves the other entries
+    as they were; returns the final (7,) int32 at (|A|, |B|, |C|).  Its
+    plain version is ``traceback/direct._choices``, which
+    ``direct.choices`` runs on the CPU."""
+    _check(a_ext, b_ext, c_ext, la, lb, lc, dims, mode, CHOICE_MODES, 0)
+    dev = a_ext.device
+    if dev.type != "cuda":
+        raise ValueError("the choice sweep runs on a CUDA device")
+    if len(ev) != NUM_MATRICES:
+        raise ValueError("ev holds one value per matrix")
+    shape = (la + lb + lc, (lb + 1) * (lc + 1))
+    for t, dtype in ((packed_lo, torch.int16), (packed_hi, torch.uint8)):
+        if t.dtype != dtype or t.shape != shape or not t.is_contiguous() or \
+                t.device != dev:
+            raise ValueError(f"the packed buffers are contiguous {shape} "
+                             "int16 and uint8 tensors on the device of the "
+                             "symbol arrays")
+    i32 = dict(dtype=torch.int32, device=dev)
+    # The faces' rows are written before they are read (csrc/slab.cu).
+    rf = torch.empty((dims.n_kb, dims.nrows, NUM_MATRICES, dims.wc), **i32)
+    cf = torch.empty((dims.n_jb, dims.nrows, NUM_MATRICES, dims.hb), **i32)
+    out = torch.empty(NUM_MATRICES, **i32)
+    scal = torch.from_numpy(_scal_table(la, lb, lc, ev, dims)).to(dev)
+    _launch(choice_sweep, "choice kernel launch", dims, None, scoring, dev,
+            lambda lib, step, table, work, stream: lib.trialign_slab_choices(
+                a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
+                _geom(dims, la, mode), scal.data_ptr(), table.data_ptr(),
+                step, rf.data_ptr(), cf.data_ptr(), out.data_ptr(),
+                packed_lo.data_ptr(), packed_hi.data_ptr(), lb, lc, bk.CHUNK,
+                work.next_tile, work.done, stream))
+    return out
+
+
 # Launches of the CUDA kernel since the count was last set to 0, for each
 # entry point: the whole-grid sweep (slab_sweep), the per-tile form
-# (sweep_tiles and sweep_run) and its earlier design (sweep_diagonals).
+# (sweep_tiles and sweep_run), its earlier design (sweep_diagonals) and the
+# direct engine's choice-capture sweep (choice_sweep).
 slab_sweep.launches = 0
 sweep_tiles.launches = 0
 sweep_diagonals.launches = 0
+choice_sweep.launches = 0
 
 
 def _assemble(cap: torch.Tensor, dims: Dims, lb: int, lc: int):

@@ -10,11 +10,12 @@ Port of ``trialign/traceback/direct.py``.  Below the Hirschberg cap
   (|A|+|B|+|C|, (|B|+1)(|C|+1)) buffers from ``torch.empty``: row q - 1 holds
   plane q, whose (j, k) entry is cell (i = q-j-k, j, k).  Only cuboid slots
   (0 <= i <= |A|) are written, 9.7 GB at 1024^3.  On a CUDA device it is one
-  persistent launch of the choice-capture kernel (``csrc/slab.cu`` with the
-  CHOICES flag: K5's whole-grid sweep on ``cell_step_choices``), the port of
-  the JAX package's ``_choices_seg`` (XLA: a jitted ``lax.scan`` a segment
-  of planes, not a ``pallas_call``).  On the CPU it is its plain version
-  :func:`_choices`, a torch sweep a plane at a time.
+  persistent launch of the choice-capture kernel (``kernels/slab.py``
+  ``choice_sweep``: ``csrc/slab.cu`` with the CHOICES flag, K5's whole-grid
+  sweep on ``cell_step_choices``), the port of the JAX package's
+  ``_choices_seg`` (XLA: a jitted ``lax.scan`` a segment of planes, not a
+  ``pallas_call``).  On the CPU it is its plain version :func:`_choices`, a
+  torch sweep a plane at a time.
 * :func:`walk` chases the pointers from the final cell and emits the
   consuming-matrix index of each alignment column, newest first: on a CUDA
   device one thread of ``csrc/walk.cu`` (the port of ``_walk_device``, an
@@ -43,13 +44,12 @@ import torch
 
 from trialign_torch import _build
 from trialign_torch.config import NUM_MATRICES, OFFSETS, Scoring
-from trialign_torch.kernels import blocked as bk
 from trialign_torch.kernels import slab as sk
 from trialign_torch.kernels.plane_math import PLANE_DELTA, SHIFTS
 from trialign_torch.traceback.engine import NEG
 from trialign_torch.traceback.torch_engine import _Grid, init_planes
 
-MODES = ("free", "free_jk", "pin")
+MODES = sk.CHOICE_MODES
 
 # The JAX engine's shape ladder: the footprint model below uses it.
 _LADDER = (16, 32, 64, 96, 128, 192, 256, 320, 384, 448, 512, 520, 576,
@@ -142,11 +142,11 @@ def choices(a, b, c, scoring: Scoring, mode: str, v0, device):
     """The choice-capture sweep on ``device``: (final (7,), packed_lo,
     packed_hi) as :func:`_choices` gives them, equal on every cuboid slot
     (0 <= q-j-k <= |A|); the other entries are left as ``torch.empty`` gave
-    them.  On a CPU device this is :func:`_choices`; on a CUDA device one
-    persistent launch of the choice kernel (``csrc/slab.cu``), counted on
-    ``choices.launches``, which raises if it is refused and never falls
-    back.  ``mode`` "free" / "free_jk" / "pin" (the origin holds ``v0``,
-    which the other modes ignore)."""
+    them.  On a CPU device this is :func:`_choices`; on a CUDA device the
+    choice kernel, ``kernels/slab.choice_sweep`` (one persistent launch,
+    counted on ``choice_sweep.launches``, which raises if it is refused and
+    never falls back).  ``mode`` "free" / "free_jk" / "pin" (the origin
+    holds ``v0``, which the other modes ignore)."""
     dev = torch.device(device)
     if mode not in MODES or (mode == "pin" and v0 is None):
         raise ValueError(f"mode must be one of {MODES}, 'pin' with v0, not "
@@ -160,34 +160,14 @@ def choices(a, b, c, scoring: Scoring, mode: str, v0, device):
     if la + lb + lc < 1:
         raise ValueError("the choice kernel needs at least one symbol")
     dims = sk._plan(la, lb, lc)
-    a_ext, b_ext, c_ext = bk.prep_blocked(a, b, c, dims, dev)
     ev = np.asarray(v0, np.int32) if mode == "pin" else \
         np.zeros(NUM_MATRICES, np.int32)
-    i32 = dict(dtype=torch.int32, device=dev)
-    # The faces' rows are written before they are read (csrc/slab.cu).
-    rf = torch.empty((dims.n_kb, dims.nrows, NUM_MATRICES, dims.wc), **i32)
-    cf = torch.empty((dims.n_jb, dims.nrows, NUM_MATRICES, dims.hb), **i32)
-    out = torch.empty(NUM_MATRICES, **i32)
-    scal = torch.from_numpy(sk._scal_table(la, lb, lc, ev, dims)).to(dev)
-    qmax, plane = la + lb + lc, (lb + 1) * (lc + 1)
-    packed_lo = torch.empty((qmax, plane), dtype=torch.int16, device=dev)
-    packed_hi = torch.empty((qmax, plane), dtype=torch.uint8, device=dev)
-    lib = _build.load("slab")
-    step, table = _build.kernel_scoring(scoring, 0, dev,
-                                        sk.SUBMATRIX_NSYM_CAP)
-    with torch.cuda.device(dev):
-        work = bk.launch_work(dims, None, dev)
-        code = lib.trialign_slab_choices(
-            a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
-            sk._geom(dims, la, mode), scal.data_ptr(), table.data_ptr(),
-            step, rf.data_ptr(), cf.data_ptr(), out.data_ptr(),
-            packed_lo.data_ptr(), packed_hi.data_ptr(), lb, lc, bk.CHUNK,
-            work.next_tile, work.done,
-            torch.cuda.current_stream().cuda_stream,
-        )
-        _build.check(lib, code, "choice kernel launch")
-        choices.launches += 1
-    return out, packed_lo, packed_hi
+    shape = (la + lb + lc, (lb + 1) * (lc + 1))
+    packed_lo = torch.empty(shape, dtype=torch.int16, device=dev)
+    packed_hi = torch.empty(shape, dtype=torch.uint8, device=dev)
+    final = sk.choice_sweep(*sk.prep_blocked(a, b, c, dims, dev), la, lb, lc,
+                            dims, mode, ev, scoring, packed_lo, packed_hi)
+    return final, packed_lo, packed_hi
 
 
 def cuboid_slots(la: int, lb: int, lc: int, q0: int = 0,
@@ -289,8 +269,8 @@ def walk(packed_lo, packed_hi, t0: int, la: int, lb: int, lc: int,
     return res
 
 
-# Launches of each CUDA kernel since the count was last set to 0.
-choices.launches = 0
+# Launches of the walk kernel since the count was last set to 0 (the choice
+# kernel counts on kernels/slab.choice_sweep.launches).
 walk.launches = 0
 
 
