@@ -1,0 +1,16 @@
+"""host_ms: host milliseconds a completed batch spends in the program
+outside waiting for the card, from the program's own spans on the
+profiler's clock: each outermost ``trialign.align_batch`` span less the
+``trialign.wait`` spans inside it, summed over the traced window and
+divided by its completed batches."""
+
+from benchmark import layers
+
+UNIT = "ms"
+SOURCE = "program_span"
+LAYER = "host (api.py entry to each launch: route, plan, pack, launch)"
+MOVES = "batch_gcups"
+
+
+def read(window):
+    return layers.host_ms(window, "trialign.align_batch")

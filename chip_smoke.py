@@ -339,6 +339,8 @@ COUNTERS = {"wavefront": wf.final_values,
 def reset_launches() -> None:
     for fn in COUNTERS.values():
         fn.launches = 0
+        if hasattr(fn, "cells"):
+            fn.cells = 0
 
 
 def read_launches() -> dict:

@@ -30,6 +30,7 @@ import torch
 from trialign_torch.config import Scoring, encode
 from trialign_torch.kernels.plane_math import hetero_sub_ok
 from trialign_torch.kernels.wavefront import SUBMATRIX_NSYM_CAP, fits
+from trialign_torch.metrics import span
 
 
 @dataclasses.dataclass
@@ -106,12 +107,65 @@ def align(
     stored scores as signed registers of that width (the RTL's
     SCORE_BITS); "golden", "torch", "wavefront" and "blocked" implement it.
     """
-    a, b, c = _prep(a), _prep(b), _prep(c)
-    la, lb, lc = len(a), len(b), len(c)
-    cells = la * lb * lc
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
-    dev = _device(device)
+    with span("align"):
+        with span("route"):
+            a, b, c = _prep(a), _prep(b), _prep(c)
+            if backend not in BACKENDS:
+                raise ValueError(
+                    f"unknown backend {backend!r}; choose from {BACKENDS}")
+            dev = _device(device)
+            backend = _route(len(a), len(b), len(c), scoring, backend,
+                             return_alignment, score_bits)
+        cells = len(a) * len(b) * len(c)
+        t0 = time.perf_counter()
+        if return_alignment:
+            if backend == "native":
+                from trialign_torch.native import align_native
+
+                score, alignment = align_native(a, b, c, scoring)
+            else:
+                from trialign_torch.traceback import hirschberg_align
+
+                score, alignment = hirschberg_align(a, b, c, scoring,
+                                                    device=dev)
+            return AlignResult(score=score, alignment=alignment,
+                               backend=backend, cells=cells,
+                               seconds=time.perf_counter() - t0)
+        if backend == "golden":
+            from trialign_torch.golden import align_planes_numpy
+
+            score = align_planes_numpy(a, b, c, scoring,
+                                       score_bits=score_bits)
+        elif backend == "torch":
+            from trialign_torch.kernels.ref import align_ref
+
+            score = align_ref(a, b, c, scoring, score_bits, dev)
+        elif backend == "wavefront":
+            from trialign_torch.kernels.wavefront import align_wavefront
+
+            score = align_wavefront(a, b, c, scoring, score_bits, dev)
+        elif backend == "blocked":
+            from trialign_torch.kernels.blocked import align_blocked
+
+            score = align_blocked(a, b, c, scoring, score_bits=score_bits,
+                                  device=dev)
+        else:  # native
+            from trialign_torch.native import score_native
+
+            score = score_native(a, b, c, scoring)
+        return AlignResult(
+            score=int(score),
+            backend=backend,
+            cells=cells,
+            seconds=time.perf_counter() - t0,
+        )
+
+
+def _route(la: int, lb: int, lc: int, scoring: Scoring, backend: str,
+           return_alignment: bool, score_bits: int) -> str:
+    """The backend :func:`align` runs for a call, by size as the reference
+    routes ("hirschberg" for alignment recovery unless "native"); raises
+    ValueError for a combination no backend implements."""
     if score_bits:
         if return_alignment:
             raise ValueError("score_bits mode is score-only (no traceback)")
@@ -125,21 +179,8 @@ def align(
                 f"score_bits wraparound is implemented by the 'golden', "
                 f"'torch', 'wavefront' and 'blocked' backends, not {backend!r}"
             )
-
     if return_alignment:
-        t0 = time.perf_counter()
-        if backend == "native":
-            from trialign_torch.native import align_native
-
-            score, alignment = align_native(a, b, c, scoring)
-        else:
-            from trialign_torch.traceback import hirschberg_align
-
-            score, alignment = hirschberg_align(a, b, c, scoring, device=dev)
-            backend = "hirschberg"
-        return AlignResult(score=score, alignment=alignment, backend=backend,
-                           cells=cells, seconds=time.perf_counter() - t0)
-
+        return "native" if backend == "native" else "hirschberg"
     if scoring.submatrix is not None:
         small_alpha = len(scoring.submatrix) <= SUBMATRIX_NSYM_CAP
         if backend == "auto":
@@ -154,36 +195,7 @@ def align(
             )
     if backend == "auto":
         backend = _pick_backend(la, lb, lc)
-
-    t0 = time.perf_counter()
-    if backend == "golden":
-        from trialign_torch.golden import align_planes_numpy
-
-        score = align_planes_numpy(a, b, c, scoring, score_bits=score_bits)
-    elif backend == "torch":
-        from trialign_torch.kernels.ref import align_ref
-
-        score = align_ref(a, b, c, scoring, score_bits, dev)
-    elif backend == "wavefront":
-        from trialign_torch.kernels.wavefront import align_wavefront
-
-        score = align_wavefront(a, b, c, scoring, score_bits, dev)
-    elif backend == "blocked":
-        from trialign_torch.kernels.blocked import align_blocked
-
-        score = align_blocked(a, b, c, scoring, score_bits=score_bits,
-                              device=dev)
-    else:  # native
-        from trialign_torch.native import score_native
-
-        score = score_native(a, b, c, scoring)
-
-    return AlignResult(
-        score=int(score),
-        backend=backend,
-        cells=cells,
-        seconds=time.perf_counter() - t0,
-    )
+    return backend
 
 
 def _align_batch_traceback(arrs: Sequence, scoring: Scoring,
@@ -261,16 +273,25 @@ def align_batch(
     alignment: small problems on C++ engine threads, the rest through the
     Hirschberg/direct engine on ``device``.  The reference's ``backend``
     argument, which it ignores, is not taken."""
-    dev = _device(device)
-    arrs = [(_prep(a), _prep(b), _prep(c)) for a, b, c in triplets]
-    if return_alignment:
-        return _align_batch_traceback(arrs, scoring, dev)
+    with span("align_batch"):
+        with span("route"):
+            dev = _device(device)
+            arrs = [(_prep(a), _prep(b), _prep(c)) for a, b, c in triplets]
+        if return_alignment:
+            return _align_batch_traceback(arrs, scoring, dev)
+        return _score_batch(arrs, scoring, dev)
 
+
+def _score_batch(arrs: Sequence, scoring: Scoring,
+                 dev: torch.device) -> List[AlignResult]:
+    """Scores of encoded triplets by :func:`batch_routes`, as
+    :func:`align_batch` returns them."""
     t0 = time.perf_counter()
-    mosaic = dev.type == "cuda" or \
-        os.environ.get("TRIALIGN_FORCE_MOSAIC") == "1"
-    routes = batch_routes([[len(x) for x in t] for t in arrs], scoring,
-                          mosaic)
+    with span("route"):
+        mosaic = dev.type == "cuda" or \
+            os.environ.get("TRIALIGN_FORCE_MOSAIC") == "1"
+        routes = batch_routes([[len(x) for x in t] for t in arrs], scoring,
+                              mosaic)
     scores = [0] * len(arrs)
     for route in ("mosaic", "padded", "torch"):
         idx = [i for i, r in enumerate(routes) if r == route]

@@ -423,6 +423,8 @@ def child_main(name: str) -> int:
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "cells"):
+            fn.cells = 0
     try:
         fields = STAGE_FNS[name]()
         launches = {k: fn.launches for k, fn in counters.items()

@@ -30,6 +30,7 @@ from trialign_torch.dist import mesh as dmesh
 from trialign_torch.kernels import wavefront as wf
 from trialign_torch.kernels.blocked import align_blocked_async
 from trialign_torch.kernels.ref import PAD_A, PAD_B, PAD_C, align_ref
+from trialign_torch.metrics import span
 
 
 def prep_padded(triplets: Sequence, device):
@@ -70,8 +71,11 @@ def align_batch_padded(triplets: Sequence, scoring: Scoring = Scoring(),
         return [align_ref(*t, scoring, 0, device) for t in triplets]
     if not all(wf.fits(*map(len, t)) for t in triplets):
         return align_batch_bucketed(triplets, scoring, device)
-    vals = wf.final_values(*prep_padded(triplets, device), scoring)
-    return [int(s) for s in vals.max(dim=1).values.tolist()]
+    with span("k2.pack"):
+        arrs = prep_padded(triplets, device)
+    best = wf.final_values(*arrs, scoring).max(dim=1).values
+    with span("wait"):
+        return [int(s) for s in best.tolist()]
 
 
 def _blocked_group(triplets: Sequence, scoring: Scoring,
@@ -80,7 +84,11 @@ def _blocked_group(triplets: Sequence, scoring: Scoring,
     on one stream, read once at the end; an empty sequence scores 0."""
     scores = [align_blocked_async(*t, scoring, device=device)
               for t in triplets]
-    return [int(s) for s in torch.stack(scores).tolist()] if scores else []
+    if not scores:
+        return []
+    best = torch.stack(scores)
+    with span("wait"):
+        return [int(s) for s in best.tolist()]
 
 
 def align_batch_bucketed(triplets: Sequence, scoring: Scoring = Scoring(),

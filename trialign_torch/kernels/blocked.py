@@ -57,6 +57,7 @@ from trialign_torch import _build
 from trialign_torch.kernels.ref import (
     PAD_A, PAD_B, PAD_C, extend, pair_fn, roll1, substitution, wrap,
 )
+from trialign_torch.metrics import span
 
 # Default tile plane (hb, wc) = (tb + 1, tc + 1) and threads per tile: the
 # fastest of chip_smoke.py's "tuning" candidates at 1024^3 on the H100
@@ -496,18 +497,20 @@ def _persistent(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, state,
         return state
     if dev.type != "cuda":
         raise ValueError(f"no blocked kernel for device {dev}")
-    lib = _build.load("blocked")
-    step, table = _build.kernel_scoring(scoring, score_bits, dev)
     with torch.cuda.device(dev):
-        work = launch_work(dims, run, dev)
-        code = lib.trialign_blocked_sweep(
-            a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
-            _geom(lb, lc, dims), work.run, work.ntiles, table.data_ptr(),
-            step, state.rf.data_ptr(), state.cf.data_ptr(),
-            state.out.data_ptr(), threads, chunk, blocks or 0,
-            work.next_tile, work.done,
-            torch.cuda.current_stream().cuda_stream,
-        )
+        with span("k3.pack"):
+            lib = _build.load("blocked")
+            step, table = _build.kernel_scoring(scoring, score_bits, dev)
+            work = launch_work(dims, run, dev)
+        with span("k3.launch"):
+            code = lib.trialign_blocked_sweep(
+                a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
+                _geom(lb, lc, dims), work.run, work.ntiles, table.data_ptr(),
+                step, state.rf.data_ptr(), state.cf.data_ptr(),
+                state.out.data_ptr(), threads, chunk, blocks or 0,
+                work.next_tile, work.done,
+                torch.cuda.current_stream().cuda_stream,
+            )
         _build.check(lib, code, "blocked kernel launch (persistent sweep)")
         counter.launches += 1
     return state
@@ -607,9 +610,11 @@ def final_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
     _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
     if dims.d:
         raise ValueError("chain dims: use chain_values")
+    with span("k3.pack"):
+        state = new_state(dims, a_ext.device)
     return _persistent(final_values, a_ext, b_ext, c_ext, la, lb, lc, dims,
-                       new_state(dims, a_ext.device), None, scoring,
-                       score_bits, threads, chunk, blocks).out[0]
+                       state, None, scoring, score_bits, threads, chunk,
+                       blocks).out[0]
 
 
 def chain_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
@@ -650,10 +655,11 @@ def align_blocked_async(a, b, c, scoring: Scoring = Scoring(),
     la, lb, lc = len(a), len(b), len(c)
     if min(la, lb, lc) == 0:
         return torch.zeros((), dtype=torch.int32, device=device)
-    hb, wc = block_shape or choose_block_shape(la, lb, lc)
-    dims = plan_dims(la, lb, lc, hb, wc)
-    return final_values(*prep_blocked(a, b, c, dims, device), la, lb, lc,
-                        dims, scoring, score_bits).max()
+    with span("k3.pack"):
+        hb, wc = block_shape or choose_block_shape(la, lb, lc)
+        dims = plan_dims(la, lb, lc, hb, wc)
+        arrs = prep_blocked(a, b, c, dims, device)
+    return final_values(*arrs, la, lb, lc, dims, scoring, score_bits).max()
 
 
 def align_blocked(a, b, c, scoring: Scoring = Scoring(),
@@ -662,8 +668,10 @@ def align_blocked(a, b, c, scoring: Scoring = Scoring(),
     """Optimal 3-sequence alignment score via the blocked kernel (its plain
     version on ``device="cpu"``).  ``block_shape`` is the tile plane
     (hb, wc), as in the reference; the default is :func:`choose_block_shape`."""
-    return int(align_blocked_async(a, b, c, scoring, block_shape, score_bits,
-                                   device))
+    best = align_blocked_async(a, b, c, scoring, block_shape, score_bits,
+                               device)
+    with span("wait"):
+        return int(best)
 
 
 def align_blocked_chain(a_list: Sequence, b, c, scoring: Scoring = Scoring(),

@@ -49,6 +49,7 @@ from trialign_torch.kernels import blocked as bk
 from trialign_torch.kernels.ref import (
     PAD_A, PAD_B, PAD_C, pair_fn, substitution, wrap,
 )
+from trialign_torch.metrics import span
 
 # Columns of the geometry table, in csrc/hetero.cu GeomField order.
 GEOM_FIELDS = ("la", "n_jb", "n_kb", "nrows", "jlstar", "klstar",
@@ -120,73 +121,75 @@ def plan_dispatches(lens, hb: int, wc: int, budget_bytes: Optional[int] = None,
     longest |A| first, cut into dispatches whose face slabs take at most
     ``budget_bytes`` (a problem above it runs alone) and that hold at most
     ``max_problems`` problems; None is no limit."""
-    lens = [tuple(int(x) for x in t) for t in lens]
-    order = sorted((i for i, t in enumerate(lens) if min(t) > 0),
-                   key=lambda i: -lens[i][0])
-    out: List[List[int]] = []
-    used = 0
-    for i in order:
-        need = face_bytes(*lens[i], hb, wc)
-        full = out and (
-            (budget_bytes is not None and used + need > budget_bytes)
-            or (max_problems is not None and len(out[-1]) >= max_problems))
-        if not out or full:
-            out.append([])
-            used = 0
-        out[-1].append(i)
-        used += need
-    return out
+    with span("k4.plan"):
+        lens = [tuple(int(x) for x in t) for t in lens]
+        order = sorted((i for i, t in enumerate(lens) if min(t) > 0),
+                       key=lambda i: -lens[i][0])
+        out: List[List[int]] = []
+        used = 0
+        for i in order:
+            need = face_bytes(*lens[i], hb, wc)
+            full = out and (
+                (budget_bytes is not None and used + need > budget_bytes)
+                or (max_problems is not None and len(out[-1]) >= max_problems))
+            if not out or full:
+                out.append([])
+                used = 0
+            out[-1].append(i)
+            used += need
+        return out
 
 
 def prep_hetero(triplets: Sequence, hb: int, wc: int, device) -> HeteroBatch:
     """Pack triplets into one dispatch at tile plane (hb, wc); raises
     ValueError for a tile plane the card cannot hold.  Problems keep their
     order, which is the order of their tiles within each diagonal."""
-    bk.plan_dims(1, 1, 1, hb, wc)
-    tb, tc = hb - 1, wc - 1
-    n = len(triplets)
-    geom = np.zeros((n, len(GEOM_FIELDS)), np.int64)
-    lens = np.zeros((n, 3), np.int64)
-    parts, off, rf, cf = [], 0, 0, 0
-    tiles = []  # (diagonal, problem, jb)
-    for p, t in enumerate(triplets):
-        la, lb, lc = (len(x) for x in t)
-        lens[p] = la, lb, lc
-        if min(la, lb, lc) == 0:
-            continue
-        d = bk.plan_dims(la, lb, lc, hb, wc)
-        g = geom[p]
-        g[_G["la"]], g[_G["n_jb"]], g[_G["n_kb"]] = la, d.n_jb, d.n_kb
-        g[_G["nrows"]] = d.nrows
-        g[_G["jlstar"]] = lb - (d.n_jb - 1) * tb
-        g[_G["klstar"]] = lc - (d.n_kb - 1) * tc
-        for name, seq, size, pad in (
-                ("a_off", t[0], la + 1, PAD_A),
-                ("b_off", t[1], d.n_jb * tb + 1, PAD_B),
-                ("c_off", t[2], d.n_kb * tc + 1, PAD_C)):
-            arr = np.full(size, pad, np.int32)
-            arr[1:len(seq) + 1] = np.asarray(seq, dtype=np.int32)
-            parts.append(arr)
-            g[_G[name]] = off
-            off += size
-        g[_G["rf_off"]], g[_G["cf_off"]] = rf, cf
-        rf += d.n_kb * d.nrows * NUM_MATRICES * wc
-        cf += d.n_jb * d.nrows * NUM_MATRICES * hb
-        jb, kb = np.meshgrid(np.arange(d.n_jb), np.arange(d.n_kb),
-                             indexing="ij")
-        tiles.append(np.stack([(jb + kb).ravel(), np.full(jb.size, p),
-                               jb.ravel()], axis=1))
-    tiles = np.concatenate(tiles) if tiles else np.zeros((0, 3), np.int64)
-    tiles = tiles[np.lexsort((tiles[:, 1], tiles[:, 0]))]
-    n_diag = int(tiles[:, 0].max()) + 1 if len(tiles) else 0
-    diag_start = np.searchsorted(tiles[:, 0], np.arange(n_diag + 1))
-    syms = np.concatenate(parts) if parts else np.zeros(1, np.int32)
-    table = _link(tiles)
-    tiles = np.ascontiguousarray(table[:, :2])
-    return HeteroBatch(torch.from_numpy(syms).to(device), geom, lens, hb, wc,
-                       tiles, diag_start, rf, cf,
-                       torch.from_numpy(geom).to(device), table,
-                       torch.from_numpy(table).to(device))
+    with span("k4.pack"):
+        bk.plan_dims(1, 1, 1, hb, wc)
+        tb, tc = hb - 1, wc - 1
+        n = len(triplets)
+        geom = np.zeros((n, len(GEOM_FIELDS)), np.int64)
+        lens = np.zeros((n, 3), np.int64)
+        parts, off, rf, cf = [], 0, 0, 0
+        tiles = []  # (diagonal, problem, jb)
+        for p, t in enumerate(triplets):
+            la, lb, lc = (len(x) for x in t)
+            lens[p] = la, lb, lc
+            if min(la, lb, lc) == 0:
+                continue
+            d = bk.plan_dims(la, lb, lc, hb, wc)
+            g = geom[p]
+            g[_G["la"]], g[_G["n_jb"]], g[_G["n_kb"]] = la, d.n_jb, d.n_kb
+            g[_G["nrows"]] = d.nrows
+            g[_G["jlstar"]] = lb - (d.n_jb - 1) * tb
+            g[_G["klstar"]] = lc - (d.n_kb - 1) * tc
+            for name, seq, size, pad in (
+                    ("a_off", t[0], la + 1, PAD_A),
+                    ("b_off", t[1], d.n_jb * tb + 1, PAD_B),
+                    ("c_off", t[2], d.n_kb * tc + 1, PAD_C)):
+                arr = np.full(size, pad, np.int32)
+                arr[1:len(seq) + 1] = np.asarray(seq, dtype=np.int32)
+                parts.append(arr)
+                g[_G[name]] = off
+                off += size
+            g[_G["rf_off"]], g[_G["cf_off"]] = rf, cf
+            rf += d.n_kb * d.nrows * NUM_MATRICES * wc
+            cf += d.n_jb * d.nrows * NUM_MATRICES * hb
+            jb, kb = np.meshgrid(np.arange(d.n_jb), np.arange(d.n_kb),
+                                 indexing="ij")
+            tiles.append(np.stack([(jb + kb).ravel(), np.full(jb.size, p),
+                                   jb.ravel()], axis=1))
+        tiles = np.concatenate(tiles) if tiles else np.zeros((0, 3), np.int64)
+        tiles = tiles[np.lexsort((tiles[:, 1], tiles[:, 0]))]
+        n_diag = int(tiles[:, 0].max()) + 1 if len(tiles) else 0
+        diag_start = np.searchsorted(tiles[:, 0], np.arange(n_diag + 1))
+        syms = np.concatenate(parts) if parts else np.zeros(1, np.int32)
+        table = _link(tiles)
+        tiles = np.ascontiguousarray(table[:, :2])
+        return HeteroBatch(torch.from_numpy(syms).to(device), geom, lens,
+                           hb, wc, tiles, diag_start, rf, cf,
+                           torch.from_numpy(geom).to(device), table,
+                           torch.from_numpy(table).to(device))
 
 
 def _link(tiles: np.ndarray) -> np.ndarray:
@@ -210,13 +213,14 @@ def _link(tiles: np.ndarray) -> np.ndarray:
 
 def new_state(batch: HeteroBatch) -> HeteroState:
     """A fresh sweep state for ``batch``, on its device."""
-    i32 = dict(dtype=torch.int32, device=batch.syms.device)
-    return HeteroState(
-        torch.full((max(batch.rf_ints, 1),), bk.UNWRITTEN, **i32),
-        torch.full((max(batch.cf_ints, 1),), bk.UNWRITTEN, **i32),
-        torch.zeros((len(batch.lens), NUM_MATRICES), **i32),
-        torch.full((max(len(batch.tiles), 1),), -1, **i32),
-    )
+    with span("k4.pack"):
+        i32 = dict(dtype=torch.int32, device=batch.syms.device)
+        return HeteroState(
+            torch.full((max(batch.rf_ints, 1),), bk.UNWRITTEN, **i32),
+            torch.full((max(batch.cf_ints, 1),), bk.UNWRITTEN, **i32),
+            torch.zeros((len(batch.lens), NUM_MATRICES), **i32),
+            torch.full((max(len(batch.tiles), 1),), -1, **i32),
+        )
 
 
 def _diag_runs(batch: HeteroBatch, idx0: int, count: int):
@@ -565,19 +569,22 @@ def _launch(batch: HeteroBatch, state: HeteroState, idx0: int, count: int,
     """One persistent launch of K4 (its clocked build if ``clock``) on the
     current stream."""
     dev = batch.syms.device
-    lib = _build.load("hetero")
-    step, table = _build.kernel_scoring(scoring, 0, dev)
     with torch.cuda.device(dev):
-        # The hand-out counter, on the stream.
-        next_entry = torch.zeros(1, dtype=torch.int32, device=dev)
-        code = lib.trialign_hetero_sweep(
-            batch.syms.data_ptr(), batch.geom_dev.data_ptr(),
-            batch.table_dev.data_ptr(), idx0, count, batch.hb, batch.wc,
-            table.data_ptr(), step, state.rf.data_ptr(), state.cf.data_ptr(),
-            state.out.data_ptr(), state.done.data_ptr(),
-            next_entry.data_ptr(), chunk, blocks or 0, int(clock),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        with span("k4.pack"):
+            lib = _build.load("hetero")
+            step, table = _build.kernel_scoring(scoring, 0, dev)
+            # The hand-out counter, on the stream.
+            next_entry = torch.zeros(1, dtype=torch.int32, device=dev)
+        with span("k4.launch"):
+            code = lib.trialign_hetero_sweep(
+                batch.syms.data_ptr(), batch.geom_dev.data_ptr(),
+                batch.table_dev.data_ptr(), idx0, count, batch.hb,
+                batch.wc, table.data_ptr(), step, state.rf.data_ptr(),
+                state.cf.data_ptr(), state.out.data_ptr(),
+                state.done.data_ptr(), next_entry.data_ptr(), chunk,
+                blocks or 0, int(clock),
+                torch.cuda.current_stream().cuda_stream,
+            )
         _build.check(lib, code, "hetero kernel launch (persistent sweep)")
 
 
@@ -697,12 +704,14 @@ def default_budget(device, sharing: int = 1) -> Optional[int]:
     plain version allocates each problem's faces on its own).  Memory that
     torch's caching allocator holds but no tensor uses counts as free: the
     faces are allocated from that cache first."""
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        return None
-    free, _ = torch.cuda.mem_get_info(dev)
-    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-    return int((free + cached) * BUDGET_SHARE / max(1, sharing))
+    with span("k4.plan"):
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            return None
+        free, _ = torch.cuda.mem_get_info(dev)
+        cached = torch.cuda.memory_reserved(dev) - \
+            torch.cuda.memory_allocated(dev)
+        return int((free + cached) * BUDGET_SHARE / max(1, sharing))
 
 
 def align_hetero(triplets: Sequence, scoring: Scoring = Scoring(),
@@ -735,7 +744,9 @@ def align_hetero(triplets: Sequence, scoring: Scoring = Scoring(),
 
     def drain() -> None:
         for idx, scores in pending:
-            for i, s in zip(idx, scores.tolist()):
+            with span("wait"):
+                scores = scores.tolist()
+            for i, s in zip(idx, scores):
                 out[i] = int(s)
                 if on_scores is not None:
                     on_scores(i, out[i])

@@ -36,6 +36,7 @@ from trialign_torch.dist.batch import _blocked_group
 from trialign_torch.kernels import blocked as bk
 from trialign_torch.kernels import hetero
 from trialign_torch.kernels.chain import check_scoring
+from trialign_torch.metrics import span
 
 RESIDUE_ROUTES = ("auto", "chain", "blocked")
 
@@ -130,7 +131,9 @@ def _hetero_on_slots(triplets, scoring, devices, on_scores) -> List[int]:
             if not (everything or done is None or done.query()):
                 continue
             pending.remove(item)
-            for i, s in zip(idx, scores.tolist()):
+            with span("wait"):
+                scores = scores.tolist()
+            for i, s in zip(idx, scores):
                 out[i] = int(s)
                 if on_scores is not None:
                     on_scores(i, out[i])
@@ -183,8 +186,9 @@ def align_batch_mosaic(
     if residue_route not in RESIDUE_ROUTES:
         raise ValueError(f"residue_route must be one of {RESIDUE_ROUTES}, "
                          f"not {residue_route!r}")
-    rotated = [_rotate(tuple(np.asarray(s) for s in t), scoring)
-               for t in triplets]
+    with span("route"):
+        rotated = [_rotate(tuple(np.asarray(s) for s in t), scoring)
+                   for t in triplets]
     devices = data_devices(mesh) if mesh is not None else None
     if residue_route != "blocked":
         if devices is not None:

@@ -54,6 +54,7 @@ from trialign_torch.kernels.plane_math import (
     PLANE_DELTA, SHIFTS, target_update, transition_groups,
 )
 from trialign_torch.kernels.ref import pair_fn, substitution
+from trialign_torch.metrics import span
 from trialign_torch.traceback.engine import NEG
 
 VARIANTS = {"free": 0, "free_jk": 1, "pin": 2, "bwd": 3}
@@ -372,7 +373,7 @@ def _persistent(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, variant,
         return state
     if dev.type != "cuda":
         raise ValueError(f"no slab kernel for device {dev}")
-    _launch(counter, "slab kernel launch (persistent sweep)", dims, run,
+    _launch(counter, "k5", run_cells(la, lb, lc, dims, run), dims, run,
             scoring, dev, lambda lib, step, table, work, stream:
             lib.trialign_slab_sweep(
                 a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
@@ -384,21 +385,36 @@ def _persistent(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, variant,
     return state
 
 
-def _launch(counter, what: str, dims: Dims, run, scoring: Scoring, device,
-            call) -> None:
+def run_cells(la: int, lb: int, lc: int, dims: Dims, run) -> int:
+    """The cells (|A| times the (j, k) columns) that a sweep of ``run``
+    (a :func:`blocked.run_table`; None: the whole tile table) computes."""
+    if run is None:
+        return la * lb * lc
+    tb, tc = dims.hb - 1, dims.wc - 1
+    jb, kb = run[:, 0].astype(np.int64), run[:, 1].astype(np.int64)
+    return la * int((np.minimum(tb, lb - jb * tb)
+                     * np.minimum(tc, lc - kb * tc)).sum())
+
+
+def _launch(counter, kernel: str, cells: int, dims: Dims, run,
+            scoring: Scoring, device, call) -> None:
     """One persistent launch of csrc/slab.cu on ``device`` over ``run``
     (None: the whole tile table): ``call(lib, step, table, work, stream)``
-    makes it and returns its code; a refused launch raises ``what``, and
-    nothing falls back.  Counted on ``counter``."""
-    lib = _build.load("slab")
-    step, table = _build.kernel_scoring(scoring, 0, device,
-                                        SUBMATRIX_NSYM_CAP)
+    makes it and returns its code; a refused launch raises, and nothing
+    falls back.  Counted on ``counter``: one launch and its ``cells``.
+    ``kernel`` names its spans ("k5" or "choices")."""
     with torch.cuda.device(device):
-        work = bk.launch_work(dims, run, device)
-        code = call(lib, step, table, work,
-                    torch.cuda.current_stream().cuda_stream)
-        _build.check(lib, code, what)
+        with span(kernel + ".pack"):
+            lib = _build.load("slab")
+            step, table = _build.kernel_scoring(scoring, 0, device,
+                                                SUBMATRIX_NSYM_CAP)
+            work = bk.launch_work(dims, run, device)
+        with span(kernel + ".launch"):
+            code = call(lib, step, table, work,
+                        torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, code, f"{kernel} kernel launch")
         counter.launches += 1
+        counter.cells += cells
 
 
 def _geom(dims: Dims, la: int, variant: str):
@@ -493,7 +509,8 @@ def slab_sweep(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
     _check(a_ext, b_ext, c_ext, la, lb, lc, dims, variant)
     if len(ev) != NUM_MATRICES:
         raise ValueError("ev holds one value per matrix")
-    state = new_state(la, lb, lc, dims, ev, a_ext.device)
+    with span("k5.pack"):
+        state = new_state(la, lb, lc, dims, ev, a_ext.device)
     _persistent(slab_sweep, a_ext, b_ext, c_ext, la, lb, lc, dims, variant,
                 state, None, scoring, chunk, blocks)
     return state.out, state.cap
@@ -529,12 +546,15 @@ def choice_sweep(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                              "int16 and uint8 tensors on the device of the "
                              "symbol arrays")
     i32 = dict(dtype=torch.int32, device=dev)
-    # The faces' rows are written before they are read (csrc/slab.cu).
-    rf = torch.empty((dims.n_kb, dims.nrows, NUM_MATRICES, dims.wc), **i32)
-    cf = torch.empty((dims.n_jb, dims.nrows, NUM_MATRICES, dims.hb), **i32)
-    out = torch.empty(NUM_MATRICES, **i32)
-    scal = torch.from_numpy(_scal_table(la, lb, lc, ev, dims)).to(dev)
-    _launch(choice_sweep, "choice kernel launch", dims, None, scoring, dev,
+    with span("choices.pack"):
+        # The faces' rows are written before they are read (csrc/slab.cu).
+        rf = torch.empty((dims.n_kb, dims.nrows, NUM_MATRICES, dims.wc),
+                         **i32)
+        cf = torch.empty((dims.n_jb, dims.nrows, NUM_MATRICES, dims.hb),
+                         **i32)
+        out = torch.empty(NUM_MATRICES, **i32)
+        scal = torch.from_numpy(_scal_table(la, lb, lc, ev, dims)).to(dev)
+    _launch(choice_sweep, "choices", la * lb * lc, dims, None, scoring, dev,
             lambda lib, step, table, work, stream: lib.trialign_slab_choices(
                 a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
                 _geom(dims, la, mode), scal.data_ptr(), table.data_ptr(),
@@ -547,11 +567,12 @@ def choice_sweep(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
 # Launches of the CUDA kernel since the count was last set to 0, for each
 # entry point: the whole-grid sweep (slab_sweep), the per-tile form
 # (sweep_tiles and sweep_run), its earlier design (sweep_diagonals) and the
-# direct engine's choice-capture sweep (choice_sweep).
-slab_sweep.launches = 0
-sweep_tiles.launches = 0
+# direct engine's choice-capture sweep (choice_sweep); and the cells those
+# launches swept (:func:`run_cells`), set to 0 with them.
+slab_sweep.launches = slab_sweep.cells = 0
+sweep_tiles.launches = sweep_tiles.cells = 0
 sweep_diagonals.launches = 0
-choice_sweep.launches = 0
+choice_sweep.launches = choice_sweep.cells = 0
 
 
 def _assemble(cap: torch.Tensor, dims: Dims, lb: int, lc: int):
@@ -581,14 +602,22 @@ def _combine_caps(fcap, gcap, fdims: Dims, gdims: Dims, lb: int, lc: int):
     g = _assemble(gcap, gdims, lb, lc).flip(1, 2)
     total = (f + g).reshape(-1)
     flat = torch.argmax(total)
-    return flat, total[flat]
+    # Indexing with a device scalar reads it to the host: the host waits
+    # here for both sweeps.
+    with span("wait"):
+        return flat, total[flat]
 
 
 def _sweep(a, b, c, scoring, variant, ev, block_shape, device):
     """Plan, prepare and enqueue one slab sweep; (final, cap, dims)."""
     la, lb, lc = len(a), len(b), len(c)
-    dims = _plan(la, lb, lc, block_shape)
-    arrs = prep_blocked(a, b, c, dims, torch.device(device))
+    with span("k5.pack"):
+        dims = _plan(la, lb, lc, block_shape)
+        # Pageable copies: the host waits here for the sweeps queued before
+        # this one (a split's backward sweep and guard follow its forward
+        # sweep on the stream).
+        with span("wait"):
+            arrs = prep_blocked(a, b, c, dims, torch.device(device))
     final, cap = slab_sweep(*arrs, la, lb, lc, dims, variant, ev, scoring)
     return final, cap, dims
 

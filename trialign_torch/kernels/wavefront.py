@@ -35,6 +35,7 @@ from trialign_torch import _build
 from trialign_torch.kernels import blocked as bk
 from trialign_torch.kernels import hetero
 from trialign_torch.kernels.ref import PAD_A, PAD_B, PAD_C, extend, sweep
+from trialign_torch.metrics import span
 
 SUBMATRIX_NSYM_CAP = _build.SUBMATRIX_NSYM_CAP
 # The Pallas kernel's caps (wavefront.bucket_dims), kept so that align()
@@ -312,34 +313,39 @@ def final_values(a, b, c, lens, scoring: Scoring = Scoring(),
         raise ValueError(f"no wavefront kernel for device {a.device}")
     hetero._check_step(chunk, blocks)
     dev = a.device
-    lib = _build.load("wavefront")
-    step, sub = _build.step_scoring(scoring, score_bits)
-    rows = [t.shape[1] for t in (a, b, c)]
-    plan = plan_tiles(lens, rows, block)
-    runs = [(0, n, plan)]
-    if 4 * (plan.rf_ints + plan.cf_ints) > ONE_LAUNCH_SHARE * \
-            _card_bytes(dev.index or 0):
-        runs = [(p0, p1, plan_tiles(lens[p0:p1], rows, block)) for p0, p1
-                in plan_launches(lens, block, hetero.default_budget(dev))]
+    with span("k2.pack"):
+        lib = _build.load("wavefront")
+        step, sub = _build.step_scoring(scoring, score_bits)
+        rows = [t.shape[1] for t in (a, b, c)]
+        plan = plan_tiles(lens, rows, block)
+        runs = [(0, n, plan)]
+        if 4 * (plan.rf_ints + plan.cf_ints) > ONE_LAUNCH_SHARE * \
+                _card_bytes(dev.index or 0):
+            runs = [(p0, p1, plan_tiles(lens[p0:p1], rows, block))
+                    for p0, p1 in plan_launches(lens, block,
+                                                hetero.default_budget(dev))]
     out = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         for p0, p1, plan in runs:
-            work = _work(plan, sub, 0 if out is not None else n, dev)
-            if out is None:
-                out = work.out
-            if not len(plan.table):
-                continue
-            faces = torch.empty(plan.rf_ints + plan.cf_ints,
-                                dtype=torch.int32, device=dev)
-            code = lib.trialign_wavefront(
-                *(t.data_ptr() + 4 * p0 * w for t, w in zip((a, b, c), rows)),
-                work.geom, work.table, len(plan.table), plan.hb, plan.wc,
-                work.sub, step, faces.data_ptr(),
-                faces.data_ptr() + 4 * plan.rf_ints,
-                out.data_ptr() + 4 * p0 * OUT_STRIDE, work.done,
-                work.next_entry, chunk, blocks or 0, stream,
-            )
+            with span("k2.pack"):
+                work = _work(plan, sub, 0 if out is not None else n, dev)
+                if out is None:
+                    out = work.out
+                if not len(plan.table):
+                    continue
+                faces = torch.empty(plan.rf_ints + plan.cf_ints,
+                                    dtype=torch.int32, device=dev)
+            with span("k2.launch"):
+                code = lib.trialign_wavefront(
+                    *(t.data_ptr() + 4 * p0 * w
+                      for t, w in zip((a, b, c), rows)),
+                    work.geom, work.table, len(plan.table), plan.hb,
+                    plan.wc, work.sub, step, faces.data_ptr(),
+                    faces.data_ptr() + 4 * plan.rf_ints,
+                    out.data_ptr() + 4 * p0 * OUT_STRIDE, work.done,
+                    work.next_entry, chunk, blocks or 0, stream,
+                )
             _build.check(lib, code, "wavefront kernel launch")
             final_values.launches += 1
     return out[:, :NUM_MATRICES]
@@ -458,5 +464,8 @@ def align_wavefront(a, b, c, scoring: Scoring = Scoring(), score_bits: int = 0,
     a, b, c = np.asarray(a), np.asarray(b), np.asarray(c)
     if min(len(a), len(b), len(c)) == 0:
         return 0
-    return int(final_values(*prep(a, b, c, device), scoring,
-                            score_bits).max())
+    with span("k2.pack"):
+        arrs = prep(a, b, c, device)
+    best = final_values(*arrs, scoring, score_bits).max()
+    with span("wait"):
+        return int(best)

@@ -7,22 +7,27 @@ Run on a machine with a CUDA device::
 
 For each size n it prints one JSON line with, for a random n^3 triplet:
 
-* ``nodes``: every node of the Hirschberg recursion with its shape, mode,
-  route and seconds (the engine's ``TRIALIGN_TB_TRACE`` lines);
+* ``seconds`` of one alignment under ``torch.profiler`` (CPU and CUDA
+  activity), ending in a ``torch.cuda.synchronize()``, and ``nodes``: every
+  node of its Hirschberg recursion, from the engine's ``trialign.tb.*``
+  spans in that run, in the order they opened, each with its route
+  (``walk``, ``direct``, ``split``, or ``restart`` around the re-solve of a
+  split whose guard won), its depth (0 at the top), its seconds and the
+  device's kernel seconds inside it, on the profiler's clock;
 * ``direct`` (where the top node is direct): for each route of the direct
   engine, ``kernels`` (``direct.choices`` and ``direct.walk``, the CUDA
   kernels) and ``plain`` (their plain versions ``direct._choices`` and
   ``direct.walk_ref`` on the card), the choice-capture sweep and the walk,
   each in host seconds ending in a ``torch.cuda.synchronize()``, the walk's
-  steps, and the device's busy share over the sweep: the kernel seconds
-  ``torch.profiler`` records (CUDA activity only) in a second run of the
-  same sweep, over the first, unprofiled run's seconds;
+  steps, and the device's busy share over the sweep: the kernel seconds of
+  a profiled run of the sweep (CUDA activity only) over that run's seconds;
 * ``sharded`` (with ``--sharded``): ``dist.halo_tb.hirschberg_align_sharded``
   on the same triplet in STRIPES stripes sharing the card, nodes above
   ``--single-cells`` split on the stripes: its seconds, the seconds of its
   sweeps on the stripes (every sharded split and ``free_jk`` guard, each
   ending in a ``torch.cuda.synchronize()``), the rest (the single-device
-  leaves and the host) and the leaves' node lines.
+  leaves and the host) and the leaves' nodes, from their spans as above
+  (its profiled run is the one timed).
 
 Then the card's name and power limit.  Without a CUDA device it exits 1.
 """
@@ -30,9 +35,7 @@ Then the card's name and power limit.  Without a CUDA device it exits 1.
 from __future__ import annotations
 
 import argparse
-import io
 import json
-import os
 import subprocess
 import sys
 import time
@@ -49,6 +52,15 @@ def _seconds(fn):
     return out, time.perf_counter() - t0
 
 
+def _device_ops(events) -> list:
+    """The device's operations among a profiler's ``events``: CUDA activity
+    other than the package's spans, which show on the device's timeline
+    too."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def kernel_seconds(fn) -> dict:
     """The device's kernel seconds in one run of ``fn``, from torch.profiler
     recording CUDA activity only, and that run's (profiled) wall seconds."""
@@ -60,11 +72,52 @@ def kernel_seconds(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_ops(prof.events())
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     return {"kernel_s": busy, "kernels": len(kernels),
             "profiled_wall_s": wall}
+
+
+NODE = "trialign.tb."
+
+
+def span_nodes(events) -> list:
+    """The Hirschberg nodes among a profiler's ``events``: each
+    ``trialign.tb.<route>`` span, in the order they opened, as its route,
+    its depth among the nodes around it, its seconds and the seconds of the
+    device's operations inside it (clipped to it; the profiler puts both on
+    one clock)."""
+    spans = sorted(((e.time_range.start, e.time_range.end, e.name)
+                    for e in events if e.name.startswith(NODE)
+                    and e.device_type == torch.autograd.DeviceType.CPU),
+                   key=lambda s: (s[0], -s[1]))
+    ops = [(e.time_range.start, e.time_range.end)
+           for e in _device_ops(events)]
+    nodes, open_ends = [], []
+    for start, end, name in spans:
+        while open_ends and open_ends[-1] <= start:
+            open_ends.pop()
+        inside = sum(max(0.0, min(e, end) - max(s, start)) for s, e in ops)
+        nodes.append({"route": name[len(NODE):], "depth": len(open_ends),
+                      "seconds": (end - start) / 1e6,
+                      "kernel_s": inside / 1e6})
+        open_ends.append(end)
+    return nodes
+
+
+def traced(fn):
+    """(``fn()``, its seconds, its nodes) from one run under torch.profiler
+    recording CPU and CUDA activity, ending in a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return out, seconds, span_nodes(prof.events())
 
 
 def direct_seconds(a, b, c, cuda, sweep, walk) -> dict:
@@ -85,7 +138,7 @@ def direct_seconds(a, b, c, cuda, sweep, walk) -> dict:
     del final, lo, hi
     prof = kernel_seconds(run_sweep)
     return {"sweep_s": sweep_s, "walk_s": walk_s, "walk_steps": int(res[0]),
-            **prof, "busy_share": prof["kernel_s"] / sweep_s}
+            **prof, "busy_share": prof["kernel_s"] / prof["profiled_wall_s"]}
 
 
 def sharded_seconds(a, b, c, cuda, stripes: int, single_cells: int) -> dict:
@@ -105,20 +158,18 @@ def sharded_seconds(a, b, c, cuda, stripes: int, single_cells: int) -> dict:
     real = halo_tb.sharded_split_point, halo_tb._sharded_final_vector
     halo_tb.sharded_split_point, halo_tb._sharded_final_vector = map(timed,
                                                                      real)
-    log, saved = io.StringIO(), sys.stderr
-    sys.stderr = log
     try:
-        (score, _), total = _seconds(lambda: halo_tb.hirschberg_align_sharded(
-            a, b, c, mesh=mesh.make_mesh(1, stripes,
-                                         devices=[cuda] * stripes),
-            single_cells=single_cells))
+        (score, _), total, nodes = traced(
+            lambda: halo_tb.hirschberg_align_sharded(
+                a, b, c, mesh=mesh.make_mesh(1, stripes,
+                                             devices=[cuda] * stripes),
+                single_cells=single_cells))
     finally:
-        sys.stderr = saved
         halo_tb.sharded_split_point, halo_tb._sharded_final_vector = real
     return {"stripes": stripes, "single_cells": single_cells,
             "score": score, "seconds": total, "striped_s": sum(striped),
             "striped_calls": len(striped), "rest_s": total - sum(striped),
-            "nodes": log.getvalue().splitlines()}
+            "nodes": nodes}
 
 
 def main() -> int:
@@ -142,18 +193,11 @@ def main() -> int:
 
     cuda = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
-    os.environ["TRIALIGN_TB_TRACE"] = "1"
     for n in args.sizes:
         a, b, c = (rng.integers(0, 4, n).astype(np.int32) for _ in range(3))
-        log, saved = io.StringIO(), sys.stderr
-        sys.stderr = log
-        try:
-            (score, _), total = _seconds(
-                lambda: hirschberg.hirschberg_align(a, b, c, device=cuda))
-        finally:
-            sys.stderr = saved
-        rec = {"n": n, "score": score, "seconds": total,
-               "nodes": log.getvalue().splitlines()}
+        (score, _), total, nodes = traced(
+            lambda: hirschberg.hirschberg_align(a, b, c, device=cuda))
+        rec = {"n": n, "score": score, "seconds": total, "nodes": nodes}
         if hirschberg.DIRECT_CELLS >= (n + 1) ** 3:
             rec["direct"] = {
                 "kernels": direct_seconds(a, b, c, cuda, direct.choices,

@@ -46,6 +46,7 @@ from trialign_torch import _build
 from trialign_torch.config import NUM_MATRICES, OFFSETS, Scoring
 from trialign_torch.kernels import slab as sk
 from trialign_torch.kernels.plane_math import PLANE_DELTA, SHIFTS
+from trialign_torch.metrics import span
 from trialign_torch.traceback.engine import NEG
 from trialign_torch.traceback.torch_engine import _Grid, init_planes
 
@@ -159,14 +160,16 @@ def choices(a, b, c, scoring: Scoring, mode: str, v0, device):
     la, lb, lc = len(a), len(b), len(c)
     if la + lb + lc < 1:
         raise ValueError("the choice kernel needs at least one symbol")
-    dims = sk._plan(la, lb, lc)
-    ev = np.asarray(v0, np.int32) if mode == "pin" else \
-        np.zeros(NUM_MATRICES, np.int32)
-    shape = (la + lb + lc, (lb + 1) * (lc + 1))
-    packed_lo = torch.empty(shape, dtype=torch.int16, device=dev)
-    packed_hi = torch.empty(shape, dtype=torch.uint8, device=dev)
-    final = sk.choice_sweep(*sk.prep_blocked(a, b, c, dims, dev), la, lb, lc,
-                            dims, mode, ev, scoring, packed_lo, packed_hi)
+    with span("choices.pack"):
+        dims = sk._plan(la, lb, lc)
+        ev = np.asarray(v0, np.int32) if mode == "pin" else \
+            np.zeros(NUM_MATRICES, np.int32)
+        shape = (la + lb + lc, (lb + 1) * (lc + 1))
+        packed_lo = torch.empty(shape, dtype=torch.int16, device=dev)
+        packed_hi = torch.empty(shape, dtype=torch.uint8, device=dev)
+        arrs = sk.prep_blocked(a, b, c, dims, dev)
+    final = sk.choice_sweep(*arrs, la, lb, lc, dims, mode, ev, scoring,
+                            packed_lo, packed_hi)
     return final, packed_lo, packed_hi
 
 
@@ -259,7 +262,7 @@ def walk(packed_lo, packed_hi, t0: int, la: int, lb: int, lc: int,
         raise ValueError(f"no walk kernel for device {dev}")
     res = torch.empty(4 + la + lb + lc, dtype=torch.int32, device=dev)
     lib = _build.load("walk")
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("walk.launch"):
         code = lib.trialign_walk(
             packed_lo.data_ptr(), packed_hi.data_ptr(), la, lb, lc, t0,
             int(mode == "pin"), res.data_ptr(),
@@ -289,10 +292,13 @@ def direct_traceback(
     la, lb, lc = len(a), len(b), len(c)
     final, packed_lo, packed_hi = choices(a, b, c, scoring, mode, v0,
                                           device)
-    final = final.cpu().numpy()
+    with span("wait"):
+        final = final.cpu().numpy()
     t0 = int(end_state) if end_state is not None else int(np.argmax(final))
     score = int(final[t0])
-    res = walk(packed_lo, packed_hi, t0, la, lb, lc, mode).cpu().numpy()
+    res = walk(packed_lo, packed_hi, t0, la, lb, lc, mode)
+    with span("wait"):
+        res = res.cpu().numpy()
     del packed_lo, packed_hi
     n = int(res[0])
     if n < 0:

@@ -20,13 +20,13 @@ engine.  Every function takes the device explicitly.
 from __future__ import annotations
 
 import os
-import sys
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from trialign_torch.config import CONSUMES, NUM_MATRICES, OFFSETS, Scoring
+from trialign_torch.metrics import span
 from trialign_torch.traceback.engine import NEG, backward_slab, forward_sweep
 
 # Base-case cuboid cell budget (7 matrices x 4 B each: ~29 MB at the cap).
@@ -200,30 +200,6 @@ def _walk(
     return score, cols
 
 
-def _solve(
-    a, b, c, scoring: Scoring, mode: str, s0: Optional[int],
-    end_state: Optional[int], device,
-) -> Tuple[int, List[Column]]:
-    if os.environ.get("TRIALIGN_TB_TRACE") == "1":
-        # Per-node wall-clock attribution: prints mode, shape, route and
-        # seconds on exit.
-        import time
-
-        t0 = time.perf_counter()
-        route = ["?"]
-        try:
-            return _solve_traced(a, b, c, scoring, mode, s0, end_state,
-                                 device, route)
-        finally:
-            print(
-                f"[tb-trace] ({len(a)},{len(b)},{len(c)}) mode={mode} "
-                f"route={route[0]} {time.perf_counter() - t0:.2f}s",
-                file=sys.stderr, flush=True,
-            )
-    return _solve_traced(a, b, c, scoring, mode, s0, end_state, device,
-                         None)
-
-
 def _onehot(state: Optional[int], rest: int) -> np.ndarray:
     """A per-state vector: 0 at ``state``, ``rest`` elsewhere (all 0 when
     ``state`` is None)."""
@@ -233,21 +209,24 @@ def _onehot(state: Optional[int], rest: int) -> np.ndarray:
     return v
 
 
-def _solve_traced(
-    a, b, c, scoring, mode, s0, end_state, device, route
+def _solve(
+    a, b, c, scoring: Scoring, mode: str, s0: Optional[int],
+    end_state: Optional[int], device,
 ) -> Tuple[int, List[Column]]:
+    """One node of the recursion: (score, columns oldest-first).  Each
+    node's route opens a span as it is chosen (``tb.walk``, ``tb.direct``,
+    ``tb.split``; ``tb.restart`` around the re-solve of a split whose
+    ``free_jk`` guard won), and the nodes below nest inside it."""
     la, lb, lc = len(a), len(b), len(c)
     cells = (la + 1) * (lb + 1) * (lc + 1)
-    freeish = mode != "pin"
     v0 = _onehot(s0, NEG) if mode == "pin" else None
 
     if la <= 1 or cells <= BASE_CELLS:
-        _, _, cuboid = forward_sweep(
-            a, b, c, scoring, mode=mode, v0=v0, return_cuboid=True
-        )
-        if route is not None:
-            route[0] = "walk"
-        return _walk(cuboid, a, b, c, scoring, mode, end_state)
+        with span("tb.walk"):
+            _, _, cuboid = forward_sweep(
+                a, b, c, scoring, mode=mode, v0=v0, return_cuboid=True
+            )
+            return _walk(cuboid, a, b, c, scoring, mode, end_state)
 
     if cells <= DIRECT_CELLS and _direct_fits(la, lb, lc, device):
         # One choice-capture sweep and one walk, no recursion below this
@@ -256,16 +235,27 @@ def _solve_traced(
         from trialign_torch.traceback import direct
 
         try:
-            if route is not None:
-                route[0] = "direct"
-            return direct.direct_traceback(a, b, c, scoring, mode, v0,
-                                           end_state, device)
+            with span("tb.direct"):
+                return direct.direct_traceback(a, b, c, scoring, mode, v0,
+                                               end_state, device)
         except Exception as e:  # noqa: BLE001
             if cells <= _DIRECT_SAFE_CELLS or not _is_oom(e):
                 raise
             # The buffers did not fit: recurse (each half's buffers are
             # half the size).
 
+    with span("tb.split"):
+        return _split(a, b, c, scoring, mode, s0, end_state, v0, device)
+
+
+def _split(
+    a, b, c, scoring: Scoring, mode: str, s0: Optional[int],
+    end_state: Optional[int], v0, device,
+) -> Tuple[int, List[Column]]:
+    """A node split on the middle A-plane, or re-solved from it
+    (``free_jk``) where the guard sweep finds a better path."""
+    la, lb, lc = len(a), len(b), len(c)
+    freeish = mode != "pin"
     m = la // 2
     end_v = _onehot(end_state, NEG)
     # Enqueue every sweep this node needs before fetching any result.
@@ -282,8 +272,9 @@ def _solve_traced(
                             device)
             if freeish else None
         )
-        sstar, jstar, kstar, score = sp_fetch()
-        h_final = h_fetch()[0] if freeish else None
+        with span("wait"):
+            sstar, jstar, kstar, score = sp_fetch()
+            h_final = h_fetch()[0] if freeish else None
     else:
         f_fetch = _fwd_slab_async(a[:m], b, c, scoring, mode, v0, m, device)
         g_fetch = _bwd_slab_async(a[m:], b, c, scoring, end_v, device)
@@ -292,14 +283,16 @@ def _solve_traced(
                             device)
             if freeish else None
         )
-        _, f_slab = f_fetch()
-        g_slab = g_fetch()
+        with span("wait"):
+            _, f_slab = f_fetch()
+            g_slab = g_fetch()
         total = f_slab.astype(np.int64) + g_slab.astype(np.int64)
         flat = int(np.argmax(total))
         sstar, jstar, kstar = (int(x) for x in
                                np.unravel_index(flat, total.shape))
         score = int(total[sstar, jstar, kstar])
-        h_final = h_fetch()[0] if freeish else None
+        with span("wait"):
+            h_final = h_fetch()[0] if freeish else None
 
     # Free j/k borders admit paths that start at i0 > m on a border face and
     # never cross the i = m slab by real DP steps.  Those live entirely in
@@ -309,10 +302,9 @@ def _solve_traced(
         h_val = (int(h_final[end_state]) if end_state is not None
                  else int(h_final.max()))
         if h_val > score:
-            r_score, r_cols = _solve(a[m:], b, c, scoring, "free_jk", None,
-                                     end_state, device)
-            if route is not None:
-                route[0] = "restart-right"
+            with span("tb.restart"):
+                r_score, r_cols = _solve(a[m:], b, c, scoring, "free_jk",
+                                         None, end_state, device)
             return r_score, [(int(a[i]), -1, -1) for i in range(m)] + r_cols
 
     # The two half problems are independent.  The reference solves them on
@@ -325,8 +317,6 @@ def _solve_traced(
     right_score, right_cols = _solve(a[m:], b[jstar:], c[kstar:], scoring,
                                      "pin", sstar, end_state, device)
     assert left_score + right_score == score, (left_score, right_score, score)
-    if route is not None:
-        route[0] = "split"
     return score, left_cols + right_cols
 
 
