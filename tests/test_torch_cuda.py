@@ -24,6 +24,7 @@ from trialign_torch.kernels import ref
 from trialign_torch.kernels import slab as sk
 from trialign_torch.kernels import vpu
 from trialign_torch.kernels import wavefront as wf
+from trialign_torch.native import score_native_batch
 from trialign_torch.traceback.engine import NEG
 
 pytestmark = pytest.mark.cuda
@@ -276,6 +277,30 @@ def test_hetero_kernel_matches_plain(card, block, name):
     batch = hetero.prep_hetero(trips, hb, wc, card)
     got = hetero.final_values(batch, scoring)
     assert torch.equal(got, hetero.hetero_ref(batch, scoring))
+
+
+def test_hetero_pack_one_copy(card):
+    """A dispatch packed for the card: its symbols, geometry and table are
+    the host arrays (and the CPU packing's), views of one device
+    allocation; align_hetero on 64 triplets of 128-512 symbols gives the
+    exact scores.  The scores are held to the C++ oracle, whose scores
+    hetero_ref's equal (tests/test_torch_hetero.py); hetero_ref itself
+    takes minutes on a dispatch of this size."""
+    rng = np.random.default_rng(16)
+    trips = [tuple(rng.integers(0, 4, int(n)).astype(np.uint8)
+                   for n in rng.integers(128, 513, 3)) for _ in range(64)]
+    block = bk.choose_block_shape(0, 0, 0)
+    batch = hetero.prep_hetero(trips, *block, card)
+    host = hetero.prep_hetero(trips, *block, "cpu")
+    assert torch.equal(batch.syms.cpu(), host.syms)
+    assert torch.equal(batch.geom_dev.cpu(), torch.from_numpy(batch.geom))
+    assert torch.equal(batch.table_dev.cpu(), torch.from_numpy(batch.table))
+    assert np.array_equal(batch.geom, host.geom)
+    assert np.array_equal(batch.table, host.table)
+    assert len({t.untyped_storage().data_ptr() for t in
+                (batch.syms, batch.geom_dev, batch.table_dev)}) == 1
+    assert hetero.align_hetero(trips, device=card) == \
+        score_native_batch(trips)
 
 
 def test_align_batch_on_card_matches_align(card):

@@ -3,9 +3,11 @@
 On the CPU, K4's wrapper runs hetero_ref, which sweeps each problem of a
 dispatch with K3's plain version from the dispatch's packed symbol buffer and
 geometry table; so these tests exercise the packing, the per-diagonal tile
-table and the dispatch split that the CUDA kernel uses.  The reference's
-chains run in interpret mode at the shapes tests/test_chain.py uses.  The
-CUDA kernel itself is compared with hetero_ref in tests/test_torch_cuda.py.
+table and the dispatch split that the CUDA kernel uses; the packer and the
+split are also held, field for field, to plain loops over the triplets
+(plain_prep, plain_plan).  The reference's chains run in interpret mode at
+the shapes tests/test_chain.py uses.  The CUDA kernel itself is compared
+with hetero_ref in tests/test_torch_cuda.py.
 Scores are integers: equality is exact.
 """
 
@@ -17,9 +19,11 @@ import torch
 
 from trialign.config import Scoring as JScoring
 from trialign.kernels.chain import align_chain as jax_align_chain
-from trialign_torch.config import Scoring
+from trialign_torch.config import NUM_MATRICES, Scoring
 from trialign_torch.golden import align_planes_numpy
+from trialign_torch.kernels import blocked as bk
 from trialign_torch.kernels import chain, hetero, mosaic
+from trialign_torch.kernels.ref import PAD_A, PAD_B, PAD_C
 
 torch.set_num_threads(1)
 
@@ -126,6 +130,182 @@ def test_prep_hetero_tables(rng):
     assert b.rf_ints == int((g["n_kb"] * g["nrows"] * 7 * 9).sum())
     a0 = int(g["a_off"][0])
     assert b.syms[a0 + 1:a0 + 7].tolist() == trips[0][0].tolist()
+
+
+def plain_prep(triplets, hb, wc):
+    """The packer as a loop over triplets, each problem's arrays, geometry
+    and tiles on its own, then a sort of every tile and a search for its
+    neighbours: the plain version prep_hetero is held to.  Returns the
+    fields of its HeteroBatch, the symbols as a NumPy array."""
+    g_ = {name: col for col, name in enumerate(hetero.GEOM_FIELDS)}
+    tb, tc = hb - 1, wc - 1
+    n = len(triplets)
+    geom = np.zeros((n, len(hetero.GEOM_FIELDS)), np.int64)
+    lens = np.zeros((n, 3), np.int64)
+    parts, off, rf, cf = [], 0, 0, 0
+    tiles = []  # (diagonal, problem, jb)
+    for p, t in enumerate(triplets):
+        la, lb, lc = (len(x) for x in t)
+        lens[p] = la, lb, lc
+        if min(la, lb, lc) == 0:
+            continue
+        d = bk.plan_dims(la, lb, lc, hb, wc)
+        g = geom[p]
+        g[g_["la"]], g[g_["n_jb"]], g[g_["n_kb"]] = la, d.n_jb, d.n_kb
+        g[g_["nrows"]] = d.nrows
+        g[g_["jlstar"]] = lb - (d.n_jb - 1) * tb
+        g[g_["klstar"]] = lc - (d.n_kb - 1) * tc
+        for name, seq, size, pad in (
+                ("a_off", t[0], la + 1, PAD_A),
+                ("b_off", t[1], d.n_jb * tb + 1, PAD_B),
+                ("c_off", t[2], d.n_kb * tc + 1, PAD_C)):
+            arr = np.full(size, pad, np.int32)
+            arr[1:len(seq) + 1] = np.asarray(seq, dtype=np.int32)
+            parts.append(arr)
+            g[g_[name]] = off
+            off += size
+        g[g_["rf_off"]], g[g_["cf_off"]] = rf, cf
+        rf += d.n_kb * d.nrows * NUM_MATRICES * wc
+        cf += d.n_jb * d.nrows * NUM_MATRICES * hb
+        jb, kb = np.meshgrid(np.arange(d.n_jb), np.arange(d.n_kb),
+                             indexing="ij")
+        tiles.append(np.stack([(jb + kb).ravel(), np.full(jb.size, p),
+                               jb.ravel()], axis=1))
+    tiles = np.concatenate(tiles) if tiles else np.zeros((0, 3), np.int64)
+    tiles = tiles[np.lexsort((tiles[:, 1], tiles[:, 0]))]
+    n_diag = int(tiles[:, 0].max()) + 1 if len(tiles) else 0
+    diag_start = np.searchsorted(tiles[:, 0], np.arange(n_diag + 1))
+    syms = np.concatenate(parts) if parts else np.zeros(1, np.int32)
+    # Each tile's upper and left neighbours, searched by 64-bit key.
+    d, p, jb = (tiles[:, c].astype(np.int64) for c in range(3))
+    kb = d - jb
+
+    def key(jb_, kb_):
+        return (p << 42) | ((jb_ & 0x1FFFFF) << 21) | (kb_ & 0x1FFFFF)
+
+    keys = key(jb, kb)
+    order = np.argsort(keys, kind="stable")
+    table = np.stack([p, jb, kb, p, p], axis=1).astype(np.int32)
+    for col, (dj, dk) in ((3, (1, 0)), (4, (0, 1))):
+        want = key(jb - dj, kb - dk)
+        at = np.minimum(np.searchsorted(keys[order], want), len(keys) - 1)
+        found = (keys[order][at] == want) & (jb - dj >= 0) & (kb - dk >= 0)
+        table[:, col] = np.where(found, order[at], -1)
+    return dict(syms=syms, geom=geom, lens=lens,
+                tiles=np.ascontiguousarray(table[:, :2]),
+                diag_start=diag_start, rf_ints=rf, cf_ints=cf, table=table)
+
+
+def plain_plan(lens, hb, wc, budget_bytes=None, max_problems=None):
+    """plan_dispatches as a loop over triplets: each problem's face bytes
+    from its own plan_dims, cut greedily, the longest |A| first."""
+    def need(la, lb, lc):
+        d = bk.plan_dims(la, lb, lc, hb, wc)
+        return 4 * NUM_MATRICES * d.nrows * (d.n_kb * wc + d.n_jb * hb)
+
+    lens = [tuple(int(x) for x in t) for t in lens]
+    order = sorted((i for i, t in enumerate(lens) if min(t) > 0),
+                   key=lambda i: -lens[i][0])
+    out, used = [], 0
+    for i in order:
+        b = need(*lens[i])
+        full = out and (
+            (budget_bytes is not None and used + b > budget_bytes)
+            or (max_problems is not None and len(out[-1]) >= max_problems))
+        if not out or full:
+            out.append([])
+            used = 0
+        out[-1].append(i)
+        used += b
+    return out
+
+
+def _trips(rng, shapes, kind=np.uint8):
+    """Triplets of the given lengths, as ``kind`` arrays or ("list")
+    Python lists."""
+    trips = []
+    for shape in shapes:
+        t = tuple(rng.integers(0, 4, n) for n in shape)
+        trips.append(tuple(x.tolist() if kind == "list" else x.astype(kind)
+                           for x in t))
+    return trips
+
+
+def _ragged(rng, n, lo, hi):
+    return [tuple(int(x) for x in rng.integers(lo, hi + 1, 3))
+            for _ in range(n)]
+
+
+EMPTY = (0, 7, 9)
+# (tile plane, lengths, element type) for each case of the packer's test.
+PACK_CASES = {
+    "plane_5x9": ((5, 9), lambda r: _ragged(r, 12, 1, 40), np.uint8),
+    "plane_9x9": ((9, 9), lambda r: _ragged(r, 12, 1, 40), np.uint8),
+    "plane_33x17": ((33, 17), lambda r: _ragged(r, 12, 1, 90), np.uint8),
+    "plane_33x33": ((33, 33), lambda r: _ragged(r, 12, 1, 90), np.uint8),
+    "empty_first": ((9, 17), lambda r: [EMPTY] + _ragged(r, 6, 1, 40),
+                    np.uint8),
+    "empty_middle": ((9, 17), lambda r: _ragged(r, 3, 1, 40) + [
+        (5, 0, 4), (6, 3, 0)] + _ragged(r, 3, 1, 40), np.uint8),
+    "empty_last": ((9, 17), lambda r: _ragged(r, 6, 1, 40) + [EMPTY],
+                   np.uint8),
+    "empty_only": ((9, 9), lambda r: [EMPTY, (0, 0, 0), (3, 0, 2)],
+                   np.uint8),
+    "lengths_1_tb_tb1": ((9, 17), lambda r: [
+        (1, 1, 1), (8, 8, 16), (9, 9, 17), (1, 8, 17), (9, 1, 16),
+        (8, 9, 1)], np.uint8),
+    "single_problem": ((9, 17), lambda r: [(30, 25, 40)], np.uint8),
+    "random_200": ((9, 17), lambda r: _ragged(r, 200, 1, 120), np.uint8),
+    "int64_arrays": ((9, 17), lambda r: _ragged(r, 10, 1, 40), np.int64),
+    "python_lists": ((9, 17), lambda r: _ragged(r, 10, 1, 40), "list"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PACK_CASES))
+def test_prep_hetero_equals_plain_packer(rng, case):
+    """prep_hetero packs exactly what the loop over triplets packs: every
+    field, element for element and in its dtype; on the CPU the device
+    tensors are the host arrays."""
+    (hb, wc), shapes, kind = PACK_CASES[case]
+    trips = _trips(rng, shapes(rng), kind)
+    got = hetero.prep_hetero(trips, hb, wc, "cpu")
+    want = plain_prep(trips, hb, wc)
+    assert (got.hb, got.wc) == (hb, wc)
+    for name, w in want.items():
+        g = getattr(got, name)
+        if name == "syms":
+            assert g.dtype == torch.int32
+            g = g.numpy()
+        if isinstance(w, int):
+            assert type(g) is int and g == w, name
+        else:
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert np.array_equal(g, w), name
+    assert np.array_equal(got.geom_dev.numpy(), want["geom"])
+    assert np.array_equal(got.table_dev.numpy(), want["table"])
+
+
+@pytest.mark.parametrize("budget,max_problems", [
+    (None, None), ("small", None), (None, 3), ("small", 3)],
+    ids=["no_limit", "budget", "max_problems", "budget_and_max_problems"])
+def test_plan_dispatches_equals_greedy_loop(budget, max_problems):
+    """plan_dispatches cuts as the loop over triplets does, ties in |A|
+    and empty problems included, over random lengths and tile planes."""
+    rng = np.random.default_rng(16)
+    for block in ((9, 9), (9, 17), (33, 33)):
+        for rep in range(6):
+            lens = [(int(rng.integers(0, 4)) * int(rng.integers(1, 60)),
+                     int(rng.integers(1, 90)), int(rng.integers(0, 90)))
+                    for _ in range(int(rng.integers(1, 60)))]
+            if rep == 0:  # dispatches that fill the budget exactly
+                lens = [(30, 45, 45)] * 7 + [(0, 45, 45)]
+            limit = None
+            if budget:  # a few problems a dispatch, the largest alone
+                limit = int(rng.integers(1, 6)) * \
+                    hetero.face_bytes(30, 45, 45, *block)
+            got = hetero.plan_dispatches(lens, *block, limit, max_problems)
+            assert got == plain_plan(lens, *block, limit, max_problems)
+            assert all(type(i) is int for d in got for i in d)
 
 
 @pytest.mark.parametrize("fn", [

@@ -38,6 +38,7 @@ two equal and time them in turns; no entry point of the package reaches it.
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -107,12 +108,38 @@ class HeteroState(NamedTuple):
     done: torch.Tensor
 
 
+def _grid(lens: np.ndarray, hb: int, wc: int):
+    """:func:`blocked.plan_dims` over (n, 3) lengths: which problems have
+    no empty sequence, and their n_jb, n_kb and nrows (0 for the others).
+    Raises plan_dims' ValueError for a tile plane the card cannot hold
+    where a problem has tiles."""
+    live = lens.min(axis=1) > 0
+    if not live.any():
+        zero = np.zeros(len(lens), np.int64)
+        return live, zero, zero, zero
+    bk.plan_dims(1, 1, 1, hb, wc)
+    tb, tc = hb - 1, wc - 1
+    n_jb = np.maximum(1, -(-lens[:, 1] // tb)) * live
+    n_kb = np.maximum(1, -(-lens[:, 2] // tc)) * live
+    nrows = (lens[:, 0] + tb + tc + 1) * live
+    return live, n_jb, n_kb, nrows
+
+
+def _face_bytes(lens: np.ndarray, hb: int, wc: int) -> np.ndarray:
+    """Bytes of each problem's face slabs at tile plane (hb, wc), (n, 3)
+    lengths in; 0 for a problem with an empty sequence."""
+    _, n_jb, n_kb, nrows = _grid(lens, hb, wc)
+    return 4 * NUM_MATRICES * nrows * (n_kb * wc + n_jb * hb)
+
+
 def face_bytes(la: int, lb: int, lc: int, hb: int, wc: int) -> int:
     """Bytes of one problem's face slabs at tile plane (hb, wc)."""
-    if min(la, lb, lc) == 0:
-        return 0
-    d = bk.plan_dims(la, lb, lc, hb, wc)
-    return 4 * NUM_MATRICES * d.nrows * (d.n_kb * wc + d.n_jb * hb)
+    return int(_face_bytes(np.array([[la, lb, lc]], np.int64), hb, wc)[0])
+
+
+def _starts(sizes: np.ndarray) -> np.ndarray:
+    """Where each of consecutive runs of ``sizes`` starts."""
+    return np.cumsum(sizes) - sizes
 
 
 def plan_dispatches(lens, hb: int, wc: int, budget_bytes: Optional[int] = None,
@@ -122,93 +149,104 @@ def plan_dispatches(lens, hb: int, wc: int, budget_bytes: Optional[int] = None,
     ``budget_bytes`` (a problem above it runs alone) and that hold at most
     ``max_problems`` problems; None is no limit."""
     with span("k4.plan"):
-        lens = [tuple(int(x) for x in t) for t in lens]
-        order = sorted((i for i, t in enumerate(lens) if min(t) > 0),
-                       key=lambda i: -lens[i][0])
+        lens = np.asarray(lens, dtype=np.int64).reshape(-1, 3)
+        order = np.flatnonzero(lens.min(axis=1) > 0)
+        order = order[np.argsort(-lens[order, 0], kind="stable")]
+        need = _face_bytes(lens, hb, wc)[order]
         out: List[List[int]] = []
         used = 0
-        for i in order:
-            need = face_bytes(*lens[i], hb, wc)
+        for i, b in zip(order.tolist(), need.tolist()):
             full = out and (
-                (budget_bytes is not None and used + need > budget_bytes)
+                (budget_bytes is not None and used + b > budget_bytes)
                 or (max_problems is not None and len(out[-1]) >= max_problems))
             if not out or full:
                 out.append([])
                 used = 0
             out[-1].append(i)
-            used += need
+            used += b
         return out
 
 
 def prep_hetero(triplets: Sequence, hb: int, wc: int, device) -> HeteroBatch:
     """Pack triplets into one dispatch at tile plane (hb, wc); raises
     ValueError for a tile plane the card cannot hold.  Problems keep their
-    order, which is the order of their tiles within each diagonal."""
+    order, which is the order of their tiles within each diagonal.
+
+    Each part is computed over the whole dispatch at once and written into
+    one int32 buffer: the geometry first (so that its int64 view is
+    aligned), the symbols, the table.  On a CUDA device the buffer is
+    pinned and reaches the card in one copy on the current stream, and
+    ``syms``, ``geom_dev`` and ``table_dev`` are views of the one device
+    buffer; torch does not hand the pinned block out again before that copy
+    has run, so dispatches in flight on other streams are safe."""
     with span("k4.pack"):
         bk.plan_dims(1, 1, 1, hb, wc)
         tb, tc = hb - 1, wc - 1
         n = len(triplets)
-        geom = np.zeros((n, len(GEOM_FIELDS)), np.int64)
-        lens = np.zeros((n, 3), np.int64)
-        parts, off, rf, cf = [], 0, 0, 0
-        tiles = []  # (diagonal, problem, jb)
-        for p, t in enumerate(triplets):
-            la, lb, lc = (len(x) for x in t)
-            lens[p] = la, lb, lc
-            if min(la, lb, lc) == 0:
-                continue
-            d = bk.plan_dims(la, lb, lc, hb, wc)
-            g = geom[p]
-            g[_G["la"]], g[_G["n_jb"]], g[_G["n_kb"]] = la, d.n_jb, d.n_kb
-            g[_G["nrows"]] = d.nrows
-            g[_G["jlstar"]] = lb - (d.n_jb - 1) * tb
-            g[_G["klstar"]] = lc - (d.n_kb - 1) * tc
-            for name, seq, size, pad in (
-                    ("a_off", t[0], la + 1, PAD_A),
-                    ("b_off", t[1], d.n_jb * tb + 1, PAD_B),
-                    ("c_off", t[2], d.n_kb * tc + 1, PAD_C)):
-                arr = np.full(size, pad, np.int32)
-                arr[1:len(seq) + 1] = np.asarray(seq, dtype=np.int32)
-                parts.append(arr)
-                g[_G[name]] = off
-                off += size
-            g[_G["rf_off"]], g[_G["cf_off"]] = rf, cf
-            rf += d.n_kb * d.nrows * NUM_MATRICES * wc
-            cf += d.n_jb * d.nrows * NUM_MATRICES * hb
-            jb, kb = np.meshgrid(np.arange(d.n_jb), np.arange(d.n_kb),
-                                 indexing="ij")
-            tiles.append(np.stack([(jb + kb).ravel(), np.full(jb.size, p),
-                                   jb.ravel()], axis=1))
-        tiles = np.concatenate(tiles) if tiles else np.zeros((0, 3), np.int64)
-        tiles = tiles[np.lexsort((tiles[:, 1], tiles[:, 0]))]
-        n_diag = int(tiles[:, 0].max()) + 1 if len(tiles) else 0
-        diag_start = np.searchsorted(tiles[:, 0], np.arange(n_diag + 1))
-        syms = np.concatenate(parts) if parts else np.zeros(1, np.int32)
-        table = _link(tiles)
-        tiles = np.ascontiguousarray(table[:, :2])
-        return HeteroBatch(torch.from_numpy(syms).to(device), geom, lens,
-                           hb, wc, tiles, diag_start, rf, cf,
-                           torch.from_numpy(geom).to(device), table,
-                           torch.from_numpy(table).to(device))
+        seqs = list(itertools.chain.from_iterable(triplets))
+        lens = np.fromiter(map(len, seqs), np.int64, 3 * n).reshape(n, 3)
+        live, n_jb, n_kb, nrows = _grid(lens, hb, wc)
+        # Each problem's A, B and C arrays one after another, none where a
+        # sequence is empty: a pad, the sequence, pads to the array's size.
+        size = np.stack([lens[:, 0] + 1, n_jb * tb + 1, n_kb * tc + 1],
+                        axis=1) * live[:, None]
+        nsyms = int(size.sum())
+        rf_size = n_kb * nrows * NUM_MATRICES * wc
+        cf_size = n_jb * nrows * NUM_MATRICES * hb
+        # The table in groups g = d * n + p, a problem's tiles on one
+        # diagonal, jb rising: (p, jb) on d is entry base[g] + jb, and its
+        # neighbours (p, jb, kb - 1) and (p, jb - 1, kb) are in group g - n.
+        n_diag = int((n_jb + n_kb).max()) - 1 if live.any() else 0
+        d_g, p_g = np.divmod(np.arange(n_diag * n), n)
+        jb_min = np.maximum(0, d_g - n_kb[p_g] + 1)
+        count = np.maximum(0, np.minimum(d_g, n_jb[p_g] - 1) - jb_min + 1)
+        base = _starts(count) - jb_min
+        ntiles = int(count.sum())
+        g = np.repeat(np.arange(n_diag * n), count)
+        jb = np.arange(ntiles) - base[g]
+        kb = d_g[g] - jb
+        left = np.concatenate([np.zeros(n, np.int64), base])[g] + jb
 
-
-def _link(tiles: np.ndarray) -> np.ndarray:
-    """The table (``TABLE_FIELDS``) of sorted (diagonal, problem, jb) rows."""
-    d, p, jb = (tiles[:, c].astype(np.int64) for c in range(3))
-    kb = d - jb
-
-    def key(jb_, kb_):
-        return (p << 42) | ((jb_ & 0x1FFFFF) << 21) | (kb_ & 0x1FFFFF)
-
-    keys = key(jb, kb)
-    order = np.argsort(keys, kind="stable")
-    table = np.stack([p, jb, kb, p, p], axis=1).astype(np.int32)
-    for col, (dj, dk) in ((3, (1, 0)), (4, (0, 1))):
-        want = key(jb - dj, kb - dk)
-        at = np.minimum(np.searchsorted(keys[order], want), len(keys) - 1)
-        found = (keys[order][at] == want) & (jb - dj >= 0) & (kb - dk >= 0)
-        table[:, col] = np.where(found, order[at], -1)
-    return table
+        ends = np.cumsum([0, 2 * n * len(GEOM_FIELDS), max(nsyms, 1),
+                          ntiles * len(TABLE_FIELDS)])
+        dev = torch.device(device)
+        host = torch.empty(int(ends[-1]), dtype=torch.int32,
+                           pin_memory=dev.type == "cuda")
+        h = host.numpy()
+        geom = h[:ends[1]].view(np.int64).reshape(n, len(GEOM_FIELDS))
+        np.stack([  # GEOM_FIELDS, zeros for a problem without tiles
+                  lens[:, 0] * live, n_jb, n_kb, nrows,
+                  (lens[:, 1] - (n_jb - 1) * tb) * live,
+                  (lens[:, 2] - (n_kb - 1) * tc) * live,
+                  *(_starts(size.ravel()).reshape(n, 3) * live[:, None]).T,
+                  _starts(rf_size) * live, _starts(cf_size) * live],
+                 axis=1, out=geom)
+        syms = h[ends[1]:ends[2]]
+        if nsyms:
+            keep = np.repeat(live, 3)
+            seq_len, arr_len = lens.ravel()[keep], size.ravel()[keep]
+            pads = np.tile(np.int32([PAD_A, PAD_B, PAD_C]), n)[keep]
+            syms[:] = np.repeat(pads, arr_len)
+            runs = np.stack([np.ones_like(seq_len), seq_len,
+                             arr_len - 1 - seq_len], axis=1).ravel()
+            at_seq = np.repeat(np.tile([False, True, False], len(seq_len)),
+                               runs)
+            syms[at_seq] = np.concatenate(list(itertools.compress(seqs,
+                                                                  keep)))
+        else:
+            syms[:] = 0
+        table = h[ends[2]:].reshape(ntiles, len(TABLE_FIELDS))
+        np.stack([p_g[g], jb, kb, np.where(jb > 0, left - 1, -1),
+                  np.where(kb > 0, left, -1)], axis=1, out=table)
+        buf = host.to(dev, non_blocking=True)
+        return HeteroBatch(
+            buf[ends[1]:ends[2]], geom, lens, hb, wc,
+            np.ascontiguousarray(table[:, :2]),
+            np.concatenate([[0], np.cumsum(
+                count.reshape(n_diag, n).sum(axis=1))]),
+            int(rf_size.sum()), int(cf_size.sum()),
+            buf[:ends[1]].view(torch.int64).view(n, len(GEOM_FIELDS)), table,
+            buf[ends[2]:].view(ntiles, len(TABLE_FIELDS)))
 
 
 def new_state(batch: HeteroBatch) -> HeteroState:
