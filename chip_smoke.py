@@ -19,7 +19,8 @@ per source, all at once) and prints one JSON line per phase:
    design (one thread block a problem), exactly; every table up to
    BLOSUM62's 24 symbols, sequences drawing codes past the table;
 3. ``blocked``: K3 against its plain versions (the tiled ``blocked_ref`` and
-   the torch sweep), exactly;
+   the torch sweep), exactly, a 16S-length triplet in ``rrna16s.score``'s
+   regime (a word a tile, chunks of 6) among them;
 4. ``slab``: K5 against its plain versions (the tiled ``slab_ref`` and the
    torch engine), exactly: the captured plane and the final vector of every
    variant, on multi-tile and ragged shapes and the default tile plane,
@@ -140,7 +141,7 @@ per source, all at once) and prints one JSON line per phase:
 19. ``tuning``: K2 at 64^3, 255^3 and 4096 x 255 x 255 over two tile
     planes and three chunks (each held to the default), its registers and
     spills; the persistent K3 at 1024^3 over
-    three tile planes, two thread counts and four chunks; K5 "free" at the
+    three tile planes of one sub-tile and three chunks; K5 "free" at the
     2048^3 top split's shape over the chunks; K4 on the batch over its
     chunks, beside its earlier design, and where its warps spend their
     cycles;
@@ -148,7 +149,8 @@ per source, all at once) and prints one JSON line per phase:
     warm-up) beside its plain version (one run) at the main path's
     sizes, and beside its bound; K2 at 64^3, 255^3 and 4096 x 255 x 255 in
     turns with its earlier design (earlier, new, new, earlier), beside K3
-    on the same triplets; K3 at 512^3 and 1024^3, both bench chains
+    on the same triplets; K3 at 512^3, 1024^3 and 1536^3 (all seven
+    values against the torch sweep), both bench chains
     and K5 "free" and "bwd" at the split under both schedules in turns
     (diagonal, persistent, persistent, diagonal); K5 against the torch
     engine, exactly and
@@ -284,6 +286,8 @@ TILES_SAMPLE = 192
 CHAIN_SAMPLE = (128, 4)
 # The bench's chains (bench.py stages chain_512 and chain_1k): (n, slots).
 CHAIN_BENCH = ((512, 16), (1024, 8))
+# K3's whole grid timed against its earlier design.
+K3_TIMED = (512, 1024, 1536)
 # HBM bytes a second of one H100 SXM (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 # The bench phase: the parent's budget (the probe and the headline take
@@ -356,6 +360,7 @@ COUNTERS = {"wavefront": wf.final_values,
             "hetero": hk.final_values, "hetero_tiles": hk.sweep_tiles,
             "slab": sk.slab_sweep, "slab_tiles": sk.sweep_tiles,
             "vpu": vpu.vpu_chains, "blocked_diagonals": bk.sweep_diagonals,
+            "blocked_earlier": bk.final_values_earlier,
             "slab_diagonals": sk.sweep_diagonals,
             "hetero_diagonals": hk.sweep_diagonals,
             "direct_choices": sk.choice_sweep, "direct_walk": direct.walk}
@@ -497,7 +502,7 @@ def phase_blocked(rng) -> int:
     checked = []
     err = 0
     default_shape = bk.choose_block_shape(0, 0, 0)
-    small = [((10, 40, 50), (16, 128), "default"),
+    small = [((10, 40, 50), (17, 33), "default"),
              ((10, 40, 50), (17, 17), "default")]
     small += [((37, 70, 45), (9, 17), v) for v in VARIANTS]
     for shape, block, name in small:
@@ -511,6 +516,18 @@ def phase_blocked(rng) -> int:
                             False)
         err = max(err, e)
         checked.append(f"{shape}/{default_shape}/default")
+    # rrna16s.score's regime: a 16S-length triplet at the default plane,
+    # past RAMP_WAVES waves (a word a tile, chunks of 6), all seven values
+    # against the torch sweep (about 15 s).
+    shape = (1531, 1547, 1462)
+    dims = bk.plan_dims(*shape)
+    plan = bk.schedule(dims, bk.n_tiles(dims), bk.resident_blocks(dims))
+    require(plan == bk.Schedule(False, 6),
+            f"K3 at {shape}: schedule {plan}, not rrna16s.score's")
+    _, e = blocked_case(*triplet(rng, shape), DEFAULT, 0, default_shape,
+                        False)
+    err = max(err, e)
+    checked.append(f"{shape}/{default_shape}/default/{plan}")
 
     # score_bits=12 with default scoring: a near-identical 768^3 triplet
     # scores past 2047, so the wrap is real.
@@ -1664,14 +1681,17 @@ def phase_chain(rng, dev) -> dict:
         b, c = triplet(rng, (la, la))
         sample.append((*bk.prep_chain(a_list, b, c, dims, CUDA), la, la, la,
                        dims))
-    ms = time_cuda_ms(bk.chain_values, sample)
+    turns = in_turns(bk.chain_values_earlier, bk.chain_values, sample,
+                     "earlier_ms")
     plain_ms, want = event_ms(bk.blocked_ref, *sample[0])
     got = bk.chain_values(*sample[0])
     require(torch.equal(got, want), f"K3 chain {la}^3 x{npack} != blocked_ref")
+    require(torch.equal(got, bk.chain_values_earlier(*sample[0])),
+            f"K3 chain {la}^3 x{npack} != its earlier design")
     err = max(err, _diff(got, want))
     bms, by = bound(npack * la ** 3, 4 * (npack * la + 2 * la
                                           + npack * NUM_MATRICES), dev)
-    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+    row = {**turns, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
            "max_abs_err": err, "launches": chain_launches,
            "sample": f"{npack} slots of {la}^3",
            **{f"ms_per_alignment_{k}": v["ms_per_alignment"]
@@ -2350,18 +2370,16 @@ def blocked_inputs(trips, block_shape=None):
     return out
 
 
-def time_blocked(trips, block_shape, threads=bk.THREADS, chunk=bk.CHUNK):
-    return time_cuda_ms(functools.partial(bk.final_values, threads=threads,
-                                          chunk=chunk),
-                        blocked_inputs(trips, block_shape))
+def time_blocked(trips, block_shape):
+    return time_cuda_ms(bk.final_values, blocked_inputs(trips, block_shape))
 
 
-def in_turns(old, new, inputs) -> dict:
-    """Both schedules of one sweep timed in turns, old, new, new, old (each
-    the minimum over ``inputs``): the new schedule's ms, the old one's
-    (``diagonal_ms``) and the four in order."""
+def in_turns(old, new, inputs, old_key="diagonal_ms") -> dict:
+    """Two designs (or schedules) of one sweep timed in turns, old, new, new,
+    old (each the minimum over ``inputs``): the new one's ms, the old one's
+    (under ``old_key``) and the four in order."""
     turns = [time_cuda_ms(f, inputs) for f in (old, new, new, old)]
-    return {"ms": min(turns[1:3]), "diagonal_ms": min(turns[0], turns[3]),
+    return {"ms": min(turns[1:3]), old_key: min(turns[0], turns[3]),
             "turns_ms": turns}
 
 
@@ -2483,10 +2501,11 @@ def time_hetero(rng, trips, dev) -> dict:
                           _diff(got, old), _diff(quarters, old))}}
 
 
-# The candidates of the persistent K3 at 1024^3: tile planes (hb, wc),
-# threads a block and planes a chunk.
-TUNE_TILES = ((17, 17), (33, 33), (33, 65))
-TUNE_THREADS = (256, 512)
+# The candidates of the persistent K3 at 1024^3: tile planes (hb, wc) and
+# planes a chunk (at most bk.MAX_CHUNK, what the register step's rings
+# take; its block follows from the plane); K5's chunks.
+TUNE_TILES = ((17, 17), (33, 17), (33, 33))
+TUNE_K3_CHUNKS = (2, 4, 8)
 TUNE_CHUNKS = (4, 8, 32, 128)
 
 
@@ -2524,19 +2543,16 @@ def tune_wavefront(rng) -> dict:
 
 def phase_tuning(rng, batch) -> None:
     """K2 over tile planes and chunks; the persistent K3 at 1024^3 over
-    every tile plane, thread count and chunk of TUNE_*; K5 "free" at the
-    2048^3 top split's shape over the chunks; K4 on the batch over its
-    chunks."""
+    every tile plane and chunk of TUNE_*; K5 "free" at the 2048^3 top
+    split's shape over the chunks; K4 on the batch over its chunks."""
     k2 = tune_wavefront(rng)
     trips = _inputs(rng, (1024, 1024, 1024))
     k3 = {}
     for tile in TUNE_TILES:
         inputs = blocked_inputs(trips, tile)
-        for threads in TUNE_THREADS:
-            for chunk in TUNE_CHUNKS:
-                k3[f"{tile[0]}x{tile[1]}/{threads}/{chunk}"] = time_cuda_ms(
-                    functools.partial(bk.final_values, threads=threads,
-                                      chunk=chunk), inputs)
+        for chunk in TUNE_K3_CHUNKS:
+            k3[f"{tile[0]}x{tile[1]}/{chunk}"] = time_cuda_ms(
+                functools.partial(bk.final_values, chunk=chunk), inputs)
     inputs = slab_inputs(_inputs(rng, SPLIT_SHAPE, 3), "free")
     k5 = {chunk: time_cuda_ms(functools.partial(sk.slab_sweep, chunk=chunk),
                               inputs) for chunk in TUNE_CHUNKS}
@@ -2559,7 +2575,7 @@ def phase_tuning(rng, batch) -> None:
                        "planes_cycles_per_plane":
                            row["planes"] / (row["chunks"] * hk.CHUNK)})
     emit(phase="tuning", wavefront_ms_by_tile_chunk=k2,
-         blocked_1024_ms_by_tile_threads_chunk=k3,
+         blocked_1024_ms_by_tile_chunk=k3,
          slab_free_split_ms_by_chunk=k5,
          hetero_batch_ms_by_chunk=k4,
          hetero_resources=hk.step_resources(hb_, wc_),
@@ -2594,25 +2610,35 @@ def bound(cells, nbytes, dev, ops=None) -> tuple:
 
 def phase_timings(rng, dev, batch) -> tuple:
     """The timing rows, and K5's largest difference from the torch engine at
-    the split's shape; ``batch`` is the batch phase's 1024 triplets.  K3,
-    its chains and K5 are timed under both schedules in turns (old, new,
-    new, old): ``ms`` is the persistent sweep's, ``diagonal_ms`` the
-    diagonal schedule's (the per-tile form over the whole table)."""
+    the split's shape; ``batch`` is the batch phase's 1024 triplets.  K3 and
+    its chains are timed in turns with K3's earlier design (old, new, new,
+    old; ``earlier_ms``: the persistent sweep on the shared-memory pillar),
+    K5 under both schedules: ``ms`` is the persistent sweep's,
+    ``diagonal_ms`` the diagonal schedule's (the per-tile form over the
+    whole table)."""
     rows = {}
     for shape in K2_SHAPES:
         rows["wavefront_" + "x".join(map(str, shape))] = time_k2(
             rng, shape, dev)
-    for n in (512, 1024):
+    for n in K3_TIMED:
         trips = _inputs(rng, (n, n, n))
-        row = in_turns(diagonal_k3, bk.final_values, blocked_inputs(trips))
-        plain_ms = time_plain(trips[0])
+        inputs = blocked_inputs(trips)
+        row = in_turns(bk.final_values_earlier, bk.final_values, inputs,
+                       "earlier_ms")
+        got = bk.final_values(*inputs[0])
+        require(torch.equal(got, bk.final_values_earlier(*inputs[0])),
+                f"K3 at {n}^3 differs from its earlier design")
         cells = n ** 3
         # Inputs read once (3 symbol vectors), the final vector written.
         bms, by = bound(cells, 4 * (3 * n + NUM_MATRICES + 1), dev)
         rows[f"blocked_{n}"] = {**row, "gcups": gcups(cells, row["ms"]),
-                                "plain_ms": plain_ms,
-                                "plain_gcups": gcups(cells, plain_ms),
                                 "bound_ms": bms, "bound_by": by}
+        # All seven values against the torch sweep (about 15 s at 1536^3).
+        plain_ms, plain = event_ms(plain_sweep, *trips[0])
+        require(torch.equal(got, plain),
+                f"K3 at {n}^3 differs from the torch sweep")
+        rows[f"blocked_{n}"].update(plain_ms=plain_ms,
+                                    plain_gcups=gcups(cells, plain_ms))
     for n, npack in CHAIN_BENCH:
         dims = bk.plan_dims_packed(n, n, n, npack)
         inputs = []
@@ -2621,11 +2647,12 @@ def phase_timings(rng, dev, batch) -> tuple:
             b, c = triplet(rng, (n, n))
             inputs.append((*bk.prep_chain(a_list, b, c, dims, CUDA), n, n, n,
                            dims))
-        row = in_turns(diagonal_k3, bk.chain_values, inputs)
+        row = in_turns(bk.chain_values_earlier, bk.chain_values, inputs,
+                       "earlier_ms")
         bms, by = bound(n ** 3, 4 * (3 * n + NUM_MATRICES), dev)
         rows[f"chain_{n}x{npack}"] = {
             **row, "ms_per_alignment": row["ms"] / npack,
-            "diagonal_ms_per_alignment": row["diagonal_ms"] / npack,
+            "earlier_ms_per_alignment": row["earlier_ms"] / npack,
             "bound_ms_per_alignment": bms, "bound_by": by}
     la, lb, lc = SPLIT_SHAPE
     trips = _inputs(rng, SPLIT_SHAPE)
@@ -2962,14 +2989,14 @@ def main() -> int:
     # are at the 1024^3 sharded traceback's top split; the direct engine's
     # at 1024^3.  Eight pallas_call sites, nine rows: K3's chain mode keeps a
     # row of its own; then the direct engine's two programs, which are XLA
-    # in the JAX package, not pallas_call sites.  K3, its
-    # chain mode and K5 give the diagonal schedule's time of the same run
-    # beside the persistent sweep's, the per-tile forms of K3 and K5 their
-    # earlier design's.
+    # in the JAX package, not pallas_call sites.  K3 and its chain mode
+    # give their earlier design's time of the same run (the persistent sweep
+    # on the shared-memory pillar), K5 the diagonal schedule's, the per-tile
+    # forms of K3 and K5 their earlier design's.
     k3_row = rows["blocked_1024"]
     chain_times = {f"{k}_{n}x{p}": rows[f"chain_{n}x{p}"][k]
                    for n, p in CHAIN_BENCH
-                   for k in ("ms_per_alignment", "diagonal_ms_per_alignment")}
+                   for k in ("ms_per_alignment", "earlier_ms_per_alignment")}
     k5_free, k5_bwd = rows[f"slab_free_{split}"], rows[f"slab_bwd_{split}"]
     quarters = rows["blocked_tiles_1024_quarters"]
     tiles.update(main_path_ms_in_quarters=quarters["ms"],
@@ -2985,9 +3012,10 @@ def main() -> int:
              for shape in ("64x64x64", "4096x255x255")
              for k in ("ms", "old_design_ms", "k3_ms", "bound_ms")}}),
         ("blocked", "blocked", "trialign/kernels/blocked.py:225", k3_err,
-         k3_row, {"diagonal_ms": k3_row["diagonal_ms"],
-                  "ms_512": rows["blocked_512"]["ms"],
-                  "diagonal_ms_512": rows["blocked_512"]["diagonal_ms"]}),
+         k3_row, {"earlier_ms": k3_row["earlier_ms"],
+                  **{f"{k}_{n}": rows[f"blocked_{n}"][k]
+                     for n in (512, 1536)
+                     for k in ("ms", "earlier_ms", "bound_ms")}}),
         ("blocked_tiles", "blocked", "trialign/kernels/blocked.py:859",
          tiles.pop("max_abs_err"), tiles, tiles),
         ("blocked_chain", "blocked", "trialign/kernels/blocked.py:906",

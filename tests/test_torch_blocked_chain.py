@@ -44,8 +44,8 @@ def test_chain_parity_multi_and_single_tile(rng):
     # Multi-tile: borders cross the face exchange in j and k.
     assert port(a_list, b, c, block_shape=(9, 17)) == want
     assert port(a_list, b, c, block_shape=(16, 9)) == want
-    # One tile.
-    assert port(a_list, b, c, block_shape=(33, 65)) == want
+    # One tile row at the default plane (one sub-tile; |C| past it).
+    assert port(a_list, b, c, block_shape=(33, 33)) == want
 
 
 def test_chain_single_and_empty(rng):

@@ -233,7 +233,7 @@ def test_hetero_entry_refuses_score_bits(card):
 
 
 @pytest.mark.parametrize("name", sorted(SCORINGS))
-@pytest.mark.parametrize("dims,block", [((10, 40, 50), (16, 128)),
+@pytest.mark.parametrize("dims,block", [((10, 40, 50), (17, 33)),
                                         ((37, 70, 45), (9, 17)),
                                         ((20, 300, 280), None)])
 def test_blocked_kernel_matches_plain(card, dims, block, name):
@@ -496,7 +496,7 @@ def test_sharded_traceback_on_card_rescores(card):
 
 
 @pytest.mark.parametrize("blocks", [1, 3, None])
-@pytest.mark.parametrize("chunk", [1, 7, 32, 1000])
+@pytest.mark.parametrize("chunk", [1, 3, 7, bk.MAX_CHUNK])
 @pytest.mark.parametrize("dims,block,threads", [
     ((37, 70, 45), (9, 17), 256),       # 8 x 3 tiles, ragged
     ((60, 200, 300), (33, 33), 512),    # 7 x 10 tiles
@@ -504,18 +504,17 @@ def test_sharded_traceback_on_card_rescores(card):
 ])
 def test_persistent_sweep_matches_diagonal_schedule(card, dims, block,
                                                     threads, chunk, blocks):
-    """K3's whole grid in one persistent launch, at any chunk and grid cap
-    (1 block sweeps the table alone): the final values equal the per-tile
-    form's earlier design run one diagonal at a time, and the golden
-    score."""
+    """K3's whole grid in one persistent launch, at any chunk its rings take
+    and any grid cap (1 block sweeps the table alone): the final values
+    equal the per-tile form's earlier design run one diagonal at a time (at
+    ``threads`` a block), and the golden score."""
     d = bk.plan_dims(*dims, *block)
     trip = triplet(15, dims)
     arrs = bk.prep_blocked(*trip, d, card)
     want = bk.sweep_diagonals(*arrs, *dims, d, bk.new_state(d, card), 0,
                               bk.n_tiles(d), threads=threads).out[0]
     before = bk.final_values.launches
-    got = bk.final_values(*arrs, *dims, d, threads=threads, chunk=chunk,
-                          blocks=blocks)
+    got = bk.final_values(*arrs, *dims, d, chunk=chunk, blocks=blocks)
     assert bk.final_values.launches == before + 1
     assert torch.equal(got, want)
     assert int(got.max()) == align_planes_numpy(*trip)

@@ -61,9 +61,9 @@ def test_two_process_gloo_run():
             want
         one = mesh.make_mesh(1, 1, devices=[CPU])
         values = [int(v) for v in halo_values(a, b, c, mesh=one,
-                                              block_shape=(16, 128))]
+                                              block_shape=(17, 33))]
         score, rows = halo_tb.hirschberg_align_sharded(
-            a, b, c, mesh=one, single_cells=3000, block_shape=(16, 128))
+            a, b, c, mesh=one, single_cells=3000, block_shape=(17, 33))
         assert align_batch_multihost(
             trips, mesh=mesh.make_mesh(4, 1, devices=[CPU] * 4)) == want
         assert max(values) == score == align_planes_numpy(a, b, c)

@@ -277,10 +277,12 @@ def test_persistent_wrappers_refuse_a_bad_schedule(chunk, blocks):
                       blocks=blocks)
 
 
-@pytest.mark.parametrize("chunk,blocks", [(1, 1), (5, 3), (64, None)])
+@pytest.mark.parametrize("chunk,blocks", [(1, 1), (5, 3), (bk.MAX_CHUNK,
+                                                          None)])
 def test_scores_do_not_depend_on_the_schedule_arguments(chunk, blocks):
     """On the CPU the wrappers run the plain versions, whatever the chunk
-    and the grid cap; so do the scores at other tile planes."""
+    the register step takes and the grid cap; so do the scores at other
+    tile planes."""
     lens = (9, 13, 11)
     trip = triplet(4, lens)
     want = align_planes_numpy(*trip)

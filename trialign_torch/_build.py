@@ -87,8 +87,11 @@ SIGNATURES = {
                  _P, _I, _P]),
         "trialign_blocked_sweep": (
             _I, [_P, _P, _P, BlockedGeom, _P, _I, _P, StepScoring, _P, _P, _P,
-                 _I, _I, _I, _P, _P, _P]),
-        "trialign_blocked_blocks_per_sm": (_I, [_I, _I, _I, _I, _IP]),
+                 _I, _I, _P, _P, _I, _P]),
+        "trialign_blocked_sweep_earlier": (
+            _I, [_P, _P, _P, BlockedGeom, _P, _I, _P, StepScoring, _P, _P, _P,
+                 _I, _I, _P, _P, _P]),
+        "trialign_blocked_resources": (_I, [_I, _I, _I, _I, _I, _I, _IP]),
     },
     "hetero": {
         "trialign_hetero_sweep": (

@@ -1,6 +1,8 @@
-// The shared-memory tile pillar of K3 (csrc/blocked.cu).  K4 sweeps its
-// tiles with a step of its own (csrc/pillar_warp.cuh); csrc/hetero.cu keeps
-// this pillar only for K4's earlier design, which chip_smoke.py times.
+// The shared-memory tile pillar of the earlier designs, which only
+// chip_smoke.py and the cuda tests run: K3's per-tile form as it was
+// (blocked_kernel) and K3's persistent sweep as it was (pillar_sweep), both
+// in csrc/blocked.cu, and K4's earlier design (csrc/hetero.cu).  K2, K3
+// and K4 sweep their tiles on the register step (csrc/pillar_warp.cuh).
 //
 // Replaces the body of trialign/kernels/blocked.py:_block_sweep that both
 // make_grid_call (K3, with its per-block form make_block_call and its chain
@@ -21,10 +23,11 @@
 // Design: the caller names the tile and its problem's geometry, and a
 // schedule policy (csrc/schedule.cuh): NoWait where stream order between
 // launches makes the faces of the previous tile anti-diagonal visible and no
-// two blocks of a launch share a face slab (K3's per-tile form); PlaneWait
-// where one persistent launch runs every tile and a tile waits, at the start
-// of each chunk of planes, for the planes of its neighbours whose face rows
-// the chunk reads (K3's whole-grid sweep and chain mode).  A row-face slab
+// two blocks of a launch share a face slab (K3's per-tile form as it was);
+// PlaneWait where one persistent launch runs every tile and a tile waits, at
+// the start of each chunk of planes, for the planes of its neighbours whose
+// face rows the chunk reads (K3's persistent sweep as it was, chain mode
+// included).  A row-face slab
 // is read and written in place: a tile reads row s at step s and writes it
 // at step s + tb.  Under PlaneWait that stays correct: tile (jb, kb) reads row
 // s only once (jb - 1, kb) has written it (at its step s + tb), and writes

@@ -1,13 +1,14 @@
-// The register tile step of K4 and K2: a tile swept with every cell in a
-// register of its lane.
+// The register tile step of K4, K2 and K3: a tile swept with every cell in
+// a register of its lane.
 //
-// Replaces, for K4 (csrc/hetero.cu), the shared-memory pillar K3 keeps
-// (csrc/pillar.cuh): the body of trialign/kernels/blocked.py:_block_sweep
-// that make_hetero_grid_call and make_hetero_block_call run, one tile of
-// tb x tc cells swept through its local planes q (cell (jl, kl) of plane q
-// holds global i = q - jl - kl), with a one-cell halo taken from the faces
-// its upper and left neighbours wrote.  K2 (csrc/wavefront.cu) sweeps a
-// small triplet's tiles on it too, each tile one sub-tile.
+// Replaces, for K4 (csrc/hetero.cu), K2 (csrc/wavefront.cu) and K3
+// (csrc/blocked.cu, its whole grid, per-tile form and chain mode), the
+// shared-memory pillar (csrc/pillar.cuh), which now only the earlier
+// designs run: the body of trialign/kernels/blocked.py:_block_sweep, one
+// tile of tb x tc cells swept through its local planes q (cell (jl, kl) of
+// plane q holds global i = q - jl - kl), with a one-cell halo taken from
+// the faces its upper and left neighbours wrote.  K2 and K3 sweep each tile
+// as one sub-tile.
 //
 // Bound on the card: csrc/pillar.cuh keeps 25 planes of the tile in shared
 // memory, so each cell is 42 shared loads and a block-wide barrier ends
@@ -77,20 +78,33 @@
 // Cells with i < 1 are zero (masked while q <= 32 + the strip's last
 // column); cells with i > |A| compute values that only such cells read.
 //
-// Progress a strip (STRIP_WORDS, K2).  A tile's strips trail each other
-// by a chunk, so a neighbour that waits for the last strip trails the
+// Progress a strip (STRIP_WORDS, K2 and K3).  A tile's strips trail each
+// other by a chunk, so a neighbour that waits for the last strip trails the
 // first by W chunks more than its halo needs.  With a word a strip, strip
-// w of a tile waits for strip w of the upper tile, which has written the
-// halo row over its columns (column k0 comes through the ring), and strip
-// 0 for the left tile's last strip; each strip publishes its own word
-// after each chunk.  A single small triplet's critical path
-// crosses a tile diagonal per step, so this cuts its ramp; K4's many tiles
-// keep one word a tile.
+// w of a tile waits for word w of the upper tile (t.up + w), whose strip w
+// has written the halo row over its columns (column k0 comes through the
+// ring), and strip 0 for word W - 1 of the left tile (t.left + W - 1), its
+// last strip; each strip publishes its own word after each chunk.  A
+// single triplet's critical path crosses a tile diagonal per step, so this
+// cuts its ramp; K4's many tiles keep one word a tile, and K3 takes a word
+// a strip only where its grid is bound by its ramp (kernels/blocked.py
+// schedule), since each strip's word costs a fence a chunk.
 //
-// Register width (BITS, K2's score_bits).  A cell's seven values wrap to a
-// score_bits-wide signed register where they are made, before they are
-// reduced to partials or written to a face, so a partial is the grouped
-// max-plus of stored, wrapped values: what cell_step computes
+// Chain borders (CHAIN, K3's chain mode, kernels/blocked.py
+// plan_dims_packed): npack problems of equal |A| stacked along i at pitch
+// d, sharing B and C.  A cell with i = 0 (mod d) is a zero cell in all
+// seven matrices, as a cell with i < 1 is: it is zeroed where it is made,
+// so its partials are the zero cell's, and written into the faces like any
+// cell (a neighbour's halo reads the zero there); slot m's final cell,
+// i = m * d + d - 1 at (jl*, kl*), goes to out row m.  A lane keeps
+// (q - jl - k0) mod d of the plane it sweeps, stepped with q; cell
+// (jl, k0 + r) is a border where that less r is 0 mod d (one wrap where
+// d > kStrip, a remainder otherwise).
+//
+// Register width (BITS, K2's and K3's score_bits).  A cell's seven values
+// wrap to a score_bits-wide signed register where they are made, before
+// they are reduced to partials or written to a face, so a partial is the
+// grouped max-plus of stored, wrapped values: what cell_step computes
 // (csrc/plane_step.cuh wrap_bits).  The instantiation without BITS is the
 // one K4 runs.
 #pragma once
@@ -209,13 +223,16 @@ struct WarpTile {
 // sub: the submatrix table in shared memory (SUB); chunk: planes between
 // handshakes.  CLOCK keeps the phase clock; BITS wraps each value to
 // s.score_bits; STRIP_WORDS gives each strip a progress word of its own
-// (t.done, t.up and t.left then point at kMaxStrips words a tile).
+// (t.done, t.up and t.left then point at kMaxStrips words a tile); CHAIN
+// makes every cell with i = 0 (mod d) a zero border and captures slot m's
+// final values into t.out row m (7 ints a row).
 template <bool SUB, bool RTL, bool CLOCK, bool BITS = false,
-          bool STRIP_WORDS = false>
+          bool STRIP_WORDS = false, bool CHAIN = false>
 __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
                                             int4* stage, const int* sub,
                                             const StepScoring& s,
-                                            const Charges& K, int chunk) {
+                                            const Charges& K, int chunk,
+                                            int d = 0) {
   constexpr int R = kStrip;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int tb = t.tb, tc = t.tc, la = t.la, nq = la + tb + tc;
@@ -261,6 +278,10 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
   // The register's range, as wrap_bits takes it (BITS only).
   const int half = BITS ? 1 << (s.score_bits - 1) : 0;
   const int low = BITS ? (1 << s.score_bits) - 1 : 0;
+  // Chain borders: (q - jl - k0) mod d at plane q, from plane 1.
+  const bool wide = d > R;
+  int imod = 0;
+  if constexpr (CHAIN) imod = ((1 - jl - k0) % d + d) % d;
 
   // Partials by column (0: the boundary column) and age: own row's Ix (x),
   // Iz (z), Ixz (xz); the row above's Iy (y), Ixy (xy), Iyz (yz), M (m).
@@ -394,7 +415,18 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
       // compiler moves no memory access across the warp barrier.
       __syncwarp();
       const bool ramp = q <= 32 + k0 + R;
-      const bool capture = t.target && q == la + t.jlstar + t.klstar;
+      // Whether plane q holds a final cell at (jl*, kl*): i = |A| there, or
+      // in chain mode i = m * d + d - 1, slot m's, whose values go to out
+      // row m.
+      bool capture;
+      int* out = t.out;
+      if constexpr (CHAIN) {
+        const int ifin = q - t.jlstar - t.klstar;
+        capture = t.target && ifin >= 1 && ifin <= la && (ifin + 1) % d == 0;
+        if (capture) out += ((ifin + 1) / d - 1) * kNumMatrices;
+      } else {
+        capture = t.target && q == la + t.jlstar + t.klstar;
+      }
 
 #pragma unroll
       for (int r = R; r >= 1; --r) {
@@ -435,6 +467,14 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
 #pragma unroll
           for (int m = 0; m < kNumMatrices; ++m) v[m] = 0;
         }
+        if constexpr (CHAIN) {
+          int im = imod - r;
+          im = wide ? (im < 0 ? im + d : im) : (i % d + d) % d;
+          if (im == 0) {
+#pragma unroll
+            for (int m = 0; m < kNumMatrices; ++m) v[m] = 0;
+          }
+        }
         if (jl == tb) {
           int4* b = brow + ((q - q0) * R + r - 1) * 2;
           b[0] = make_int4(v[0], v[1], v[2], v[3]);
@@ -447,7 +487,7 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
         }
         if (capture && jl == t.jlstar && k == t.klstar) {
 #pragma unroll
-          for (int m = 0; m < kNumMatrices; ++m) t.out[m] = v[m];
+          for (int m = 0; m < kNumMatrices; ++m) out[m] = v[m];
         }
         int p[kNumMatrices];
         cell_partials(v, K, p);
@@ -503,6 +543,7 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
         }
       }
       cur = cur + 1 == D ? 0 : cur + 1;
+      if constexpr (CHAIN) imod = imod + 1 == d ? 0 : imod + 1;
     }
 
     phases.mark(2);

@@ -1,7 +1,9 @@
 // The two schedules of a tile pillar: launch order, or per-plane readiness.
 //
-// K3 (csrc/blocked.cu through csrc/pillar.cuh) and K5 (csrc/slab.cu) sweep
-// tiles of tb x tc cells through local planes q.  A tile reads row q of its
+// K5 (csrc/slab.cu) and the shared-memory pillar of the earlier designs
+// (csrc/pillar.cuh) sweep tiles of tb x tc cells through local planes q;
+// the register step of K2, K3 and K4 (csrc/pillar_warp.cuh) follows the
+// same rule with PlaneWait's await and release store.  A tile reads row q of its
 // row-face slab at plane q, which its upper neighbour (jb - 1, kb) wrote at
 // its plane q + tb, and row q of its column-face slab, which its left
 // neighbour (jb, kb - 1) wrote at its plane q + tc.  A tile's sweep of its

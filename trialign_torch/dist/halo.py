@@ -57,10 +57,12 @@ from trialign_torch.config import NUM_MATRICES, Scoring
 from trialign_torch.dist import mesh as dmesh
 from trialign_torch.kernels import blocked as bk
 
-# The persistent schedule's tile-plane step on a full card: K3 swept 1024^3
-# (1024 tiles of 1088 planes) in 23.16703987121582 ms with RESIDENT blocks
-# at once (PERF.md section 6, chip_smoke.py timings, NVIDIA H100 80GB HBM3
-# at 700 W).
+# The persistent schedule's tile-plane step on a full card: K3 on the
+# shared-memory pillar (its earlier design, whose step K5's pillar shares)
+# swept 1024^3 (1024 tiles of 1088 planes) in 23.16703987121582 ms with
+# RESIDENT blocks at once (PERF.md section 6, chip_smoke.py timings, NVIDIA
+# H100 80GB HBM3 at 700 W).  K3 on the register step sweeps it in 12.29 ms:
+# the stripes of K3 and of K5 share this model (PERF.md section 7).
 RESIDENT = 264  # two 512-thread blocks of the 33 x 33 plane on each of 132 SMs
 STEP_S = 23.16703987121582e-3 * RESIDENT / (1024 * 1088)
 # Planes a tile trails its upper or left neighbour: fitted to K3 at 512^3
@@ -166,7 +168,7 @@ def halo_efficiency(la: int, lb: int, lc: int, ndev: int,
                     for ov in (True, False)),
                    key=lambda e: e["total"])
     hb, wc = block_shape or choose_halo_shape(la, lb, lc, ndev)
-    dims = bk.plan_dims(max(la, 1), max(lb, 1), max(lc, 1), hb, wc)
+    dims = bk.grid_dims(max(la, 1), max(lb, 1), max(lc, 1), hb, wc)
     n_jb, n_kb, nq = dims.n_jb, dims.n_kb, dims.nq
     face_s = dims.nrows * NUM_MATRICES * hb * 4 / (copy_bytes_per_s or
                                                    FACE_COPY_BYTES_PER_S)

@@ -4,7 +4,7 @@ Run one of these per rank, all with the same arguments but the rank::
 
     python -m trialign_torch.dist.worker tcp://localhost:PORT NPROCS RANK \\
         [--device cuda|cpu] [--slots 2] [--halo 8,30,508] \\
-        [--block 16,128] [--single-cells 3000]
+        [--block 17,33] [--single-cells 3000]
 
 Every process joins a ``gloo`` process group (``dist.mesh.init_distributed``)
 and, on a mesh of ``--slots`` slots of ``--device`` a process (the card by
@@ -61,8 +61,9 @@ def main(argv=None) -> int:
                     help="mesh slots a process, all on its one device")
     ap.add_argument("--halo", type=_ints, default=(8, 30, 508),
                     help="lengths of the striped triplet")
-    ap.add_argument("--block", type=_ints, default=(16, 128),
-                    help="tile plane (hb, wc) of the stripes")
+    ap.add_argument("--block", type=_ints, default=(17, 33),
+                    help="tile plane (hb, wc) of the stripes, at most "
+                    "33,33 (one sub-tile of K3's register step)")
     ap.add_argument("--single-cells", type=int, default=3000,
                     help="nodes up to this many cells go to one device")
     args = ap.parse_args(argv)

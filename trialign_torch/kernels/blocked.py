@@ -28,8 +28,17 @@ for any run of the table, so that a sweep may stop and resume between any
 two tiles; :func:`sweep_run` for any list of tiles whose neighbours come
 first, such as a band of a stripe's rows).  A neighbour outside the run was
 swept by an earlier launch and counts as finished.  All give the same
-state.  :func:`sweep_diagonals` keeps the per-tile form's earlier design,
-one launch a run of one anti-diagonal, for ``chip_smoke.py`` to compare.
+state.  The tile step is the register step of K4 and K2
+(``csrc/pillar_warp.cuh``): a warp a strip of four tile columns, a lane a
+tile row, the cells in registers; a tile is one sub-tile of that step, at
+most 32 x 32 cells (:func:`plan_dims` refuses a larger tile plane).
+:func:`schedule` gives each strip a
+progress word of its own where the launch is bound by its ramp, and the
+tile one where it is bound by the step rate.  :func:`sweep_diagonals`
+keeps the per-tile form's earlier design, one launch a run of one
+anti-diagonal, and :func:`final_values_earlier` /
+:func:`chain_values_earlier` the persistent sweep's, on the shared-memory
+pillar, for ``chip_smoke.py`` to compare.
 
 Chain mode (:func:`plan_dims_packed`): ``npack`` problems of equal |A|
 stacked along i at pitch d = |A| + 1, sharing B and C, swept as one problem
@@ -44,6 +53,7 @@ same tile table, face layout and state, in the run's order.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,16 +69,48 @@ from trialign_torch.kernels.ref import (
 )
 from trialign_torch.metrics import span
 
-# Default tile plane (hb, wc) = (tb + 1, tc + 1) and threads per tile: the
-# fastest of chip_smoke.py's "tuning" candidates at 1024^3 on the H100
-# (PERF.md).
+# Default tile plane (hb, wc) = (tb + 1, tc + 1): the fastest of
+# chip_smoke.py's "tuning" candidates at 1024^3 on the H100 (PERF.md), one
+# sub-tile of the register step.
 DEF_HB, DEF_WC = 33, 33
-THREADS = 512
-# Local planes a tile of the persistent sweeps (K3 and K5) sweeps between two
-# handshakes with its neighbours (chip_smoke.py "tuning", PERF.md).
+# The register step (csrc/pillar_warp.cuh): columns a lane owns (the strip;
+# kStrip), rows and strips of a sub-tile (a lane a row, at most 8 warps a
+# block; kSubRows, kMaxStrips), rows of a ring between strips (kRingRows)
+# and the longest chunk its rings take (kMaxChunk).
+STRIP = 4
+SUB_ROWS = 32
+MAX_STRIPS = 8
+RING_ROWS = 33
+MAX_CHUNK = 8
+# Local planes a tile of K5's persistent sweeps (and of K3's at the caller's
+# request) sweeps between two handshakes with its neighbours (chip_smoke.py
+# "tuning", PERF.md).
 CHUNK = 8
+# K3's schedule by its waves: the launch's tiles over the blocks the card
+# holds at once (timed in turns at 448^3 .. 1536^3 on the 33 x 33 plane,
+# H100 80GB HBM3 at 700 W; PERF.md section 6).  Up to RAMP_WAVES waves a
+# sweep is bound by its ramp, each tile diagonal's lag behind the one
+# before, which a progress word a strip (outside chain mode) and chunks of
+# 4 planes shorten: 4.45 ms against 4.73 with a word a tile at 512^3 (0.97
+# waves), 5.33 against 5.69 at 640^3 (1.52).  Past it the step rate binds,
+# and one word a tile and chunks of 6 planes spare each strip's fence a
+# chunk: 30.62 ms against 33.25 with a word a strip and 31.73 with chunks
+# of 4 at 1536^3 (8.73).
+RAMP_WAVES = 2
 # Shared memory one thread block may take on sm_90 (227 KB).
 SMEM_CAP = 232448
+# Threads a block of the earlier designs (sweep_diagonals, and
+# final_values_earlier's 512) on the shared-memory pillar.
+THREADS_EARLIER = 512
+
+
+def block_threads(wc: int) -> int:
+    """Threads of a K3 block at tile plane width ``wc``: a warp a strip of
+    STRIP columns, at most MAX_STRIPS (csrc/warp_sweep.cuh sweep_block)."""
+    return 32 * min(-(-(wc - 1) // STRIP), MAX_STRIPS)
+
+
+THREADS = block_threads(DEF_WC)
 
 
 class Dims(NamedTuple):
@@ -99,13 +141,17 @@ class BlockedState(NamedTuple):
 UNWRITTEN = 1 << 28
 
 
-def shared_bytes(hb: int, wc: int) -> int:
-    """Shared memory a tile's thread block takes under a submatrix, as
-    csrc/pillar.cuh pillar_shared_bytes counts it: 25 ring planes (3
-    generations of 7 matrices, 4 of max7), the tile's B and C symbols and
-    the 25 x 25 table, which match/mismatch scoring does not reserve.  A
-    tile plane is planned for the larger."""
-    return 4 * (25 * hb * wc + hb + wc + (_build.SUBMATRIX_NSYM_CAP + 1) ** 2)
+def shared_bytes(hb: int, wc: int, chunk: int = CHUNK) -> int:
+    """Shared memory a K3 block takes under a submatrix, as
+    csrc/pillar_warp.cuh warp_pillar_shared_bytes counts it: the rings
+    between its W strips (2 * chunk + 1 planes of RING_ROWS int4), each
+    strip's halo-row and bottom-row buffers (chunk planes of 3 * STRIP + 1
+    int4) and the 25 x 25 table, which match/mismatch scoring does not
+    reserve."""
+    strips = block_threads(wc) // 32
+    return 16 * ((strips - 1) * (2 * chunk + 1) * RING_ROWS +
+                 strips * chunk * (3 * STRIP + 1)) + \
+        4 * (_build.SUBMATRIX_NSYM_CAP + 1) ** 2
 
 
 def choose_block_shape(la: int, lb: int, lc: int) -> Tuple[int, int]:
@@ -115,26 +161,28 @@ def choose_block_shape(la: int, lb: int, lc: int) -> Tuple[int, int]:
     return DEF_HB, DEF_WC
 
 
-def _check_tile(hb: int, wc: int) -> None:
+def grid_dims(la: int, lb: int, lc: int, hb: int, wc: int) -> Dims:
+    """The tile grid of |A|, |B|, |C| >= 1 at tile plane (hb, wc), as K3,
+    K4 and K5 lay it out; raises ValueError for a plane without a cell."""
     if hb < 2 or wc < 2:
         raise ValueError(f"tile plane {hb}x{wc} needs at least one cell")
-    if shared_bytes(hb, wc) > SMEM_CAP:
-        raise ValueError(
-            f"tile plane {hb}x{wc} needs {shared_bytes(hb, wc)} bytes of "
-            f"shared memory; a block has {SMEM_CAP}"
-        )
-
-
-def plan_dims(la: int, lb: int, lc: int, hb: int = DEF_HB,
-              wc: int = DEF_WC) -> Dims:
-    """Geometry for a blocked sweep of |A|, |B|, |C| >= 1 at tile plane
-    (hb, wc); raises ValueError for a tile the card cannot hold."""
-    _check_tile(hb, wc)
     tb, tc = hb - 1, wc - 1
     n_jb = max(1, -(-lb // tb))
     n_kb = max(1, -(-lc // tc))
     nq = la + tb + tc
     return Dims(hb, wc, n_jb, n_kb, nq, nq + 1)
+
+
+def plan_dims(la: int, lb: int, lc: int, hb: int = DEF_HB,
+              wc: int = DEF_WC) -> Dims:
+    """Geometry for a blocked sweep (K3) of |A|, |B|, |C| >= 1 at tile
+    plane (hb, wc): :func:`grid_dims`, and ValueError for a plane past one
+    sub-tile of the register step (33 x 33), which K3 does not take."""
+    if hb - 1 > SUB_ROWS or wc - 1 > STRIP * MAX_STRIPS:
+        raise ValueError(
+            f"tile plane {hb}x{wc} is past one sub-tile of the register "
+            f"step: K3 takes at most {SUB_ROWS + 1}x{STRIP * MAX_STRIPS + 1}")
+    return grid_dims(la, lb, lc, hb, wc)
 
 
 def plan_dims_packed(la: int, lb: int, lc: int, npack: int,
@@ -449,11 +497,51 @@ def check_schedule(chunk: int, blocks: Optional[int]) -> None:
         raise ValueError(f"blocks must be >= 1 or None, not {blocks}")
 
 
+class Schedule(NamedTuple):
+    """How one persistent launch of K3 runs: a progress word a strip or one
+    a tile, and the planes between two handshakes."""
+
+    strip_words: bool
+    chunk: int
+
+
+def schedule(dims: Dims, ntiles: int, resident: int) -> Schedule:
+    """K3's schedule for a launch of ``ntiles`` tiles at ``dims``'s tile
+    plane when the card holds ``resident`` of its blocks at once (see
+    RAMP_WAVES)."""
+    if ntiles / resident <= RAMP_WAVES:
+        return Schedule(not dims.d, 4)
+    return Schedule(False, 6)
+
+
+def resident_blocks(dims: Dims) -> int:
+    """Blocks of K3's sweep at ``dims``'s tile plane that the current card
+    holds at once."""
+    return _resident(torch.cuda.current_device(), dims.hb, dims.wc,
+                     bool(dims.d))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device: int, hb: int, wc: int, chain: bool) -> int:
+    """:func:`resident_blocks`, asked once a card, tile plane and mode."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * blocks_per_sm(plan_dims_packed(1, 1, 1, 2, hb, wc) if chain
+                               else plan_dims(1, 1, 1, hb, wc))
+
+
+def _check_step(chunk: int, blocks: Optional[int]) -> None:
+    """:func:`check_schedule`, and the register step's longest chunk."""
+    check_schedule(chunk, blocks)
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"K3 takes chunks of at most {MAX_CHUNK} planes, "
+                         f"not {chunk}")
+
+
 class Work(NamedTuple):
     """What one persistent launch of K3 or K5 reads beside the sweep, in one
     int32 tensor on the device: the run's table (:data:`RUN_FIELDS` rows;
-    none for the whole grid), the hand-out counter (0) and one progress word
-    a tile (-1)."""
+    none for the whole grid), the hand-out counter (0) and ``words``
+    progress words a tile (-1): K3's one a strip, K5's one."""
 
     buf: torch.Tensor
     run: Optional[int]  # address of the table, None for the whole grid
@@ -462,13 +550,16 @@ class Work(NamedTuple):
     done: int           # address of the progress words
 
 
-def launch_work(dims: Dims, table: Optional[np.ndarray], device) -> Work:
+def launch_work(dims: Dims, table: Optional[np.ndarray], device,
+                words: int = 1) -> Work:
     """The :class:`Work` of a launch over a run's ``table`` (None: the whole
-    grid), copied to ``device`` from pinned memory on the current stream, so
-    that the host never waits for the card."""
+    grid) with ``words`` progress words a tile, copied to ``device`` from
+    pinned memory on the current stream, so that the host never waits for
+    the card."""
     n = n_tiles(dims) if table is None else len(table)
     rows = 0 if table is None else table.size
-    host = torch.empty(rows + 1 + n, dtype=torch.int32, pin_memory=True)
+    host = torch.empty(rows + 1 + n * words, dtype=torch.int32,
+                       pin_memory=True)
     h = host.numpy()
     if table is not None:
         h[:rows] = table.reshape(-1)
@@ -481,12 +572,12 @@ def launch_work(dims: Dims, table: Optional[np.ndarray], device) -> Work:
 
 
 def _persistent(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, state,
-                tiles, scoring, score_bits, threads, chunk,
-                blocks) -> BlockedState:
+                tiles, scoring, score_bits, chunk, blocks) -> BlockedState:
     """``tiles`` (None: the whole table) on ``state``: blocked_ref on a CPU
-    tensor; on a CUDA tensor one persistent launch of K3, counted on
-    ``counter``, which raises if refused and never falls back."""
-    check_schedule(chunk, blocks)
+    tensor; on a CUDA tensor one persistent launch of K3 on its
+    :func:`schedule` (``chunk``, where given, in place of the schedule's),
+    counted on ``counter``, which raises if refused and never falls back."""
+    _check_step(1 if chunk is None else chunk, blocks)
     dev = a_ext.device
     _check_state(state, dims, dev)
     run = None if tiles is None else run_table(dims, tiles)
@@ -502,14 +593,18 @@ def _persistent(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, state,
         with span("k3.pack"):
             lib = _build.load("blocked")
             step, table = _build.kernel_scoring(scoring, score_bits, dev)
-            work = launch_work(dims, run, dev)
+            work = launch_work(dims, run, dev, MAX_STRIPS)
+            resident = resident_blocks(dims)
+            plan = schedule(dims, work.ntiles, min(resident, blocks or
+                                                   resident))
         with span("k3.launch"):
             code = lib.trialign_blocked_sweep(
                 a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
                 _geom(lb, lc, dims), work.run, work.ntiles, table.data_ptr(),
                 step, state.rf.data_ptr(), state.cf.data_ptr(),
-                state.out.data_ptr(), threads, chunk, blocks or 0,
-                work.next_tile, work.done,
+                state.out.data_ptr(), plan.chunk if chunk is None else chunk,
+                blocks or 0, work.next_tile, work.done,
+                int(plan.strip_words),
                 torch.cuda.current_stream().cuda_stream,
             )
         _build.check(lib, code, "blocked kernel launch (persistent sweep)")
@@ -517,21 +612,42 @@ def _persistent(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, state,
     return state
 
 
-def blocks_per_sm(dims: Dims, threads: int = THREADS) -> int:
-    """Thread blocks of K3's persistent sweep that one SM of the current
-    card holds at ``dims``'s tile plane (the grid is that times the SMs)."""
+def _mode(scoring: Scoring, score_bits: int) -> int:
+    """csrc/blocked.cu's step mode: bit 0 rtl, bit 1 a submatrix, bit 2
+    score_bits."""
+    return (int(scoring.s3_mode == "rtl") |
+            2 * int(scoring.submatrix is not None) | 4 * int(bool(score_bits)))
+
+
+def step_resources(dims: Dims, scoring: Scoring = Scoring(),
+                   score_bits: int = 0, chunk: int = CHUNK,
+                   strip_words: bool = False) -> dict:
+    """What K3's persistent kernel of this scoring mode (chain mode where
+    ``dims`` is a chain's; a word a strip if ``strip_words``) takes on the
+    current card at ``dims``'s tile plane: registers a thread, local-memory
+    (spill) bytes a thread, threads and shared bytes a block, and blocks an
+    SM."""
+    _check_step(chunk, None)
     lib = _build.load("blocked")
-    per_sm = ctypes.c_int(0)
-    _build.check(lib, lib.trialign_blocked_blocks_per_sm(
-        dims.hb, dims.wc, threads, int(bool(dims.d)), ctypes.byref(per_sm)),
-        "blocked occupancy query")
-    return per_sm.value
+    vals = (ctypes.c_int * 5)()
+    _build.check(lib, lib.trialign_blocked_resources(
+        dims.hb, dims.wc, chunk, _mode(scoring, score_bits), int(bool(dims.d)),
+        int(strip_words), vals), "blocked resource query")
+    return dict(zip(("registers", "local_bytes", "threads", "shared_bytes",
+                     "blocks_per_sm"), list(vals)))
+
+
+def blocks_per_sm(dims: Dims) -> int:
+    """Thread blocks of K3's persistent sweep that one SM of the current
+    card holds at ``dims``'s tile plane under match/mismatch scoring (the
+    grid is that times the SMs)."""
+    return step_resources(dims)["blocks_per_sm"]
 
 
 def sweep_tiles(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                 state: BlockedState, idx0: int, count: int,
                 scoring: Scoring = Scoring(), score_bits: int = 0,
-                threads: int = THREADS, chunk: int = CHUNK,
+                chunk: Optional[int] = None,
                 blocks: Optional[int] = None) -> BlockedState:
     """The per-tile form (blocked.py make_block_call): runs tiles idx0 ..
     idx0 + count - 1 of :func:`tile_table` on ``state`` in place and returns
@@ -542,13 +658,13 @@ def sweep_tiles(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
     waits for the card."""
     return sweep_run(a_ext, b_ext, c_ext, la, lb, lc, dims, state,
                      table_run(dims, idx0, count), scoring, score_bits,
-                     threads, chunk, blocks)
+                     chunk, blocks)
 
 
 def sweep_run(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
               state: BlockedState, tiles: Sequence[Tuple[int, int]],
               scoring: Scoring = Scoring(), score_bits: int = 0,
-              threads: int = THREADS, chunk: int = CHUNK,
+              chunk: Optional[int] = None,
               blocks: Optional[int] = None) -> BlockedState:
     """The per-tile form over the list ``tiles`` of (jb, kb): each tile's
     neighbours in the list come before it (ValueError otherwise), and every
@@ -561,14 +677,13 @@ def sweep_run(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
     nothing."""
     _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
     return _persistent(sweep_tiles, a_ext, b_ext, c_ext, la, lb, lc, dims,
-                       state, list(tiles), scoring, score_bits, threads,
-                       chunk, blocks)
+                       state, list(tiles), scoring, score_bits, chunk, blocks)
 
 
 def sweep_diagonals(a_ext, b_ext, c_ext, la: int, lb: int, lc: int,
                     dims: Dims, state: BlockedState, idx0: int, count: int,
                     scoring: Scoring = Scoring(), score_bits: int = 0,
-                    threads: int = THREADS) -> BlockedState:
+                    threads: int = THREADS_EARLIER) -> BlockedState:
     """K3's per-tile form as it was, on a CUDA tensor: one launch a run of
     one tile anti-diagonal, a thread block a tile, stream order carrying the
     faces (``csrc/blocked.cu`` blocked_kernel).  The same state as
@@ -600,27 +715,27 @@ def sweep_diagonals(a_ext, b_ext, c_ext, la: int, lb: int, lc: int,
 
 def final_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                  scoring: Scoring = Scoring(), score_bits: int = 0,
-                 threads: int = THREADS, chunk: int = CHUNK,
+                 chunk: Optional[int] = None,
                  blocks: Optional[int] = None) -> torch.Tensor:
     """The seven final-cell values (int32, (7,)) of one problem with
     |A|, |B|, |C| >= 1, from the arrays of :func:`prep_blocked`.  On a CPU
     tensor this is :func:`blocked_ref`; on a CUDA tensor it is one persistent
-    launch of K3 (tiles advance ``chunk`` planes at a time; ``blocks`` caps
-    the grid, the SMs' occupancy by default) and never falls back.  Nothing
-    waits for the card."""
+    launch of K3 on its :func:`schedule` (tiles advance ``chunk`` planes at
+    a time where given, at most ``MAX_CHUNK``; ``blocks`` caps the grid, the
+    SMs' occupancy by default) and never falls back.  Nothing waits for the
+    card."""
     _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
     if dims.d:
         raise ValueError("chain dims: use chain_values")
     with span("k3.pack"):
         state = new_state(dims, a_ext.device)
     return _persistent(final_values, a_ext, b_ext, c_ext, la, lb, lc, dims,
-                       state, None, scoring, score_bits, threads, chunk,
-                       blocks).out[0]
+                       state, None, scoring, score_bits, chunk, blocks).out[0]
 
 
 def chain_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                  scoring: Scoring = Scoring(), score_bits: int = 0,
-                 threads: int = THREADS, chunk: int = CHUNK,
+                 chunk: Optional[int] = None,
                  blocks: Optional[int] = None) -> torch.Tensor:
     """Chain mode: the seven final values of every slot, (npack, 7) int32,
     from the arrays of :func:`prep_chain` under
@@ -633,17 +748,72 @@ def chain_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
         raise ValueError("chain_values needs plan_dims_packed's dims")
     return _persistent(chain_values, a_ext, b_ext, c_ext, la, lb, lc, dims,
                        new_state(dims, a_ext.device), None, scoring,
-                       score_bits, threads, chunk, blocks).out
+                       score_bits, chunk, blocks).out
+
+
+def _earlier(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, scoring,
+             score_bits, chunk, blocks) -> BlockedState:
+    """The whole grid on a fresh state, one launch of K3's persistent sweep
+    as it was (``csrc/blocked.cu`` pillar_sweep), counted on ``counter``."""
+    _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
+    check_schedule(chunk, blocks)
+    dev = a_ext.device
+    if dev.type != "cuda":
+        raise ValueError("the earlier design runs on a CUDA device")
+    state = new_state(dims, dev)
+    with torch.cuda.device(dev):
+        lib = _build.load("blocked")
+        step, table = _build.kernel_scoring(scoring, score_bits, dev)
+        work = launch_work(dims, None, dev)
+        code = lib.trialign_blocked_sweep_earlier(
+            a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
+            _geom(lb, lc, dims), work.run, work.ntiles, table.data_ptr(),
+            step, state.rf.data_ptr(), state.cf.data_ptr(),
+            state.out.data_ptr(), chunk, blocks or 0, work.next_tile,
+            work.done, torch.cuda.current_stream().cuda_stream,
+        )
+        _build.check(lib, code, "blocked kernel launch (earlier design)")
+        counter.launches += 1
+    return state
+
+
+def final_values_earlier(a_ext, b_ext, c_ext, la: int, lb: int, lc: int,
+                         dims: Dims, scoring: Scoring = Scoring(),
+                         score_bits: int = 0, chunk: int = CHUNK,
+                         blocks: Optional[int] = None) -> torch.Tensor:
+    """:func:`final_values` on K3's persistent sweep as it was, on a CUDA
+    tensor: the shared-memory pillar (``csrc/pillar.cuh``), 512 threads a
+    tile, one progress word a tile, any chunk.  ``chip_smoke.py`` and the
+    cuda tests hold the two equal and time them in turns; no entry point of
+    the package calls it."""
+    if dims.d:
+        raise ValueError("chain dims: use chain_values_earlier")
+    return _earlier(final_values_earlier, a_ext, b_ext, c_ext, la, lb, lc,
+                    dims, scoring, score_bits, chunk, blocks).out[0]
+
+
+def chain_values_earlier(a_ext, b_ext, c_ext, la: int, lb: int, lc: int,
+                         dims: Dims, scoring: Scoring = Scoring(),
+                         score_bits: int = 0, chunk: int = CHUNK,
+                         blocks: Optional[int] = None) -> torch.Tensor:
+    """:func:`chain_values` on K3's persistent sweep as it was
+    (:func:`final_values_earlier`)."""
+    if not dims.d:
+        raise ValueError("chain_values_earlier needs plan_dims_packed's dims")
+    return _earlier(final_values_earlier, a_ext, b_ext, c_ext, la, lb, lc,
+                    dims, scoring, score_bits, chunk, blocks).out
 
 
 # Launches of the CUDA kernel since the count was last set to 0, for each
 # entry point: the whole-grid sweep (final_values), the per-tile form
-# (sweep_tiles and sweep_run), chain mode (chain_values) and the per-tile
-# form's earlier design (sweep_diagonals).
+# (sweep_tiles and sweep_run), chain mode (chain_values), the per-tile
+# form's earlier design (sweep_diagonals) and the persistent sweep's
+# (final_values_earlier, chain_values_earlier).
 final_values.launches = 0
 sweep_tiles.launches = 0
 chain_values.launches = 0
 sweep_diagonals.launches = 0
+final_values_earlier.launches = 0
 
 
 def align_blocked_async(a, b, c, scoring: Scoring = Scoring(),

@@ -60,18 +60,17 @@ _G = {name: col for col, name in enumerate(GEOM_FIELDS)}
 # problem, the tile (jb, kb), and the entries of its upper (jb - 1, kb) and
 # left (jb, kb - 1) neighbours, -1 where it has none.
 TABLE_FIELDS = ("problem", "jb", "kb", "up", "left")
-# The register step (csrc/pillar_warp.cuh): columns a lane owns (the strip,
-# R; kStrip), rows and strips of a sub-tile (a lane a row, at most 8 warps a
-# block; kSubRows, kMaxStrips), and planes between two handshakes of a tile
-# with its neighbours and of a strip with the next (the chunk; the default
-# from chip_smoke.py "tuning", PERF.md).
-STRIP = 4
-SUB_ROWS = 32
-MAX_STRIPS = 8
+# The register step (csrc/pillar_warp.cuh), which K3 shares: columns a lane
+# owns (the strip, R; kStrip), rows and strips of a sub-tile (a lane a row,
+# at most 8 warps a block; kSubRows, kMaxStrips), and the longest chunk its
+# rings take (2 * chunk + 1 planes in shared memory; kMaxChunk; a longer one
+# is refused).
+STRIP, SUB_ROWS, MAX_STRIPS = bk.STRIP, bk.SUB_ROWS, bk.MAX_STRIPS
+MAX_CHUNK = bk.MAX_CHUNK
+# Planes between two handshakes of a tile with its neighbours and of a strip
+# with the next (the chunk; the default from chip_smoke.py "tuning",
+# PERF.md).
 CHUNK = 8
-# The longest chunk the register step takes: its rings hold 2 * chunk + 1
-# planes in shared memory (kMaxChunk).  A longer one is refused.
-MAX_CHUNK = 8
 # Share of the card's free memory that one dispatch's face slabs may take.
 BUDGET_SHARE = 0.5
 
@@ -109,15 +108,15 @@ class HeteroState(NamedTuple):
 
 
 def _grid(lens: np.ndarray, hb: int, wc: int):
-    """:func:`blocked.plan_dims` over (n, 3) lengths: which problems have
+    """:func:`blocked.grid_dims` over (n, 3) lengths: which problems have
     no empty sequence, and their n_jb, n_kb and nrows (0 for the others).
-    Raises plan_dims' ValueError for a tile plane the card cannot hold
-    where a problem has tiles."""
+    Raises grid_dims' ValueError for a tile plane without a cell where a
+    problem has tiles."""
     live = lens.min(axis=1) > 0
     if not live.any():
         zero = np.zeros(len(lens), np.int64)
         return live, zero, zero, zero
-    bk.plan_dims(1, 1, 1, hb, wc)
+    bk.grid_dims(1, 1, 1, hb, wc)
     tb, tc = hb - 1, wc - 1
     n_jb = np.maximum(1, -(-lens[:, 1] // tb)) * live
     n_kb = np.maximum(1, -(-lens[:, 2] // tc)) * live
@@ -180,7 +179,7 @@ def prep_hetero(triplets: Sequence, hb: int, wc: int, device) -> HeteroBatch:
     buffer; torch does not hand the pinned block out again before that copy
     has run, so dispatches in flight on other streams are safe."""
     with span("k4.pack"):
-        bk.plan_dims(1, 1, 1, hb, wc)
+        bk.grid_dims(1, 1, 1, hb, wc)
         tb, tc = hb - 1, wc - 1
         n = len(triplets)
         seqs = list(itertools.chain.from_iterable(triplets))

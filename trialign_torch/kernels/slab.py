@@ -84,7 +84,7 @@ def _plan(la: int, lb: int, lc: int,
             f"slab tile plane {hb}x{wc} needs {shared_bytes(hb, wc)} bytes "
             f"of shared memory; a block has {bk.SMEM_CAP}"
         )
-    return bk.plan_dims(la, lb, lc, hb, wc)
+    return bk.grid_dims(la, lb, lc, hb, wc)
 
 
 def _scal_table(la: int, lb: int, lc: int, ev, dims: Dims) -> np.ndarray:
@@ -326,7 +326,7 @@ def _check(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
         raise ValueError(f"variant must be one of {tuple(variants)}")
     if min(la, lb, lc) < least or la + lb + lc < 1:
         raise ValueError(f"the slab sweep needs |A|, |B|, |C| >= {least}")
-    if dims != bk.plan_dims(la, lb, lc, dims.hb, dims.wc):
+    if dims != bk.grid_dims(la, lb, lc, dims.hb, dims.wc):
         raise ValueError(f"dims {dims} were not planned for {la, lb, lc}")
     if shared_bytes(dims.hb, dims.wc) > bk.SMEM_CAP:
         raise ValueError(f"tile plane {dims.hb}x{dims.wc} is too large")
