@@ -15,9 +15,9 @@ per source, all at once) and prints one JSON line per phase:
    the register step) against its plain version (the torch sweep),
    exactly, all seven values: tiny, ragged and |A|-long shapes under five
    scorings and ``score_bits=12``, one launch over a batch of 3; then
-   4096 x 255 x 255 and a padded batch of 40 triplets against K2's earlier
-   design (one thread block a problem), exactly; every table up to
-   BLOSUM62's 24 symbols, sequences drawing codes past the table;
+   4096 x 255 x 255 and a padded batch of 40 triplets, one launch each;
+   every table up to BLOSUM62's 24 symbols, sequences drawing codes past
+   the table;
 3. ``blocked``: K3 against its plain versions (the tiled ``blocked_ref`` and
    the torch sweep), exactly, a 16S-length triplet in ``rrna16s.score``'s
    regime (a word a tile, chunks of 6) among them;
@@ -26,22 +26,25 @@ per source, all at once) and prints one JSON line per phase:
    variant, on multi-tile and ragged shapes and the default tile plane,
    under six scorings (a 16-symbol submatrix and BLOSUM62's 24 symbols
    among them);
-5. ``schedule``: the persistent sweeps of K3 (whole grid and chain mode)
-   and K5 (one launch a sweep, tiles started by per-plane readiness)
-   against the diagonal schedule (each per-tile form over the whole tile
-   table), exactly, at the occupancy's grid and capped at 1 and 3 blocks:
-   K3 at 512^3 on 10 inputs and at 1024^3, every slot of the 16 x 512^3
-   chain, K5 "free" and "bwd" (capture and final vector) on a multi-tile
-   shape under seven scorings and at the 2048^3 top split's shape; K4 (one
-   launch a dispatch, the register step) against its earlier design (one
-   launch a diagonal, the shared-memory pillar), the whole state, on ragged
-   dispatches under two scorings at one sub-tile and at tiles cut into
-   sub-tiles, and 16 of the batch's kind; the per-tile forms of K3 and K5
-   (one persistent launch a run) against their earlier design (one launch a
-   diagonal), the whole state: K3 at 1024^3 in quarters of the table and
-   in the bands of 2 stripes, K5 at the sharded 1024^3 traceback's top
-   split ("free" in quarters, "bwd" in bands), and K5 every variant under
-   seven scorings in the bands of 3 stripes; K4's registers, spills and blocks an SM;
+5. ``schedule``: the persistent sweeps (one launch a sweep, tiles started
+   by per-plane readiness) against their plain versions on the card,
+   exactly, at the occupancy's grid and capped at 1 and 3 blocks: K3 at
+   512^3 on 10 inputs and at 1024^3 and every slot of the 16 x 512^3 chain
+   (all seven values against the torch sweep); K5 "free" and "bwd" on a
+   multi-tile shape under seven scorings (capture and final vector against
+   ``slab_ref``) and at the 2048^3 top split's shape (the assembled slab
+   and final vector against the torch engine); K4 (one launch a dispatch)
+   against ``hetero_ref``, the whole state, on ragged dispatches under two
+   scorings at one sub-tile and at tiles cut into sub-tiles, and on 16 of
+   the batch's kind (every problem's seven values against the torch sweep,
+   every entry's progress word); the per-tile forms of K3 and K5 (one
+   persistent launch a run): K3 at 1024^3 in quarters of the table and in
+   the bands of 2 stripes against the torch sweep, K5 at the sharded
+   1024^3 traceback's top split ("free" in quarters, "bwd" in bands)
+   against the torch engine, and the whole state against ``blocked_ref``
+   and ``slab_ref`` over the whole table on a small multi-tile shape (K3 in
+   quarters and bands, K5 every variant under seven scorings in the bands
+   of 3 stripes); K4's registers, spills and blocks an SM;
 6. ``hetero``: K4 against its plain version ``hetero_ref``, exactly: the
    final vector of every problem of ragged batches (a 1 x 1-tile problem,
    an empty sequence, one batch cut into several dispatches) at 9 x 17
@@ -70,8 +73,8 @@ per source, all at once) and prints one JSON line per phase:
    a spy holds that the torch choice sweep never ran;
 10. ``batch``: ``trialign_torch.align_batch`` on 1024 triplets with every
     length uniform in [128, 512] (K4, one launch; seconds, GCUPS and
-    triplets/s, best of 3 after a warm-up, in turns with K4's earlier
-    design; the card's busy share under ``torch.profiler``), 64 of its
+    triplets/s, best of 3 after a warm-up; the card's busy share under
+    ``torch.profiler``), 64 of its
     scores against ``align()`` and 8 against the C++ oracle; a 48-triplet
     batch (one K2 launch and K3) against ``align()``; 16 alignments that
     rescore exactly; then ``protfam_batch``: one batch of the benchmark's
@@ -95,8 +98,7 @@ per source, all at once) and prints one JSON line per phase:
     ``align_batch_resilient`` on 256 of the batch's triplets in dispatches
     of 64 with a failure after the second drain (only the unscored 128
     dispatched again, scores equal to the batch's); the per-tile form's
-    time on a 192^3 sample in turns with its earlier design, beside
-    ``blocked_ref``'s;
+    time on a 192^3 sample beside ``blocked_ref``'s;
 13. ``chain``: K3's chain mode against ``blocked_ref`` on multi-tile shapes
     (9 x 17 and 33 x 33 tiles, 1 to 5 slots, five scorings, and
     ``score_bits=12``); then the bench's chains, 16 slots of 512^3 and 8 of
@@ -108,10 +110,9 @@ per source, all at once) and prints one JSON line per phase:
     band: K3's per-tile form in 2 and 3 stripes with uneven columns, in the
     model's bands and in bands of 1 and 2 rows, against ``blocked_ref``
     (the whole state); the main path's 1024^3 triplet in 1, 2 and 4
-    stripes under both schedules, all seven values equal to K3's whole-grid
-    sweep, launches one a band a stripe; ms in turns with the earlier
-    design (one launch a stripe and tile diagonal), beside K3's; the
-    measured face-copy rate and the model's time on separate cards;
+    stripes under both schedules, all seven values equal to the torch
+    sweep's, launches one a band a stripe; ms beside K3's whole-grid sweep;
+    the measured face-copy rate and the model's time on separate cards;
 15. ``halo_tb``: K5's per-tile form against ``slab_ref`` (capture and final
     vector) in runs that end mid-diagonal and in 2 and 3 stripes, every
     variant, default and 16-symbol scoring; ``hirschberg_align_sharded`` on
@@ -119,13 +120,12 @@ per source, all at once) and prints one JSON line per phase:
     splits on them, rescoring to the score path's score, one launch a band
     a stripe (seconds, split into the sweeps on the stripes and the rest);
     that run's top split (512 x 1024 x 1024, 2 stripes) against the torch
-    engine, capture and final vector exactly, and timed beside it and in
-    turns with the earlier design;
+    engine, capture and final vector exactly, and timed beside it;
 16. ``sharded_batch``: K4's per-tile form against ``hetero_ref`` in runs
     that end mid-diagonal under two scorings; ``align_batch_sharded`` on
     the 1024-triplet batch over 2 data slots sharing the card (one launch a
-    slot), equal to the batch phase's scores, in turns with K4's earlier
-    per-tile form; ``align_batch_resilient(mesh=...)`` in dispatches
+    slot), equal to the batch phase's scores;
+    ``align_batch_resilient(mesh=...)`` in dispatches
     of 64 with a failure as a slot packs its second (the dispatches swept
     by then drain; only the rest is dispatched again);
 17. ``cli``: ``python -m trialign_torch.cli`` in four subprocesses at once:
@@ -143,25 +143,21 @@ per source, all at once) and prints one JSON line per phase:
     spills; the persistent K3 at 1024^3 over
     three tile planes of one sub-tile and three chunks; K5 "free" at the
     2048^3 top split's shape over the chunks; K4 on the batch over its
-    chunks, beside its earlier design, and where its warps spend their
-    cycles;
+    chunks, and where its warps spend their cycles;
 20. ``timings``: each kernel (minimum over distinct inputs after a
     warm-up) beside its plain version (one run) at the main path's
-    sizes, and beside its bound; K2 at 64^3, 255^3 and 4096 x 255 x 255 in
-    turns with its earlier design (earlier, new, new, earlier), beside K3
-    on the same triplets; K3 at 512^3, 1024^3 and 1536^3 (all seven
-    values against the torch sweep), both bench chains
-    and K5 "free" and "bwd" at the split under both schedules in turns
-    (diagonal, persistent, persistent, diagonal); K5 against the torch
-    engine, exactly and
-    timed, at the shape the 2048^3 traceback gives it; K4 and its per-tile
-    form (one run, one diagonal a run, and runs of a quarter of the table)
+    sizes, and beside its bound; K2 at 64^3, 255^3 and 4096 x 255 x 255,
+    beside K3 on the same triplets; K3 at 512^3, 1024^3 and 1536^3 (all
+    seven values against the torch sweep), both bench chains and K5 "free"
+    and "bwd" at the split; K5 against the torch engine, exactly and timed,
+    at the shape the 2048^3 traceback gives it; K4 and its per-tile form
+    (one run, one diagonal a run, and runs of a quarter of the table)
     against hetero_ref, exactly and timed, on a dispatch of two of the
     1024-triplet batch's problems (its largest and its smallest), and both
-    at the whole batch, each in turns with K4's earlier design; K3's
-    per-tile form at 1024^3 in quarters in turns with its earlier design;
-    the 1024^3 halo in 2 stripes in bands of 1 to 32 rows, and in 4
-    stripes in bands of 16 and 32 rows in turns; K3's whole grid, its
+    at the whole batch (16 of its problems' seven values against the torch
+    sweep); K3's per-tile form at 1024^3 in quarters; the 1024^3 halo in
+    2 stripes in bands of 1 to 32 rows, and in 4 stripes in bands of 16
+    and 32 rows in turns; K3's whole grid, its
     quarters and the 2-stripe halo at 1024^3 with the grid capped at one
     block an SM, in turns with the occupancy's grid; the direct engine's
     choice kernel at 1024^3 beside its torch sweep, its walk kernel beside
@@ -286,7 +282,7 @@ TILES_SAMPLE = 192
 CHAIN_SAMPLE = (128, 4)
 # The bench's chains (bench.py stages chain_512 and chain_1k): (n, slots).
 CHAIN_BENCH = ((512, 16), (1024, 8))
-# K3's whole grid timed against its earlier design.
+# The sizes at which K3's whole grid is timed.
 K3_TIMED = (512, 1024, 1536)
 # HBM bytes a second of one H100 SXM (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -351,18 +347,12 @@ def smi(query: str) -> str:
 
 
 # Each kernel entry point's launch counter, by the name the summary gives it.
-# The earlier designs of the per-tile forms count apart, so that a main path
-# shows it never took them.
 COUNTERS = {"wavefront": wf.final_values,
-            "wavefront_earlier": wf.final_values_earlier,
             "blocked": bk.final_values,
             "blocked_tiles": bk.sweep_tiles, "blocked_chain": bk.chain_values,
             "hetero": hk.final_values, "hetero_tiles": hk.sweep_tiles,
             "slab": sk.slab_sweep, "slab_tiles": sk.sweep_tiles,
-            "vpu": vpu.vpu_chains, "blocked_diagonals": bk.sweep_diagonals,
-            "blocked_earlier": bk.final_values_earlier,
-            "slab_diagonals": sk.sweep_diagonals,
-            "hetero_diagonals": hk.sweep_diagonals,
+            "vpu": vpu.vpu_chains,
             "direct_choices": sk.choice_sweep, "direct_walk": direct.walk}
 
 
@@ -451,17 +441,24 @@ def phase_wavefront(rng) -> int:
         require(cpu_ints(got[p]) == cpu_ints(want), f"K2 batch item {p}")
     checked.append("batch of 3")
 
-    # Against the earlier design where the plain sweep would take seconds:
-    # the longest |A| at the widest plane, and a padded batch of 40.
-    for what, args in (
+    # The longest |A| at the widest plane, and a padded batch of 40, each
+    # in one launch: every problem's seven values against the torch sweep
+    # on the card.
+    for what, (a, b, c, lens) in (
             ("(4096, 255, 255)", wf.prep(*triplet(rng, (4096, 255, 255)),
                                          CUDA)),
             ("padded batch of 40", padded_args(padded_triplets(rng, 40)))):
-        got, want = wf.final_values(*args), wf.final_values_earlier(*args)
-        err = max(err, _diff(got, want))
-        require(torch.equal(got, want), f"K2 {what}: {cpu_ints(got)[:14]} "
-                f"!= earlier design {cpu_ints(want)[:14]}")
-        checked.append(f"{what}/earlier design")
+        before = wf.final_values.launches
+        got = wf.final_values(a, b, c, lens)
+        require(wf.final_values.launches == before + 1, f"K2 {what}: not 1 "
+                "launch")
+        for p, dims in enumerate(np.asarray(lens).tolist()):
+            want = ref.sweep(a[p], b[p], c[p], *dims) if min(dims) else \
+                torch.zeros(NUM_MATRICES, dtype=torch.int32, device=CUDA)
+            err = max(err, _diff(got[p], want))
+            require(torch.equal(got[p], want), f"K2 {what} item {p}: "
+                    f"{cpu_ints(got[p])} != torch sweep {cpu_ints(want)}")
+        checked.append(f"{what}/torch sweep")
     emit(phase="wavefront", cases=checked, max_abs_err=err)
     return err
 
@@ -554,6 +551,23 @@ def _diff(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
+def engine_k5(a, b, c, variant, ev, scoring):
+    """The torch engine's (final vector, or None for "bwd"; slab; device
+    ms) of K5's sweep of (a, b, c) as the kernel takes them (reversed for
+    "bwd"), on the card, in the kernel's orientation."""
+    if variant == "bwd":
+        ms, fin = event_ms(functools.partial(
+            torch_engine.backward_slab_torch_async, a[::-1].copy(),
+            b[::-1].copy(), c[::-1].copy(), scoring, end_v=ev, device=CUDA))
+        return None, torch.from_numpy(fin()).to(CUDA).flip(1, 2), ms
+    ms, fin = event_ms(functools.partial(
+        torch_engine.forward_sweep_torch_async, a, b, c, scoring,
+        mode=variant, v0=ev if variant == "pin" else None,
+        capture_m=len(a), device=CUDA))
+    f_e, s_e = fin()
+    return torch.from_numpy(f_e).to(CUDA), torch.from_numpy(s_e).to(CUDA), ms
+
+
 def slab_case(rng, shape, block_shape, name, variant, tiled_ref=True):
     """K5 against the torch engine (the assembled slab, and the final vector
     of a forward variant) and, if asked, against slab_ref (every capture
@@ -577,20 +591,10 @@ def slab_case(rng, shape, block_shape, name, variant, tiled_ref=True):
         pairs.append((cap_k, cap_r, "slab_ref capture"))
         if variant != "bwd":
             pairs.append((f_k, f_r, "slab_ref final"))
-    if variant == "bwd":
-        engine_ms, fin = event_ms(functools.partial(
-            torch_engine.backward_slab_torch_async, a[::-1].copy(),
-            b[::-1].copy(), c[::-1].copy(), scoring, end_v=ev, device=CUDA))
-        pairs.append((slab_k, torch.from_numpy(fin()).to(CUDA).flip(1, 2),
-                      "engine slab"))
-    else:
-        engine_ms, fin = event_ms(functools.partial(
-            torch_engine.forward_sweep_torch_async, a, b, c, scoring,
-            mode=variant, v0=ev if variant == "pin" else None, capture_m=la,
-            device=CUDA))
-        f_e, s_e = fin()
-        pairs += [(slab_k, torch.from_numpy(s_e).to(CUDA), "engine slab"),
-                  (f_k, torch.from_numpy(f_e).to(CUDA), "engine final")]
+    f_e, slab_e, engine_ms = engine_k5(a, b, c, variant, ev, scoring)
+    pairs.append((slab_k, slab_e, "engine slab"))
+    if f_e is not None:
+        pairs.append((f_k, f_e, "engine final"))
     err = 0
     for got, want, against in pairs:
         require(got.shape == want.shape and torch.equal(got, want),
@@ -615,92 +619,6 @@ def phase_slab(rng) -> int:
     return err
 
 
-def diagonal_k3(a, b, c, la, lb, lc, dims, scoring=DEFAULT):
-    """What final_values (chain_values for chain dims) computes, under the
-    diagonal schedule: K3's per-tile form as it was over the whole tile
-    table, one launch a diagonal."""
-    state = bk.sweep_diagonals(a, b, c, la, lb, lc, dims,
-                               bk.new_state(dims, CUDA), 0, bk.n_tiles(dims),
-                               scoring)
-    return state.out if dims.d else state.out[0]
-
-
-def diagonal_k5(a, b, c, la, lb, lc, dims, variant, ev, scoring=DEFAULT):
-    """What slab_sweep computes, (final, capture), under the diagonal
-    schedule: K5's per-tile form as it was over the whole tile table."""
-    state = sk.new_state(la, lb, lc, dims, ev, CUDA)
-    sk.sweep_diagonals(a, b, c, la, lb, lc, dims, variant, state, 0,
-                       bk.n_tiles(dims), scoring)
-    return state.out, state.cap
-
-
-def diagonal_stripes(dims, row, overlap, start, sweep, band_rows=None):
-    """dist/halo.py run_stripes as it was before bands, for timing beside
-    it (stripes of one process): each stripe sweeps its tiles of each global
-    anti-diagonal in one call of ``sweep`` and hands each column face on
-    after its tile, the receiving stripe waiting on one event a face."""
-    cols = dh.stripe_columns(dims.n_kb, len(row))
-    stripes = [dh.Stripe(d, k0, k1, row[d]) for d, (k0, k1)
-               in enumerate(cols) if k1 > k0]
-    for s in stripes:
-        s.arrs, s.state = start(s.device)
-        s.stream.wait_stream(torch.cuda.current_stream())
-        if overlap:
-            s.copy_stream = torch.cuda.Stream(s.device)
-    ready = {}
-    for t in range(dims.n_jb + dims.n_kb - 1):
-        for pos, s in enumerate(stripes):
-            lo, hi = max(0, t - (s.kb1 - 1)), min(dims.n_jb - 1, t - s.kb0)
-            if lo > hi:
-                continue
-            if pos > 0 and lo <= t - s.kb0 <= hi:
-                s.stream.wait_event(ready.pop((s.index, t - s.kb0)))
-            with s.on_stream():
-                sweep(s.arrs, s.state, [(jb, t - jb)
-                                        for jb in range(lo, hi + 1)])
-            jb_out = t - (s.kb1 - 1)
-            if pos + 1 == len(stripes) or not lo <= jb_out <= hi:
-                continue
-            right = stripes[pos + 1]
-            copier = s.copy_stream or s.stream
-            if copier is not s.stream:
-                copier.wait_stream(s.stream)
-            with s.on_stream(copier):
-                right.state.cf[jb_out].copy_(s.state.cf[jb_out],
-                                             non_blocking=True)
-            ready[(right.index, jb_out)] = torch.cuda.Event()
-            ready[(right.index, jb_out)].record(copier)
-    for s in stripes:
-        torch.cuda.current_stream().wait_stream(s.stream)
-        if s.copy_stream is not None:
-            torch.cuda.current_stream().wait_stream(s.copy_stream)
-    return stripes
-
-
-def _diagonal_run(form):
-    """A sweep_run that sweeps its tiles, a run of one anti-diagonal, with
-    ``form``'s sweep_diagonals."""
-    def sweep_run(*args):
-        *head, tiles, scoring = args
-        dims = head[6]
-        jb, kb = tiles[0]
-        return form.sweep_diagonals(*head, bk.tile_index(dims, jb + kb, jb),
-                                    len(tiles), scoring)
-    return sweep_run
-
-
-def earlier_design():
-    """A context in which the halo and the sharded traceback run as before
-    bands: diagonal_stripes over the per-tile forms' earlier design."""
-    stack = contextlib.ExitStack()
-    stack.enter_context(mock.patch.object(dh, "run_stripes",
-                                          diagonal_stripes))
-    for form in (bk, sk):
-        stack.enter_context(mock.patch.object(form, "sweep_run",
-                                              _diagonal_run(form)))
-    return stack
-
-
 # The grid caps the schedule phase runs beside the occupancy's grid: one
 # block sweeps the table alone, three interleave few tiles.
 GRID_CAPS = (None, 1, 3)
@@ -708,35 +626,15 @@ GRID_CAPS = (None, 1, 3)
 
 def schedule_k3(what, arrs, lens, dims, want, **kwargs) -> int:
     """The persistent K3 (final_values, or chain_values for chain dims) at
-    every grid cap against the diagonal schedule's values; the largest
+    every grid cap against ``want``, the torch sweep's values; the largest
     difference."""
     fn = bk.chain_values if dims.d else bk.final_values
     err = 0
     for blocks in GRID_CAPS:
         got = fn(*arrs, *lens, dims, blocks=blocks, **kwargs)
         require(torch.equal(got, want), f"K3 persistent {what} blocks="
-                f"{blocks}: {cpu_ints(got)} != diagonal {cpu_ints(want)}")
+                f"{blocks}: {cpu_ints(got)} != torch sweep {cpu_ints(want)}")
         err = max(err, _diff(got, want))
-    return err
-
-
-def schedule_k5(rng, shape, name, variant) -> int:
-    """The persistent K5 at every grid cap against the diagonal schedule:
-    capture and final vector bit for bit; the largest difference."""
-    scoring, _, nsym = SLAB_VARIANTS[name]
-    a, b, c = (x.astype(np.int32) for x in triplet(rng, shape, nsym))
-    ev = onehot(int(rng.integers(0, NUM_MATRICES)))
-    dims = sk._plan(*shape)
-    arrs = sk.prep_blocked(a, b, c, dims, CUDA)
-    f_w, cap_w = diagonal_k5(*arrs, *shape, dims, variant, ev, scoring)
-    err = 0
-    for blocks in GRID_CAPS:
-        f, cap = sk.slab_sweep(*arrs, *shape, dims, variant, ev, scoring,
-                               blocks=blocks)
-        require(torch.equal(cap, cap_w) and torch.equal(f, f_w),
-                f"K5 persistent {shape} {name} {variant} blocks={blocks} != "
-                f"the diagonal schedule")
-        err = max(err, _diff(cap, cap_w), _diff(f, f_w))
     return err
 
 
@@ -755,11 +653,11 @@ def stripe_bands(dims, band, ndev):
     return [r for r in runs if r]
 
 
-def schedule_runs(what, form, sweep, fresh, want, runs) -> int:
+def schedule_runs(what, form, sweep, fresh, check, runs) -> int:
     """A per-tile form (``form``: bk or sk) over ``runs`` (lists of tiles),
     one launch a run, at every grid cap: ``sweep(state, tiles, blocks)`` on
-    ``fresh()``, the whole state against the diagonal schedule's ``want``;
-    the largest difference."""
+    ``fresh()``, then each (got, want, name) of ``check(state)`` equal; the
+    largest difference."""
     err = 0
     for blocks in GRID_CAPS:
         state = fresh()
@@ -769,31 +667,48 @@ def schedule_runs(what, form, sweep, fresh, want, runs) -> int:
         require(form.sweep_tiles.launches == before + len(runs),
                 f"{what}: {form.sweep_tiles.launches - before} launches for "
                 f"{len(runs)} runs")
-        for g, w, field in zip(state, want, want._fields):
-            require(torch.equal(g, w), f"{what} blocks={blocks}: {field} != "
-                    "the diagonal schedule's")
+        for g, w, field in check(state):
+            require(g.shape == w.shape and torch.equal(g, w),
+                    f"{what} blocks={blocks}: {field} != the plain version's")
             err = max(err, _diff(g, w))
     return err
 
 
-def schedule_tiles_k3(what, trip, runs_of) -> int:
-    """K3's per-tile form in runs against its earlier design over the whole
-    table (sweep_diagonals): faces and output, at every grid cap."""
+def schedule_tiles_k3(what, trip, runs, tiled_ref=True) -> int:
+    """K3's per-tile form in each of ``runs`` (name -> the runs of a dims),
+    at every grid cap: with ``tiled_ref`` the whole state (faces and output)
+    against one blocked_ref over the whole table, else (where blocked_ref
+    would take minutes) the seven values against the torch sweep."""
     lens = tuple(map(len, trip))
     dims = bk.plan_dims(*lens)
     arrs = bk.prep_blocked(*trip, dims, CUDA)
-    want = bk.sweep_diagonals(*arrs, *lens, dims, bk.new_state(dims, CUDA),
-                              0, bk.n_tiles(dims))
-    return schedule_runs(f"K3 per tile {what}", bk, lambda st, tiles, blocks:
-                         bk.sweep_run(*arrs, *lens, dims, st, tiles,
-                                      blocks=blocks),
-                         lambda: bk.new_state(dims, CUDA), want,
-                         runs_of(dims))
+    if tiled_ref:
+        want = bk.new_state(dims, CUDA)
+        bk.blocked_ref(*arrs, *lens, dims, state=want)
+
+        def check(state):
+            return zip(state, want, want._fields)
+    else:
+        out = ref.sweep(*arrs, *lens).view(1, -1)
+
+        def check(state):
+            return [(state.out, out, "out (torch sweep)")]
+    return max(schedule_runs(f"K3 per tile {what} in {name}", bk,
+                             lambda st, tiles, blocks: bk.sweep_run(
+                                 *arrs, *lens, dims, st, tiles,
+                                 blocks=blocks),
+                             lambda: bk.new_state(dims, CUDA), check,
+                             runs_of(dims))
+               for name, runs_of in runs.items())
 
 
-def schedule_tiles_k5(rng, shape, name, variant, runs_of) -> int:
-    """K5's per-tile form in runs against its earlier design: capture,
-    faces and final vector, at every grid cap."""
+def schedule_k5(rng, shape, name, variant, runs, tiled_ref=True) -> tuple:
+    """K5 at every grid cap, the persistent whole-grid sweep and its
+    per-tile form in each of ``runs`` (name -> the runs of a dims): with
+    ``tiled_ref`` the whole state (capture, faces, final vector) against one
+    slab_ref over the whole table, else (where slab_ref would take a minute
+    or more) the assembled slab and a forward variant's final vector
+    against the torch engine.  The largest difference of each."""
     scoring, _, nsym = SLAB_VARIANTS[name]
     seqs = tuple(x.astype(np.int32) for x in triplet(rng, shape, nsym))
     ev = onehot(int(rng.integers(0, NUM_MATRICES)))
@@ -802,50 +717,116 @@ def schedule_tiles_k5(rng, shape, name, variant, runs_of) -> int:
     def fresh():
         return sk.new_state(*shape, dims, ev, CUDA)
 
-    want = sk.sweep_diagonals(*arrs, *shape, dims, variant, fresh(), 0,
-                              bk.n_tiles(dims), scoring)
-    return schedule_runs(
-        f"K5 per tile {shape} {name} {variant}", sk,
+    if tiled_ref:
+        want = fresh()
+        sk.slab_ref(*arrs, *shape, dims, variant, None, scoring, state=want)
+
+        def values(out, cap):
+            return [(cap, want.cap, "capture"), (out, want.out, "final")]
+
+        def check(state):
+            return zip(state, want, want._fields)
+    else:
+        f_w, slab_w, _ = engine_k5(*seqs, variant, ev, scoring)
+
+        def values(out, cap):
+            pairs = [(sk._assemble(cap, dims, *shape[1:]), slab_w, "slab")]
+            return pairs + ([(out, f_w, "final")] if f_w is not None else [])
+
+        def check(state):
+            return values(state.out, state.cap)
+    what = f"K5 {shape} {name} {variant}"
+    whole = 0
+    for blocks in GRID_CAPS:
+        out, cap = sk.slab_sweep(*arrs, *shape, dims, variant, ev, scoring,
+                                 blocks=blocks)
+        for g, w, field in values(out, cap):
+            require(g.shape == w.shape and torch.equal(g, w),
+                    f"{what} persistent blocks={blocks}: {field} != the "
+                    "plain version's")
+            whole = max(whole, _diff(g, w))
+    tiles = max([schedule_runs(
+        f"{what} per tile in {how}", sk,
         lambda st, tiles, blocks: sk.sweep_run(*arrs, *shape, dims, variant,
                                                st, tiles, scoring,
                                                blocks=blocks),
-        fresh, want, runs_of(dims))
+        fresh, check, runs_of(dims)) for how, runs_of in runs.items()],
+                default=0)
+    return whole, tiles
 
 
 def schedule_k4(what, trips, block, scoring=DEFAULT) -> int:
     """The persistent K4 (one launch a dispatch) at every grid cap against
-    its diagonal entry point (K4's earlier design, one launch a diagonal):
-    faces, final values and progress words bit for bit; the largest
-    difference."""
+    hetero_ref: faces, final values and progress words bit for bit; the
+    largest difference."""
     batch = hk.prep_hetero(trips, *block, CUDA)
     n = len(batch.tiles)
-    want = hk.sweep_diagonals(batch, hk.new_state(batch), 0, n, scoring)
+    want = hk.new_state(batch)
+    hk.hetero_ref(batch, scoring, want)
     err = 0
     for blocks in GRID_CAPS:
         got = hk.sweep_tiles(batch, hk.new_state(batch), 0, n, scoring,
                              blocks=blocks)
         for g, w, field in zip(got, want, want._fields):
             require(torch.equal(g, w), f"K4 persistent {what} {block} "
-                    f"blocks={blocks}: {field} != the diagonal schedule's")
+                    f"blocks={blocks}: {field} != hetero_ref's")
             err = max(err, _diff(g, w))
     return err
 
 
+def schedule_k4_sweep(what, trips, block) -> int:
+    """schedule_k4 where hetero_ref would take minutes: every problem's
+    seven values against the torch sweep, and every entry's progress word
+    its tile's last local plane, as hetero_ref leaves it; the largest
+    difference."""
+    batch = hk.prep_hetero(trips, *block, CUDA)
+    n = len(batch.tiles)
+    want = torch.stack([plain_sweep(*t) for t in trips])
+    # A tile's last local plane: |A| + tb + tc of its problem.
+    last = np.asarray(batch.lens)[:, 0] + batch.hb + batch.wc - 2
+    done = torch.from_numpy(last[np.asarray(batch.tiles)[:, 0]].astype(
+        np.int32)).to(CUDA)
+    err = 0
+    for blocks in GRID_CAPS:
+        got = hk.sweep_tiles(batch, hk.new_state(batch), 0, n, blocks=blocks)
+        for g, w, field in ((got.out, want, "out"), (got.done[:n], done,
+                                                      "done")):
+            require(torch.equal(g, w), f"K4 persistent {what} {block} "
+                    f"blocks={blocks}: {field} != the torch sweep's")
+            err = max(err, _diff(g, w))
+    return err
+
+
+def chain_sweep(a_list, b, c) -> torch.Tensor:
+    """The torch sweep of every slot of a chain of equal-length triplets
+    (a, b, c) for a in a_list, (npack, 7), on the card."""
+    n = len(a_list[0])
+    return ref.sweep(torch.stack([ref.extend(a, n + 1, ref.PAD_A, CUDA)
+                                  for a in a_list]),
+                     ref.extend(b, len(b) + 1, ref.PAD_B, CUDA),
+                     ref.extend(c, len(c) + 1, ref.PAD_C, CUDA), n, len(b),
+                     len(c))
+
+
 def phase_schedule(rng) -> dict:
     """The persistent sweeps (one launch a sweep, tiles started by per-plane
-    readiness) against the diagonal schedule (the per-tile forms over the
-    whole table), at the occupancy's grid and capped at 1 and 3 blocks:
-    K3 at 512^3 on 10 inputs (races are intermittent) and at 1024^3, every
-    slot of the 16 x 512^3 chain, K5 "free" and "bwd" on a small multi-tile
-    shape under seven scorings and at the 2048^3 top split's shape.  Returns
-    the largest difference of K3, its chain mode and K5."""
+    readiness) against their plain versions on the card, at the occupancy's
+    grid and capped at 1 and 3 blocks: K3 at 512^3 on 10 inputs (races are
+    intermittent) and at 1024^3 and every slot of the 16 x 512^3 chain
+    against the torch sweep; K5 "free" and "bwd" at the 2048^3 top split's
+    shape against the torch engine, and every variant under seven scorings
+    on a small multi-tile shape against slab_ref; the per-tile forms of K3
+    and K5 in runs, at the main path's shapes against the torch sweep and
+    engine and on a small shape the whole state against blocked_ref and
+    slab_ref; K4 against hetero_ref, and on 16 of the batch's kind against
+    the torch sweep.  Returns the largest difference of each."""
     checked, err = [], {"blocked": 0, "blocked_chain": 0, "slab": 0,
                         "hetero": 0, "blocked_tiles": 0, "slab_tiles": 0}
     for n, count in ((512, 10), (1024, 1)):
         dims = bk.plan_dims(n, n, n)
         for _ in range(count):
             arrs = bk.prep_blocked(*triplet(rng, (n, n, n)), dims, CUDA)
-            want = diagonal_k3(*arrs, n, n, n, dims)
+            want = ref.sweep(*arrs, n, n, n)
             err["blocked"] = max(err["blocked"], schedule_k3(
                 f"{n}^3", arrs, (n, n, n), dims, want))
         checked.append(f"K3 {n}^3 x{count}")
@@ -856,38 +837,49 @@ def phase_schedule(rng) -> dict:
     arrs = bk.prep_chain(a_list, b, c, chain_dims, CUDA)
     err["blocked_chain"] = schedule_k3(
         f"chain {n}^3 x{npack}", arrs, (n, n, n), chain_dims,
-        diagonal_k3(*arrs, n, n, n, chain_dims))
+        chain_sweep(a_list, b, c))
     checked.append(f"K3 chain {n}^3 x{npack}, every slot")
-    for name in SLAB_VARIANTS:
-        for variant in ("free", "bwd"):
-            err["slab"] = max(err["slab"], schedule_k5(
-                rng, (60, 200, 170), name, variant))
-        checked.append(f"K5 (60, 200, 170) free, bwd/{name}")
     for variant in ("free", "bwd"):
-        err["slab"] = max(err["slab"], schedule_k5(rng, SPLIT_SHAPE,
-                                                   "default", variant))
-    checked.append(f"K5 {SPLIT_SHAPE} free, bwd/default")
-    # The per-tile forms, one persistent launch a run: the main path's
-    # shapes in quarters of the table and in the bands of 2 stripes.
+        err["slab"] = max(err["slab"], schedule_k5(
+            rng, SPLIT_SHAPE, "default", variant, {}, tiled_ref=False)[0])
+    checked.append(f"K5 {SPLIT_SHAPE} free, bwd/default/torch engine")
+    # The per-tile forms, one persistent launch a run, in quarters of the
+    # table and in the bands of stripes: at the main path's shapes against
+    # the torch sweep and engine (blocked_ref takes about 110 s at 1024^3,
+    # slab_ref about 60 s at the top split), and the whole state against
+    # blocked_ref and slab_ref on a small multi-tile shape.
+    quarters_and_bands = {"quarters": table_quarters,
+                          "bands of 8, 2 stripes":
+                              lambda d: stripe_bands(d, 8, 2)}
     n = 1024
-    for runs, runs_of in (("quarters", table_quarters),
-                          ("bands of 8, 2 stripes",
-                           lambda d: stripe_bands(d, 8, 2))):
-        err["blocked_tiles"] = max(err["blocked_tiles"], schedule_tiles_k3(
-            f"{n}^3 {runs}", triplet(rng, (n, n, n)), runs_of))
-        checked.append(f"K3 per tile {n}^3 in {runs}")
-    for variant, runs, runs_of in (
-            ("free", "quarters", table_quarters),
-            ("bwd", "bands of 8, 2 stripes", lambda d: stripe_bands(d, 8, 2))):
-        err["slab_tiles"] = max(err["slab_tiles"], schedule_tiles_k5(
-            rng, TOP_SPLIT, "default", variant, runs_of))
-        checked.append(f"K5 per tile {TOP_SPLIT} {variant} in {runs}")
+    err["blocked_tiles"] = schedule_tiles_k3(
+        f"{n}^3", triplet(rng, (n, n, n)), quarters_and_bands,
+        tiled_ref=False)
+    checked.append(f"K3 per tile {n}^3 in quarters and bands of 8, 2 "
+                   "stripes/torch sweep")
+    small = {"quarters": table_quarters,
+             "bands of 2, 3 stripes": lambda d: stripe_bands(d, 2, 3)}
+    err["blocked_tiles"] = max(err["blocked_tiles"], schedule_tiles_k3(
+        "(60, 200, 170)", triplet(rng, (60, 200, 170)), small))
+    checked.append("K3 per tile (60, 200, 170) in quarters and bands of 2, "
+                   "3 stripes/blocked_ref")
+    for variant, runs in (("free", "quarters"),
+                          ("bwd", "bands of 8, 2 stripes")):
+        e_whole, e_tiles = schedule_k5(rng, TOP_SPLIT, "default", variant,
+                                       {runs: quarters_and_bands[runs]},
+                                       tiled_ref=False)
+        err["slab"] = max(err["slab"], e_whole)
+        err["slab_tiles"] = max(err["slab_tiles"], e_tiles)
+        checked.append(f"K5 {TOP_SPLIT} {variant}, per tile in {runs}/"
+                       "torch engine")
     for name in SLAB_VARIANTS:
         for variant in sk.VARIANTS:
-            err["slab_tiles"] = max(err["slab_tiles"], schedule_tiles_k5(
+            e_whole, e_tiles = schedule_k5(
                 rng, (60, 200, 170), name, variant,
-                lambda d: stripe_bands(d, 2, 3)))
-        checked.append(f"K5 per tile (60, 200, 170) every variant/{name} "
+                {"bands of 2, 3 stripes": small["bands of 2, 3 stripes"]})
+            err["slab"] = max(err["slab"], e_whole)
+            err["slab_tiles"] = max(err["slab_tiles"], e_tiles)
+        checked.append(f"K5 (60, 200, 170) every variant/{name}, per tile "
                        "in bands of 2, 3 stripes")
     for name in ("default", "sub4"):
         scoring, _, nsym = VARIANTS[name]
@@ -897,9 +889,9 @@ def phase_schedule(rng) -> dict:
                 name, trips, block, scoring))
             checked.append(f"K4 {len(trips)} problems/{block}/{name}")
     trips = [mosaic._rotate(t, DEFAULT) for t in batch_triplets(rng, 16)]
-    err["hetero"] = max(err["hetero"], schedule_k4(
+    err["hetero"] = max(err["hetero"], schedule_k4_sweep(
         "16 of the batch's kind", trips, bk.choose_block_shape(0, 0, 0)))
-    checked.append("K4 16 triplets in [128, 512]/default plane")
+    checked.append("K4 16 triplets in [128, 512]/default plane/torch sweep")
     hb_, wc_ = bk.choose_block_shape(0, 0, 0)
     emit(phase="schedule", cases=checked, grid_caps=GRID_CAPS,
          blocks_per_sm={
@@ -1085,8 +1077,7 @@ def phase_main_path(rng) -> dict:
                      "score": r.score, "oracle": oracle,
                      "oracle_s": oracle_s, "align_s": r.seconds})
     launches = read_launches()
-    require(launches["wavefront"] == 2 and not launches["wavefront_earlier"]
-            and launches["blocked"] == 2,
+    require(launches["wavefront"] == 2 and launches["blocked"] == 2,
             f"K2 not once a call, or K3 not once a sweep: {launches}")
     emit(phase="main_path", runs=runs, launches=launches)
     return launches, headline
@@ -1198,13 +1189,6 @@ def phase_traceback(rng) -> tuple:
     return launches_2048, case_1024
 
 
-def old_final_values(batch, scoring=DEFAULT):
-    """K4's earlier design over a whole dispatch (hk.sweep_diagonals: one
-    launch a diagonal on the shared-memory pillar)."""
-    return hk.sweep_diagonals(batch, hk.new_state(batch), 0,
-                              len(batch.tiles), scoring).out
-
-
 def batch_triplets(rng, n=BATCH_N, lens=BATCH_LENS):
     lo, hi = lens
     return [triplet(rng, rng.integers(lo, hi + 1, 3)) for _ in range(n)]
@@ -1235,17 +1219,10 @@ def phase_batch(rng) -> tuple:
             f"the 1024-triplet batch did not take K4 alone, one launch: "
             f"{launches}")
     scores = [r.score for r in res]
-    # In turns with K4's earlier design (one launch a diagonal on the
-    # shared-memory pillar): new, old, new, old, new.
-    runs_s, old_s = [], []
-    for turn in range(5):
-        if turn % 2:
-            with mock.patch.object(hk, "final_values", old_final_values):
-                again, sec = timed_batch(trips)
-            old_s.append(sec)
-        else:
-            again, sec = timed_batch(trips)
-            runs_s.append(sec)
+    runs_s = []
+    for _ in range(3):
+        again, sec = timed_batch(trips)
+        runs_s.append(sec)
         require([r.score for r in again] == scores, "a rerun disagrees")
     best = min(runs_s)
     # The card's busy share: kernel seconds of one more call under
@@ -1277,13 +1254,12 @@ def phase_batch(rng) -> tuple:
             and not l48["hetero"], f"48-triplet batch launches {l48}")
     want48 = [trialign_torch.align(*t).score for t in small]
     require([r.score for r in res48] == want48, "48-triplet batch != align()")
-    # Its K2 launch alone, in turns with K2's earlier design, on the
-    # triplets inside K2's caps of that batch and two more like it.
+    # Its K2 launch alone, on the triplets inside K2's caps of that batch
+    # and two more like it.
     k2_inputs = [padded_args([t for t in b if wf.fits(*map(len, t))])
                  for b in [small] + [batch_triplets(rng, 48, (16, 320))
                                      for _ in range(2)]]
-    k2_turns = turns_old_new(wf.final_values_earlier, wf.final_values,
-                             k2_inputs)
+    k2_ms = time_cuda_ms(wf.final_values, k2_inputs)
 
     tb = batch_triplets(rng, 16, (64, 200))
     res16, s16 = timed_batch(tb, return_alignment=True)
@@ -1300,15 +1276,11 @@ def phase_batch(rng) -> tuple:
          cells=cells, first_s=first_s, runs_s=runs_s, best_s=best,
          gcups=cells / best / 1e9, triplets_per_s=len(trips) / best,
          launches=launches, **prof, busy_share=prof["kernel_s"] / best,
-         old_design_runs_s=old_s, old_design_best_s=min(old_s),
          checked_against_align=len(sample),
          align_backends=single, checked_against_native=len(native),
          native_s=native_s,
          padded={"triplets": len(small), "past_k2_caps": n_long,
-                 "seconds": s48, "launches": l48,
-                 "k2_ms": k2_turns["ms"],
-                 "k2_old_design_ms": k2_turns["old_design_ms"],
-                 "k2_turns_ms": k2_turns["turns_ms"]},
+                 "seconds": s48, "launches": l48, "k2_ms": k2_ms},
          alignments={"triplets": len(tb), "seconds": s16,
                      "backends": sorted({r.backend for r in res16})})
     return launches["hetero"], trips, scores
@@ -1382,9 +1354,8 @@ def phase_protfam_batch(seed: int) -> None:
 
 def in_runs(sweep, arrs, lens, dims, every, scoring=DEFAULT, bits=0):
     """Sweep a whole grid from a fresh state through ``sweep``
-    (bk.sweep_tiles, its earlier design bk.sweep_diagonals or
-    bk.blocked_ref, which take the same state and tile range) in runs of
-    ``every`` tiles; the state."""
+    (bk.sweep_tiles or bk.blocked_ref, which take the same state and tile
+    range) in runs of ``every`` tiles; the state."""
     state = bk.new_state(dims, arrs[0].device)
     n = bk.n_tiles(dims)
     for idx in range(0, n, every):
@@ -1405,9 +1376,8 @@ def quarter_inputs(trips):
     return out
 
 
-# K3's per-tile form in quarters: its earlier design, then the new one.
-QUARTERS = (functools.partial(in_runs, bk.sweep_diagonals),
-            functools.partial(in_runs, bk.sweep_tiles))
+# K3's per-tile form over quarter_inputs' arguments.
+tiles_in_runs = functools.partial(in_runs, bk.sweep_tiles)
 
 
 def tiles_case(trip, block, every, scoring, bits=0) -> int:
@@ -1481,8 +1451,7 @@ def phase_checkpoint(rng, dev, headline, batch, batch_scores) -> dict:
     ckpt_s = time.perf_counter() - t0
     launches = read_launches()
     require(score == want, f"checkpointed 1024^3 {score} != main_path {want}")
-    require(launches["blocked_tiles"] == 4 and not launches["blocked"] and
-            not launches["blocked_diagonals"],
+    require(launches["blocked_tiles"] == 4 and not launches["blocked"],
             f"the checkpointed run made other launches than one a quarter "
             f"of K3's per-tile form: {launches}")
     require(torch.equal(r2.out[0], plain), f"checkpointed 1024^3 "
@@ -1548,14 +1517,13 @@ def phase_checkpoint(rng, dev, headline, batch, batch_scores) -> dict:
 
     # The summary row: the per-tile form and blocked_ref on one 192^3
     # sample in runs of a quarter of its grid (blocked_ref would take
-    # minutes at 1024^3), in turns with the earlier design (one launch a
-    # diagonal); the timings phase adds the 1024^3 run's shape.
+    # about a minute at 1024^3); the timings phase adds the 1024^3 run's
+    # shape.
     n = TILES_SAMPLE
     sample = quarter_inputs([triplet(rng, (n, n, n)) for _ in range(3)])
-    turns = in_turns(*QUARTERS, sample)
-    new = QUARTERS[1]
+    ms = time_cuda_ms(tiles_in_runs, sample)
     plain_ms, plain_state = event_ms(in_runs, bk.blocked_ref, *sample[0])
-    got_state = new(*sample[0])
+    got_state = tiles_in_runs(*sample[0])
     for g, w in zip(got_state, plain_state):
         require(torch.equal(g, w), f"K3 per tile at {n}^3 != blocked_ref")
         err = max(err, _diff(g, w))
@@ -1563,8 +1531,7 @@ def phase_checkpoint(rng, dev, headline, batch, batch_scores) -> dict:
     # written once.
     state_ints = sum(t.numel() for t in plain_state)
     bms, by = bound(n ** 3, 4 * (3 * n + 2 * state_ints), dev)
-    row = {"ms": turns["ms"], "diagonal_ms": turns["diagonal_ms"],
-           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
            "max_abs_err": err, "launches": launches["blocked_tiles"],
            "sample": f"{n}^3 in runs of a quarter of its grid"}
     emit(phase="checkpoint", cases=checked, max_abs_err=err,
@@ -1637,10 +1604,7 @@ def phase_chain(rng, dev) -> dict:
         require(launches["blocked_chain"] > 0,
                 f"chain mode did not launch: {launches}")
         t0 = time.perf_counter()
-        want = ref.sweep(torch.stack([ref.extend(a, n + 1, ref.PAD_A, CUDA)
-                                      for a in a_list]),
-                         ref.extend(b, n + 1, ref.PAD_B, CUDA),
-                         ref.extend(c, n + 1, ref.PAD_C, CUDA), n, n, n)
+        want = chain_sweep(a_list, b, c)
         for m in range(npack):
             require(torch.equal(values[m], want[m]), f"chain {n}^3 x{npack} "
                     f"slot {m}: {cpu_ints(values[m])} != torch sweep "
@@ -1681,17 +1645,14 @@ def phase_chain(rng, dev) -> dict:
         b, c = triplet(rng, (la, la))
         sample.append((*bk.prep_chain(a_list, b, c, dims, CUDA), la, la, la,
                        dims))
-    turns = in_turns(bk.chain_values_earlier, bk.chain_values, sample,
-                     "earlier_ms")
+    ms = time_cuda_ms(bk.chain_values, sample)
     plain_ms, want = event_ms(bk.blocked_ref, *sample[0])
     got = bk.chain_values(*sample[0])
     require(torch.equal(got, want), f"K3 chain {la}^3 x{npack} != blocked_ref")
-    require(torch.equal(got, bk.chain_values_earlier(*sample[0])),
-            f"K3 chain {la}^3 x{npack} != its earlier design")
     err = max(err, _diff(got, want))
     bms, by = bound(npack * la ** 3, 4 * (npack * la + 2 * la
                                           + npack * NUM_MATRICES), dev)
-    row = {**turns, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
            "max_abs_err": err, "launches": chain_launches,
            "sample": f"{npack} slots of {la}^3",
            **{f"ms_per_alignment_{k}": v["ms_per_alignment"]
@@ -1833,10 +1794,9 @@ def phase_halo(rng, headline) -> dict:
     form in 2 and 3 stripes, in the model's bands and in bands of 1 and 2
     rows, against blocked_ref, whole state; the main path's 1024^3 triplet
     in 1, 2 and 4 stripes under both schedules, all seven values equal to
-    K3's whole-grid sweep, one launch a band a stripe; ms, under the
-    overlapped schedule in turns with the earlier design (one launch a
-    stripe and diagonal), beside K3's; the measured face-copy rate and the
-    model's time on separate cards."""
+    the torch sweep's (main_path's), one launch a band a stripe; ms beside
+    K3's whole-grid sweep; the measured face-copy rate and the model's time
+    on separate cards."""
     checked, err = [], 0
     for shape, block, ndev in (((37, 70, 45), (9, 17), 2),
                                ((37, 70, 45), (9, 17), 3),
@@ -1852,11 +1812,10 @@ def phase_halo(rng, headline) -> dict:
             checked.append(f"{shape}/{block}/{ndev} stripes/{name}/"
                            f"overlap={overlap}/band={band or 'model'}")
 
-    trip = headline[0]
+    trip, _, want = headline
     lens = tuple(map(len, trip))
     block = bk.choose_block_shape(*lens)
     dims = bk.plan_dims(*lens, *block)
-    want = bk.final_values(*bk.prep_blocked(*trip, dims, CUDA), *lens, dims)
     k3_ms = time_blocked([trip] * 3, block)
     rate = face_copy_rate(dims)
     inputs = [(trip,)] + [(triplet(rng, lens),) for _ in range(2)]
@@ -1872,31 +1831,23 @@ def phase_halo(rng, headline) -> dict:
             launches = read_launches()
             what = f"halo 1024^3 on {ndev} stripes overlap={overlap}"
             require(torch.equal(got, want.cpu()),
-                    f"{what}: {cpu_ints(got)} != K3 {cpu_ints(want)}")
+                    f"{what}: {cpu_ints(got)} != torch sweep "
+                    f"{cpu_ints(want)}")
             err = max(err, _diff(got, want.cpu()))
             expect = ndev * len(dh.bands(dims.n_jb, model["band"]))
             require(launches["blocked_tiles"] == expect and
-                    not launches["blocked"] and
-                    not launches["blocked_diagonals"],
+                    not launches["blocked"],
                     f"{what}: {launches}, not {expect} launches of K3's "
                     "per-tile form")
 
-            def new(t):
+            def halo(t):
                 return dh.halo_values(*t, DEFAULT, m, block, overlap)
 
-            def old(t):
-                with earlier_design():
-                    return dh.halo_values(*t, DEFAULT, m, block, overlap)
-
-            row = {"band_rows": model["band"], "launches": expect,
-                   "model_s_on_separate_cards": model["seconds"],
-                   "model_pipeline": model["pipeline"]}
-            if overlap:
-                row.update(in_turns(old, new, inputs))
-                row["earlier_design_ms"] = row.pop("diagonal_ms")
-            else:
-                row["ms"] = time_cuda_ms(new, inputs)
-            runs[f"{ndev}/{'overlap' if overlap else 'tight'}"] = row
+            runs[f"{ndev}/{'overlap' if overlap else 'tight'}"] = {
+                "band_rows": model["band"], "launches": expect,
+                "model_s_on_separate_cards": model["seconds"],
+                "model_pipeline": model["pipeline"],
+                "ms": time_cuda_ms(halo, inputs)}
     emit(phase="halo", cases=checked, max_abs_err=err, k3_1024_ms=k3_ms,
          stripes_sharing_one_card=runs,
          face_copy=rate, values=cpu_ints(want))
@@ -1945,8 +1896,7 @@ def slab_split_tiles(trip, dev) -> dict:
     sharing the card at the halo's tile plane, schedule and bands, as
     sharded_split_point runs them.  The gathered F capture and final vector
     and the G capture against the torch engine, exactly; ms of the F sweep
-    in stripes, in turns with the earlier design, beside the engine's and
-    the bound."""
+    in stripes beside the engine's and the bound."""
     a, b, c = (np.asarray(x, np.int32) for x in trip)
     m, lb, lc = len(a) // 2, len(b), len(c)
     row = dh.model_row(card_mesh(1, 2))
@@ -1979,18 +1929,12 @@ def slab_split_tiles(trip, dev) -> dict:
                 f"K5 per tile in 2 stripes, 1024^3 top split: {what} != the "
                 "torch engine's")
         err = max(err, _diff(got, want))
-    # Three distinct halves of |A| = 512 against the same B and C, in turns
-    # with the earlier design.
-    def old(a_half):
-        with earlier_design():
-            return forward(a_half)
-
+    # Three distinct halves of |A| = 512 against the same B and C.
     halves = [(a[:m],), (a[m:].copy(),), (a[:m][::-1].copy(),)]
-    turns = in_turns(old, forward, halves)
+    ms = time_cuda_ms(forward, halves)
     nbytes = 4 * (m + lb + lc + fst[0].state.cap.numel() + NUM_MATRICES)
     bms, by = bound(m * lb * lc, nbytes, dev)
-    return {"ms": turns["ms"], "earlier_design_ms": turns["diagonal_ms"],
-            "turns_ms": turns["turns_ms"], "plain_ms": plain_ms,
+    return {"ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "max_abs_err": err,
             "sample": f"the 1024^3 sharded traceback's top split, "
                       f"{m}x{lb}x{lc} free, 2 stripes; plain: torch engine"}
@@ -2006,8 +1950,7 @@ def phase_halo_tb(rng, dev, tb_case) -> dict:
     into the sweeps on the stripes (every sharded split and free_jk guard,
     each ending in a synchronize) and the rest (the single-device leaves and
     the host); its top split's two slab sweeps in stripes against the torch
-    engine, in turns with the earlier design (slab_split_tiles).  Returns
-    K5's per-tile summary row."""
+    engine (slab_split_tiles).  Returns K5's per-tile summary row."""
     checked, err = [], 0
     for name in ("default", "sub16"):
         for variant in sk.VARIANTS:
@@ -2055,8 +1998,7 @@ def phase_halo_tb(rng, dev, tb_case) -> dict:
         (score, rows), seconds, launches = sharded()
     require(len(splits) >= 2 and splits[0][0] == len(trip[0]),
             f"fewer than two levels split on the stripes: {splits}")
-    require(launches["slab_tiles"] == sum(expect) and not launches["slab"]
-            and not launches["slab_diagonals"],
+    require(launches["slab_tiles"] == sum(expect) and not launches["slab"],
             f"the sharded traceback made other launches than one a band a "
             f"stripe of K5's per-tile form ({sum(expect)}): {launches}")
     require(score == rec["score"], f"sharded traceback {score} != "
@@ -2157,19 +2099,13 @@ def phase_sharded_batch(rng, batch, batch_scores) -> dict:
     require(launches["hetero_tiles"] == 2 and not launches["hetero"],
             f"the sharded batch did not run K4's per-tile form once a slot: "
             f"{launches}")
-    # In turns with K4's earlier per-tile form (one launch a diagonal on the
-    # shared-memory pillar): new, old, new, old.
-    runs_s, old_s = [], []
-    for turn in range(4):
+    runs_s = []
+    for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if turn % 2:
-            with mock.patch.object(hk, "sweep_tiles", hk.sweep_diagonals):
-                again = trialign_torch.align_batch_sharded(batch, mesh=m)
-        else:
-            again = trialign_torch.align_batch_sharded(batch, mesh=m)
+        again = trialign_torch.align_batch_sharded(batch, mesh=m)
         torch.cuda.synchronize()
-        (old_s if turn % 2 else runs_s).append(time.perf_counter() - t0)
+        runs_s.append(time.perf_counter() - t0)
         require(again == scores, "a sharded rerun disagrees")
 
     # align_batch_resilient on 256 of the batch over the 2 slots in K4
@@ -2212,11 +2148,11 @@ def phase_sharded_batch(rng, batch, batch_scores) -> dict:
     require(got == batch_scores[:256], "align_batch_resilient(mesh) != batch")
 
     row = {"max_abs_err": err, "launches": launches["hetero_tiles"],
-           "main_path_s": min(runs_s), "old_design_main_path_s": min(old_s)}
+           "main_path_s": min(runs_s)}
     best = row["main_path_s"]
     emit(phase="sharded_batch", cases=checked, max_abs_err=err,
          batch={"triplets": len(batch), "data_slots": 2, "first_s": first_s,
-                "runs_s": runs_s, "best_s": best, "old_design_runs_s": old_s,
+                "runs_s": runs_s, "best_s": best,
                 "gcups": batch_cells(batch) / best / 1e9,
                 "triplets_per_s": len(batch) / best, "launches": launches},
          resilient={"triplets": len(sub), "dispatch_size": 64,
@@ -2354,12 +2290,6 @@ def wavefront_inputs(trips):
     return [wf.prep(*t, CUDA) for t in trips]
 
 
-def time_wavefront(trips, block=wf.TILE, chunk=wf.CHUNK):
-    return time_cuda_ms(functools.partial(wf.final_values, block=block,
-                                          chunk=chunk),
-                        wavefront_inputs(trips))
-
-
 def blocked_inputs(trips, block_shape=None):
     out = []
     for a, b, c in trips:
@@ -2374,13 +2304,13 @@ def time_blocked(trips, block_shape):
     return time_cuda_ms(bk.final_values, blocked_inputs(trips, block_shape))
 
 
-def in_turns(old, new, inputs, old_key="diagonal_ms") -> dict:
-    """Two designs (or schedules) of one sweep timed in turns, old, new, new,
-    old (each the minimum over ``inputs``): the new one's ms, the old one's
-    (under ``old_key``) and the four in order."""
-    turns = [time_cuda_ms(f, inputs) for f in (old, new, new, old)]
-    return {"ms": min(turns[1:3]), old_key: min(turns[0], turns[3]),
-            "turns_ms": turns}
+def in_turns(first, second, inputs) -> dict:
+    """Two variants of one sweep timed in turns, first, second, second,
+    first (each the minimum over ``inputs``): each one's ms and the four in
+    order."""
+    turns = [time_cuda_ms(f, inputs) for f in (first, second, second, first)]
+    return {"first_ms": min(turns[0], turns[3]),
+            "second_ms": min(turns[1:3]), "turns_ms": turns}
 
 
 # The plain versions repeat their kernels' arithmetic and are no yardstick
@@ -2401,15 +2331,22 @@ def slab_inputs(trips, variant):
     return args
 
 
-def hetero_dispatch(trips):
-    """The K4 dispatch that align_batch gives a batch (rotated, the longest
-    |A| first); the batch must fit one."""
+def dispatch_triplets(trips):
+    """The problems of the K4 dispatch that align_batch gives a batch, in
+    the dispatch's order (rotated, the longest |A| first); the batch must
+    fit one."""
     rot = [mosaic._rotate(t, DEFAULT) for t in trips]
     hb_, wc_ = bk.choose_block_shape(0, 0, 0)
     plan = hk.plan_dispatches([list(map(len, t)) for t in rot], hb_, wc_,
                               hk.default_budget(CUDA))
     require(len(plan) == 1, f"the batch took {len(plan)} dispatches")
-    return hk.prep_hetero([rot[i] for i in plan[0]], hb_, wc_, CUDA)
+    return [rot[i] for i in plan[0]]
+
+
+def hetero_dispatch(trips):
+    """The K4 dispatch that align_batch gives a batch."""
+    return hk.prep_hetero(dispatch_triplets(trips),
+                          *bk.choose_block_shape(0, 0, 0), CUDA)
 
 
 def hetero_bound(trips, dev) -> tuple:
@@ -2420,28 +2357,20 @@ def hetero_bound(trips, dev) -> tuple:
     return bound(batch_cells(trips), nbytes, dev)
 
 
-def turns_old_new(old, new, inputs) -> dict:
-    """in_turns for K4: the register step's ms and its earlier design's
-    (``old_design_ms``), old, new, new, old."""
-    row = in_turns(old, new, inputs)
-    row["old_design_ms"] = row.pop("diagonal_ms")
-    return row
-
-
 def time_hetero(rng, trips, dev) -> dict:
     """K4, its per-tile form and hetero_ref on one sample dispatch of the
     batch's problems (the one with the most cells and the one with the
     fewest), held equal and timed on that same dispatch; then K4 and its
     per-tile form (runs of a quarter of the table) at the whole 1024-triplet
     batch (that batch and two more like it), the host's packing of its
-    dispatch and its bound.  Each is timed in turns with K4's earlier design
-    (one launch a diagonal on the shared-memory pillar)."""
+    dispatch and its bound, with 16 of its problems' seven values held to
+    the torch sweep."""
     sizes = [len(a) * len(b) * len(c) for a, b, c in trips]
     pick = [int(np.argmax(sizes)), int(np.argmin(sizes))]
     rot = [mosaic._rotate(trips[i], DEFAULT) for i in pick]
     sample = hk.prep_hetero(rot, *bk.choose_block_shape(0, 0, 0), CUDA)
     # The kernel is deterministic, so three trials of one dispatch.
-    row = turns_old_new(old_final_values, hk.final_values, [(sample,)] * 3)
+    row = {"ms": time_cuda_ms(hk.final_values, [(sample,)] * 3)}
     got = hk.final_values(sample)
     plain_ms, want = event_ms(hk.hetero_ref, sample)
     require(torch.equal(got, want), f"K4 on the batch's problems "
@@ -2454,7 +2383,7 @@ def time_hetero(rng, trips, dev) -> dict:
     # sharded mosaic sweeps (timed), one diagonal a run and runs of a
     # quarter of the table, which end mid-diagonal; each against the same
     # hetero_ref result.
-    tiles = turns_old_new(old_final_values, hetero_in_runs, [(sample,)] * 3)
+    tiles = {"ms": time_cuda_ms(hetero_in_runs, [(sample,)] * 3)}
     tiles_err = 0
     for step in (None, "diagonal", max(1, len(sample.tiles) // 4)):
         tiles_got = hetero_in_runs(sample, step)
@@ -2468,15 +2397,23 @@ def time_hetero(rng, trips, dev) -> dict:
     inputs = [(hetero_dispatch(trips),)]
     prep_s = time.perf_counter() - t0
     inputs += [(hetero_dispatch(t),) for t in batches[1:]]
-    batch_row = turns_old_new(old_final_values, hk.final_values, inputs)
-    batch_tiles = turns_old_new(old_final_values, hetero_quarters, inputs)
+    batch_row = {"ms": time_cuda_ms(hk.final_values, inputs)}
+    batch_tiles_ms = time_cuda_ms(hetero_quarters, inputs)
     # At the batch's scale hetero_ref would take minutes: K4 and its
-    # per-tile form against the earlier design, bit for bit.
+    # per-tile form on 16 of the dispatch's problems (its first, its last
+    # and 14 spread between) against the torch sweep, all seven values.
+    order = dispatch_triplets(trips)
     got = hk.final_values(inputs[0][0])
-    old = old_final_values(inputs[0][0])
     quarters = hetero_quarters(inputs[0][0])
-    require(torch.equal(got, old) and torch.equal(quarters, old),
-            "K4 on the batch != its earlier design")
+    batch_err = 0
+    for p in np.linspace(0, len(order) - 1, 16).round().astype(int):
+        want = plain_sweep(*order[p])
+        for what, values in (("K4", got), ("K4 per tile in quarters",
+                                           quarters)):
+            require(torch.equal(values[p], want), f"{what} on the batch, "
+                    f"problem {p} {list(map(len, order[p]))}: "
+                    f"{cpu_ints(values[p])} != torch sweep {cpu_ints(want)}")
+            batch_err = max(batch_err, _diff(values[p], want))
     batch_bms, batch_by = hetero_bound(trips, dev)
     return {**row, "gcups": gcups(cells, row["ms"]),
             "lengths": [list(map(len, t)) for t in rot], "cells": cells,
@@ -2489,16 +2426,13 @@ def time_hetero(rng, trips, dev) -> dict:
                       "sample": "the batch's largest and smallest problems, "
                                 "one run of the table; plain: the same "
                                 "hetero_ref run as K4's",
-                      "batch_ms": batch_tiles["ms"],
-                      "batch_old_design_ms": batch_tiles["old_design_ms"],
-                      "batch_turns_ms": batch_tiles["turns_ms"]},
+                      "batch_ms": batch_tiles_ms},
             "batch": {**batch_row, "gcups": gcups(batch_cells(trips),
                                                   batch_row["ms"]),
                       "triplets": len(trips), "cells": batch_cells(trips),
                       "host_prep_s": prep_s, "bound_ms": batch_bms,
-                      "bound_by": batch_by,
-                      "vs_old_design_max_abs_err": max(
-                          _diff(got, old), _diff(quarters, old))}}
+                      "bound_by": batch_by, "checked_against_sweep": 16,
+                      "max_abs_err": batch_err}}
 
 
 # The candidates of the persistent K3 at 1024^3: tile planes (hb, wc) and
@@ -2556,14 +2490,12 @@ def phase_tuning(rng, batch) -> None:
     inputs = slab_inputs(_inputs(rng, SPLIT_SHAPE, 3), "free")
     k5 = {chunk: time_cuda_ms(functools.partial(sk.slab_sweep, chunk=chunk),
                               inputs) for chunk in TUNE_CHUNKS}
-    # K4 on the 1024-triplet batch (and two more like it): the register
-    # step by chunk, beside its earlier design.
+    # K4 on the 1024-triplet batch (and two more like it) by chunk.
     inputs = [(hetero_dispatch(t),)
               for t in [batch] + [batch_triplets(rng) for _ in range(2)]]
     hb_, wc_ = bk.choose_block_shape(0, 0, 0)
     k4 = {chunk: time_cuda_ms(functools.partial(hk.final_values, chunk=chunk),
                               inputs) for chunk in TUNE_HETERO_CHUNKS}
-    k4_old = time_cuda_ms(old_final_values, inputs)
     # Where the step's warps spend their cycles on the batch (its build
     # with the phase clock): each strip's share of its cycles by phase, and
     # its cycles a plane in the planes phase.
@@ -2579,7 +2511,6 @@ def phase_tuning(rng, batch) -> None:
          slab_free_split_ms_by_chunk=k5,
          hetero_batch_ms_by_chunk=k4,
          hetero_resources=hk.step_resources(hb_, wc_),
-         hetero_batch_ms_earlier_design=k4_old,
          hetero_batch_phase_shares=phases,
          chosen={"wavefront_tile": wf.TILE, "wavefront_chunk": wf.CHUNK,
                  "blocked_tile": bk.choose_block_shape(0, 0, 0),
@@ -2610,12 +2541,7 @@ def bound(cells, nbytes, dev, ops=None) -> tuple:
 
 def phase_timings(rng, dev, batch) -> tuple:
     """The timing rows, and K5's largest difference from the torch engine at
-    the split's shape; ``batch`` is the batch phase's 1024 triplets.  K3 and
-    its chains are timed in turns with K3's earlier design (old, new, new,
-    old; ``earlier_ms``: the persistent sweep on the shared-memory pillar),
-    K5 under both schedules: ``ms`` is the persistent sweep's,
-    ``diagonal_ms`` the diagonal schedule's (the per-tile form over the
-    whole table)."""
+    the split's shape; ``batch`` is the batch phase's 1024 triplets."""
     rows = {}
     for shape in K2_SHAPES:
         rows["wavefront_" + "x".join(map(str, shape))] = time_k2(
@@ -2623,11 +2549,8 @@ def phase_timings(rng, dev, batch) -> tuple:
     for n in K3_TIMED:
         trips = _inputs(rng, (n, n, n))
         inputs = blocked_inputs(trips)
-        row = in_turns(bk.final_values_earlier, bk.final_values, inputs,
-                       "earlier_ms")
+        row = {"ms": time_cuda_ms(bk.final_values, inputs)}
         got = bk.final_values(*inputs[0])
-        require(torch.equal(got, bk.final_values_earlier(*inputs[0])),
-                f"K3 at {n}^3 differs from its earlier design")
         cells = n ** 3
         # Inputs read once (3 symbol vectors), the final vector written.
         bms, by = bound(cells, 4 * (3 * n + NUM_MATRICES + 1), dev)
@@ -2647,12 +2570,10 @@ def phase_timings(rng, dev, batch) -> tuple:
             b, c = triplet(rng, (n, n))
             inputs.append((*bk.prep_chain(a_list, b, c, dims, CUDA), n, n, n,
                            dims))
-        row = in_turns(bk.chain_values_earlier, bk.chain_values, inputs,
-                       "earlier_ms")
+        ms = time_cuda_ms(bk.chain_values, inputs)
         bms, by = bound(n ** 3, 4 * (3 * n + NUM_MATRICES), dev)
         rows[f"chain_{n}x{npack}"] = {
-            **row, "ms_per_alignment": row["ms"] / npack,
-            "earlier_ms_per_alignment": row["earlier_ms"] / npack,
+            "ms": ms, "ms_per_alignment": ms / npack,
             "bound_ms_per_alignment": bms, "bound_by": by}
     la, lb, lc = SPLIT_SHAPE
     trips = _inputs(rng, SPLIT_SHAPE)
@@ -2669,8 +2590,7 @@ def phase_timings(rng, dev, batch) -> tuple:
                           tiled_ref=False) for v in ("free", "bwd")}
     split_err = max(e for e, _ in split.values())
     for variant in ("free", "bwd"):
-        row = in_turns(diagonal_k5, sk.slab_sweep,
-                       slab_inputs(trips, variant))
+        row = {"ms": time_cuda_ms(sk.slab_sweep, slab_inputs(trips, variant))}
         plain_ms = split[variant][1]
         rows[f"slab_{variant}_{la}x{lb}x{lc}"] = {
             **row, "gcups": gcups(la * lb * lc, row["ms"]),
@@ -2682,7 +2602,8 @@ def phase_timings(rng, dev, batch) -> tuple:
     # stripes the model's band against one band a stripe, in turns.
     n = 1024
     quarters = quarter_inputs(_inputs(rng, (n, n, n), 3))
-    rows["blocked_tiles_1024_quarters"] = in_turns(*QUARTERS, quarters)
+    rows["blocked_tiles_1024_quarters"] = {
+        "ms": time_cuda_ms(tiles_in_runs, quarters)}
     block = bk.choose_block_shape(n, n, n)
     trips = [(t,) for t in _inputs(rng, (n, n, n), 3)]
 
@@ -2778,15 +2699,14 @@ def time_direct(rng, dev, n=1024) -> dict:
 
 
 def time_k2(rng, shape, dev) -> dict:
-    """K2 at ``shape`` (3 inputs) in turns with its earlier design
-    (earlier, new, new, earlier); its launches a call; 20 calls queued
+    """K2 at ``shape`` (3 inputs); its launches a call; 20 calls queued
     without waiting: the host's microseconds a call and the card's
     milliseconds a call between two events around them (the card's time
     where it outpaces the host); K3 on the same triplets; the plain sweep
     at 255^3 and below (one run); the bound."""
     trips = _inputs(rng, shape, 3)
     inputs = wavefront_inputs(trips)
-    row = turns_old_new(wf.final_values_earlier, wf.final_values, inputs)
+    row = {"ms": time_cuda_ms(wf.final_values, inputs)}
     torch.cuda.synchronize()
     reset_launches()
     start = torch.cuda.Event(enable_timing=True)
@@ -2831,13 +2751,13 @@ def one_block_an_sm(whole, quarters, halo, trips) -> dict:
     for name, default, capped, inputs in (
             ("whole", bk.final_values,
              functools.partial(bk.final_values, blocks=sms), whole),
-            ("quarters", QUARTERS[1], functools.partial(
+            ("quarters", tiles_in_runs, functools.partial(
                 in_runs, functools.partial(bk.sweep_tiles, blocks=sms)),
              quarters),
             ("halo_2_stripes", halo, capped_halo, trips)):
         turns = in_turns(default, capped, inputs)
-        out[name] = {"ms": turns["diagonal_ms"], "one_block_an_sm_ms":
-                     turns["ms"], "turns_ms": turns["turns_ms"]}
+        out[name] = {"ms": turns["first_ms"], "one_block_an_sm_ms":
+                     turns["second_ms"], "turns_ms": turns["turns_ms"]}
     return out
 
 
@@ -2989,48 +2909,37 @@ def main() -> int:
     # are at the 1024^3 sharded traceback's top split; the direct engine's
     # at 1024^3.  Eight pallas_call sites, nine rows: K3's chain mode keeps a
     # row of its own; then the direct engine's two programs, which are XLA
-    # in the JAX package, not pallas_call sites.  K3 and its chain mode
-    # give their earlier design's time of the same run (the persistent sweep
-    # on the shared-memory pillar), K5 the diagonal schedule's, the per-tile
-    # forms of K3 and K5 their earlier design's.
+    # in the JAX package, not pallas_call sites.
     k3_row = rows["blocked_1024"]
     chain_times = {f"{k}_{n}x{p}": rows[f"chain_{n}x{p}"][k]
                    for n, p in CHAIN_BENCH
-                   for k in ("ms_per_alignment", "earlier_ms_per_alignment")}
+                   for k in ("ms_per_alignment",)}
     k5_free, k5_bwd = rows[f"slab_free_{split}"], rows[f"slab_bwd_{split}"]
     quarters = rows["blocked_tiles_1024_quarters"]
-    tiles.update(main_path_ms_in_quarters=quarters["ms"],
-                 main_path_earlier_design_ms_in_quarters=quarters[
-                     "diagonal_ms"])
+    tiles.update(main_path_ms_in_quarters=quarters["ms"])
     kernels = [
         ("wavefront", "wavefront", "trialign/kernels/wavefront.py:112",
          k2_err, rows["wavefront_255x255x255"],
          {"shape": "255^3",
-          "old_design_ms": rows["wavefront_255x255x255"]["old_design_ms"],
           "k3_ms": rows["wavefront_255x255x255"]["k3_ms"],
           **{f"{k}_{shape}": rows[f"wavefront_{shape}"][k]
              for shape in ("64x64x64", "4096x255x255")
-             for k in ("ms", "old_design_ms", "k3_ms", "bound_ms")}}),
+             for k in ("ms", "k3_ms", "bound_ms")}}),
         ("blocked", "blocked", "trialign/kernels/blocked.py:225", k3_err,
-         k3_row, {"earlier_ms": k3_row["earlier_ms"],
-                  **{f"{k}_{n}": rows[f"blocked_{n}"][k]
-                     for n in (512, 1536)
-                     for k in ("ms", "earlier_ms", "bound_ms")}}),
+         k3_row, {f"{k}_{n}": rows[f"blocked_{n}"][k]
+                  for n in (512, 1536) for k in ("ms", "bound_ms")}),
         ("blocked_tiles", "blocked", "trialign/kernels/blocked.py:859",
          tiles.pop("max_abs_err"), tiles, tiles),
         ("blocked_chain", "blocked", "trialign/kernels/blocked.py:906",
          chain.pop("max_abs_err"), chain, {**chain, **chain_times}),
         ("hetero", "hetero", "trialign/kernels/blocked.py:990", k4_err, k4,
-         {"cells": k4["cells"], "old_design_ms": k4["old_design_ms"],
-          "batch_ms": k4["batch"]["ms"],
-          "batch_old_design_ms": k4["batch"]["old_design_ms"],
+         {"cells": k4["cells"], "batch_ms": k4["batch"]["ms"],
           "batch_bound_ms": k4["batch"]["bound_ms"],
           "batch_cells": k4["batch"]["cells"]}),
         ("hetero_tiles", "hetero", "trialign/kernels/blocked.py:1075",
          hetero_tiles.pop("max_abs_err"), hetero_tiles, hetero_tiles),
         ("slab", "slab", "trialign/kernels/slab.py:74", k5_err, k5_free,
-         {"diagonal_ms": k5_free["diagonal_ms"], "bwd_ms": k5_bwd["ms"],
-          "bwd_diagonal_ms": k5_bwd["diagonal_ms"]}),
+         {"bwd_ms": k5_bwd["ms"]}),
         ("slab_tiles", "slab", "trialign/kernels/slab.py:587",
          slab_tiles.pop("max_abs_err"), slab_tiles, slab_tiles),
         ("vpu", "vpu", "trialign/benchmarks.py:286", k6.pop("max_abs_err"),

@@ -11,6 +11,8 @@ Inputs come from a seeded numpy generator; scores are integers, so equality
 is exact (tolerance 0).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -139,17 +141,18 @@ def padded_batch(card, seed, n=40):
 
 
 @pytest.mark.parametrize("name", sorted(SCORINGS))
-def test_wavefront_matches_earlier_design_on_a_padded_batch(card, name):
-    """40 triplets in one launch of each design, all seven values equal;
-    the earlier design counts apart."""
+def test_wavefront_matches_plain_on_a_padded_batch(card, name):
+    """40 triplets in one launch, all seven values of each the plain
+    sweep's on the card; the empty one all zero."""
     scoring, _ = SCORINGS[name]
-    _, args = padded_batch(card, 7)
-    before = (wf.final_values.launches, wf.final_values_earlier.launches)
-    got = wf.final_values(*args, scoring)
-    want = wf.final_values_earlier(*args, scoring)
-    assert (wf.final_values.launches, wf.final_values_earlier.launches) == (
-        before[0] + 1, before[1] + 1)
-    assert torch.equal(got, want)
+    _, (a, b, c, lens) = padded_batch(card, 7)
+    before = wf.final_values.launches
+    got = wf.final_values(a, b, c, lens, scoring)
+    assert wf.final_values.launches == before + 1
+    for p, dims in enumerate(lens.tolist()):
+        want = ref.sweep(a[p], b[p], c[p], *dims, scoring) if min(dims) \
+            else torch.zeros(7, dtype=torch.int32, device=card)
+        assert torch.equal(got[p], want), p
     assert got[3].tolist() == [0] * 7
 
 
@@ -495,24 +498,31 @@ def test_sharded_traceback_on_card_rescores(card):
     assert score == align_planes_numpy(a, b, c) == rescore_alignment(rows)
 
 
+@functools.lru_cache(maxsize=None)
+def blocked_plain(dims, block):
+    """blocked_ref's final values of triplet(15, dims) at tile plane
+    ``block``, on the card; each parametrised case reuses them."""
+    d = bk.plan_dims(*dims, *block)
+    arrs = bk.prep_blocked(*triplet(15, dims), d, torch.device("cuda"))
+    return bk.blocked_ref(*arrs, *dims, d)
+
+
 @pytest.mark.parametrize("blocks", [1, 3, None])
 @pytest.mark.parametrize("chunk", [1, 3, 7, bk.MAX_CHUNK])
-@pytest.mark.parametrize("dims,block,threads", [
-    ((37, 70, 45), (9, 17), 256),       # 8 x 3 tiles, ragged
-    ((60, 200, 300), (33, 33), 512),    # 7 x 10 tiles
-    ((50, 130, 90), (17, 17), 512),
+@pytest.mark.parametrize("dims,block", [
+    ((37, 70, 45), (9, 17)),       # 8 x 3 tiles, ragged
+    ((60, 200, 300), (33, 33)),    # 7 x 10 tiles
+    ((50, 130, 90), (17, 17)),
 ])
-def test_persistent_sweep_matches_diagonal_schedule(card, dims, block,
-                                                    threads, chunk, blocks):
+def test_persistent_sweep_matches_plain(card, dims, block, chunk, blocks):
     """K3's whole grid in one persistent launch, at any chunk its rings take
     and any grid cap (1 block sweeps the table alone): the final values
-    equal the per-tile form's earlier design run one diagonal at a time (at
-    ``threads`` a block), and the golden score."""
+    equal blocked_ref's over the same tile table on the card, and the
+    golden score."""
     d = bk.plan_dims(*dims, *block)
     trip = triplet(15, dims)
     arrs = bk.prep_blocked(*trip, d, card)
-    want = bk.sweep_diagonals(*arrs, *dims, d, bk.new_state(d, card), 0,
-                              bk.n_tiles(d), threads=threads).out[0]
+    want = blocked_plain(dims, block)
     before = bk.final_values.launches
     got = bk.final_values(*arrs, *dims, d, chunk=chunk, blocks=blocks)
     assert bk.final_values.launches == before + 1
@@ -521,45 +531,55 @@ def test_persistent_sweep_matches_diagonal_schedule(card, dims, block,
 
 
 @pytest.mark.parametrize("blocks", [1, 3, None])
-def test_persistent_chain_matches_diagonal_schedule(card, blocks):
+def test_persistent_chain_matches_plain(card, blocks):
+    """Chain mode in one persistent launch: every slot's seven values equal
+    blocked_ref's on the card."""
     la, lb, lc = 30, 100, 70
     rng = np.random.default_rng(16)
     a_list = [rng.integers(0, 4, la).astype(np.uint8) for _ in range(4)]
     b, c = (rng.integers(0, 4, n).astype(np.uint8) for n in (lb, lc))
     d = bk.plan_dims_packed(la, lb, lc, 4, 17, 17)
     arrs = bk.prep_chain(a_list, b, c, d, card)
-    want = bk.sweep_diagonals(*arrs, la, lb, lc, d, bk.new_state(d, card),
-                              0, bk.n_tiles(d)).out
+    want = bk.blocked_ref(*arrs, la, lb, lc, d)
     before = bk.chain_values.launches
     got = bk.chain_values(*arrs, la, lb, lc, d, chunk=5, blocks=blocks)
     assert bk.chain_values.launches == before + 1
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("blocks", [1, 3, None])
-@pytest.mark.parametrize("variant", sorted(sk.VARIANTS))
-@pytest.mark.parametrize("name", ["sop", "sub16"])
-def test_persistent_slab_matches_diagonal_schedule(card, name, variant,
-                                                   blocks):
-    """K5's whole grid in one persistent launch: capture and final vector
-    bit for bit those of its per-tile form's earlier design run one
-    diagonal at a time."""
-    scoring, nsym = SLAB_SCORINGS[name]
+def slab_inputs(card, name):
+    """The persistent slab test's inputs: (dims, tile dims, arrays, ev)."""
+    _, nsym = SLAB_SCORINGS[name]
     dims = (20, 60, 50)
     a, b, c = (x.astype(np.int32) for x in triplet(17, dims, nsym))
     ev = np.full(7, NEG, np.int32)
     ev[2] = 0
     d = sk._plan(*dims, (9, 17))
-    arrs = sk.prep_blocked(a, b, c, d, card)
-    want = sk.new_state(*dims, d, ev, card)
-    sk.sweep_diagonals(*arrs, *dims, d, variant, want, 0, bk.n_tiles(d),
-                       scoring)
+    return dims, d, sk.prep_blocked(a, b, c, d, card), ev
+
+
+@functools.lru_cache(maxsize=None)
+def slab_plain(name, variant):
+    """slab_ref's (final, capture) on slab_inputs, on the card; each
+    parametrised case reuses them."""
+    dims, d, arrs, ev = slab_inputs(torch.device("cuda"), name)
+    return sk.slab_ref(*arrs, *dims, d, variant, ev, SLAB_SCORINGS[name][0])
+
+
+@pytest.mark.parametrize("blocks", [1, 3, None])
+@pytest.mark.parametrize("variant", sorted(sk.VARIANTS))
+@pytest.mark.parametrize("name", ["sop", "sub16"])
+def test_persistent_slab_matches_plain(card, name, variant, blocks):
+    """K5's whole grid in one persistent launch: capture and final vector
+    bit for bit those of slab_ref over the same tile table on the card."""
+    dims, d, arrs, ev = slab_inputs(card, name)
+    f_want, cap_want = slab_plain(name, variant)
     before = sk.slab_sweep.launches
-    f, cap = sk.slab_sweep(*arrs, *dims, d, variant, ev, scoring, chunk=3,
-                           blocks=blocks)
+    f, cap = sk.slab_sweep(*arrs, *dims, d, variant, ev,
+                           SLAB_SCORINGS[name][0], chunk=3, blocks=blocks)
     assert sk.slab_sweep.launches == before + 1
-    assert torch.equal(cap, want.cap)
-    assert torch.equal(f, want.out)
+    assert torch.equal(cap, cap_want)
+    assert torch.equal(f, f_want)
 
 
 def hetero_batch(card, seed, block, nsym=4):
@@ -577,6 +597,16 @@ def assert_hetero_states_equal(got, want):
         assert torch.equal(g, w), name
 
 
+@functools.lru_cache(maxsize=None)
+def hetero_plain(block):
+    """hetero_ref's whole state on hetero_batch(card, 20, block); each
+    parametrised case reuses it."""
+    batch = hetero_batch(torch.device("cuda"), 20, block)
+    want = hetero.new_state(batch)
+    hetero.hetero_ref(batch, state=want)
+    return want
+
+
 # K4's tile planes on the card: one sub-tile ((9, 17), the default), and
 # tiles cut into 2 x 2 sub-tiles and into four ragged columns of them.
 HETERO_PLANES = [(9, 17), (33, 33), (34, 65), (16, 128)]
@@ -585,21 +615,19 @@ HETERO_PLANES = [(9, 17), (33, 33), (34, 65), (16, 128)]
 @pytest.mark.parametrize("blocks", [1, 3, None])
 @pytest.mark.parametrize("chunk", [1, 7, hetero.MAX_CHUNK])
 @pytest.mark.parametrize("block", HETERO_PLANES)
-def test_persistent_hetero_matches_diagonal_schedule(card, block, chunk,
-                                                     blocks):
+def test_persistent_hetero_matches_plain(card, block, chunk, blocks):
     """K4 over a whole dispatch in one persistent launch, at chunks up to
     the longest its rings take and at any grid cap (1 block sweeps the
-    table alone): faces, final values and progress words equal K4's earlier
-    design run one diagonal a launch, and the final values hetero_ref's."""
+    table alone): faces, final values and progress words equal hetero_ref's
+    on the card."""
     batch = hetero_batch(card, 20, block)
     n = len(batch.tiles)
-    want = hetero.sweep_diagonals(batch, hetero.new_state(batch), 0, n)
+    want = hetero_plain(block)
     before = hetero.sweep_tiles.launches
     got = hetero.sweep_tiles(batch, hetero.new_state(batch), 0, n,
                              chunk=chunk, blocks=blocks)
     assert hetero.sweep_tiles.launches == before + 1
     assert_hetero_states_equal(got, want)
-    assert torch.equal(got.out, hetero.hetero_ref(batch))
 
 
 @pytest.mark.parametrize("block", HETERO_PLANES)
@@ -894,8 +922,8 @@ def test_choice_kernel_at_scale(card, mode):
 @pytest.mark.parametrize("dims", [(30, 1, 45), (40, 34, 66),
                                   (120, 90, 100)])
 def test_walk_kernel_matches_host_walk(card, dims, mode):
-    """From every end state: the walk kernel's steps and stop equal the
-    host walk's and its plain version's, on the kernel's buffers."""
+    """From every end state: the walk kernel's count, steps and stop equal
+    its plain version's, on the kernel's buffers."""
     from trialign_torch.traceback import direct as D
 
     (a, b, c), v0 = direct_inputs(9, dims, 4, mode)
@@ -907,9 +935,6 @@ def test_walk_kernel_matches_host_walk(card, dims, mode):
         want = D.walk_ref(lo, hi, t0, *dims, mode).cpu()
         n = int(want[0])
         assert torch.equal(got[:4 + n], want[:4 + n])
-        acts, stop = D._walk(lo, hi, t0, *dims, dims[2] + 1, mode)
-        assert got[4:4 + n].tolist() == acts
-        assert tuple(got[1:4].tolist()) == stop
 
 
 @pytest.mark.parametrize("mode", ["free", "free_jk", "pin"])

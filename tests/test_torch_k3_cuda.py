@@ -1,6 +1,7 @@
 """K3 on the register step, on the card: the whole grid, chain mode and the
-per-tile form against the plain versions (``blocked_ref``, the golden
-model, the C++ oracle) and the earlier design on the shared-memory pillar.
+per-tile form against the plain versions on the card (``blocked_ref`` over
+the same tiles, the whole-plane sweep ``ref.sweep``), the golden model and
+the C++ oracle.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The file
 imports neither JAX nor the JAX package (run it as tests/test_torch_cuda.py
@@ -20,6 +21,7 @@ import torch
 from trialign_torch.config import Scoring
 from trialign_torch.golden import align_planes_numpy
 from trialign_torch.kernels import blocked as bk
+from trialign_torch.kernels import ref
 from trialign_torch.native import score_native
 
 pytestmark = pytest.mark.cuda
@@ -54,12 +56,6 @@ def seqs(seed, lens, nsym):
     return tuple(rng.integers(0, nsym, n).astype(np.uint8) for n in lens)
 
 
-def earlier_fits(hb, wc):
-    """Whether the earlier design's 25 ring planes (and the table) fit in a
-    block's shared memory at tile plane hb x wc."""
-    return 4 * (25 * hb * wc + hb + wc + 625) <= bk.SMEM_CAP
-
-
 # (lens, tile plane): ragged last tiles in j and k; |A| shorter than a
 # tile; 16-row tiles of 8 strips; 7 strips, the last 3 columns wide; 2
 # strips, the last one column; one row of tiles, 20 columns of them.
@@ -70,7 +66,7 @@ WHOLE = [((37, 70, 45), (9, 17)), ((20, 300, 280), (33, 33)),
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 @pytest.mark.parametrize("lens,block", WHOLE)
-def test_whole_grid_matches_plain_and_earlier(card, lens, block, mode):
+def test_whole_grid_matches_plain(card, lens, block, mode):
     scoring, bits, nsym = MODES[mode]
     trip = seqs(41, lens, nsym)
     d = bk.plan_dims(*lens, *block)
@@ -79,24 +75,21 @@ def test_whole_grid_matches_plain_and_earlier(card, lens, block, mode):
     got = bk.final_values(*arrs, *lens, d, scoring, bits)
     assert bk.final_values.launches == before + 1
     assert torch.equal(got, bk.blocked_ref(*arrs, *lens, d, scoring, bits))
-    if earlier_fits(*block):
-        assert torch.equal(got, bk.final_values_earlier(*arrs, *lens, d,
-                                                        scoring, bits))
     if not bits:
         assert int(got.max()) == align_planes_numpy(*trip, scoring)
 
 
 def test_whole_grid_near_1500(card):
     """A ~1500^3 triplet at the default plane (47 x 47 tiles, the last
-    ragged): all seven values equal the earlier design's, and the score the
-    C++ oracle's (about 95 s on the card's host)."""
+    ragged): all seven values equal the whole-plane sweep's on the card, and
+    the score the C++ oracle's (about 95 s on the card's host)."""
     lens = (1500, 1503, 1490)
     trip = seqs(42, lens, 4)
     d = bk.plan_dims(*lens)
     assert (d.n_jb, d.n_kb) == (47, 47)
     arrs = bk.prep_blocked(*trip, d, card)
     got = bk.final_values(*arrs, *lens, d)
-    assert torch.equal(got, bk.final_values_earlier(*arrs, *lens, d))
+    assert torch.equal(got, ref.sweep(*arrs, *lens))
     assert int(got.max()) == score_native(*trip)
 
 
@@ -110,7 +103,7 @@ CHAINS = [((2, 30, 40), (9, 17), 5), ((10, 40, 50), (9, 17), 3),
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 @pytest.mark.parametrize("lens,block,npack", CHAINS)
-def test_chain_matches_plain_and_earlier(card, lens, block, npack, mode):
+def test_chain_matches_plain(card, lens, block, npack, mode):
     scoring, bits, nsym = MODES[mode]
     la, lb, lc = lens
     rng = np.random.default_rng(43)
@@ -125,9 +118,6 @@ def test_chain_matches_plain_and_earlier(card, lens, block, npack, mode):
     assert got.shape == (npack, 7)
     assert torch.equal(got, bk.blocked_ref(*arrs, la, lb, lc, d, scoring,
                                            bits))
-    if earlier_fits(*block):
-        assert torch.equal(got, bk.chain_values_earlier(*arrs, la, lb, lc, d,
-                                                        scoring, bits))
     if not bits:
         assert got.max(dim=1).values.tolist() == \
             [align_planes_numpy(a, b, c, scoring) for a in a_list]
@@ -157,12 +147,10 @@ RUN_KINDS = {"checkpoint": checkpoint_runs, "band1": band_runs(1, 2),
 @pytest.mark.parametrize("kind", sorted(RUN_KINDS))
 @pytest.mark.parametrize("lens,block", [((30, 80, 100), (9, 17)),
                                         ((30, 80, 150), (33, 33))])
-def test_per_tile_runs_match_plain_and_earlier(card, lens, block, kind,
-                                               mode):
+def test_per_tile_runs_match_plain(card, lens, block, kind, mode):
     """K3's per-tile form, one launch a run: after every run the face slabs
     and the output equal blocked_ref's over the same tiles, and at the end
-    the earlier design's (the per-tile form run one diagonal at a time),
-    bit for bit."""
+    blocked_ref's over the whole table in table order, bit for bit."""
     scoring, bits, nsym = MODES[mode]
     trip = seqs(44, lens, nsym)
     d = bk.plan_dims(*lens, *block)
@@ -175,9 +163,9 @@ def test_per_tile_runs_match_plain_and_earlier(card, lens, block, kind,
         bk.blocked_ref(*arrs, *lens, d, scoring, bits, want, tiles=tiles)
         for g, w, field in zip(got, want, want._fields):
             assert torch.equal(g, w), field
-    earlier = bk.sweep_diagonals(*arrs, *lens, d, bk.new_state(d, card), 0,
-                                 bk.n_tiles(d), scoring, bits)
-    for g, w, field in zip(got, earlier, earlier._fields):
+    whole = bk.new_state(d, card)
+    bk.blocked_ref(*arrs, *lens, d, scoring, bits, whole)
+    for g, w, field in zip(got, whole, whole._fields):
         assert torch.equal(g, w), field
 
 
@@ -188,14 +176,15 @@ def test_per_tile_runs_match_plain_and_earlier(card, lens, block, kind,
 def test_progress_words_on_both_sides_of_the_threshold(card, lens, block):
     """Grids under RAMP_WAVES waves (a word a strip) and past it (one a
     tile), and the same grid capped to a few blocks (one a tile): the final
-    values equal the earlier design's, and the score the C++ oracle's."""
+    values equal the whole-plane sweep's on the card, and the score the C++
+    oracle's."""
     trip = seqs(46, lens, 4)
     d = bk.plan_dims(*lens, *block)
     arrs = bk.prep_blocked(*trip, d, card)
     waves = bk.n_tiles(d) / bk.resident_blocks(d)
     assert bk.schedule(d, bk.n_tiles(d), bk.resident_blocks(d)).strip_words \
         == (waves <= bk.RAMP_WAVES)
-    want = bk.final_values_earlier(*arrs, *lens, d)
+    want = ref.sweep(*arrs, *lens)
     for blocks in (None, 5):
         assert torch.equal(bk.final_values(*arrs, *lens, d, blocks=blocks),
                            want)

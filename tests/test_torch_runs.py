@@ -185,18 +185,3 @@ def test_plain_versions_over_a_list_equal_the_table_order(rng):
         for tiles in stripe_bands(1, 2)(dims):
             sk.sweep_run(*sarrs, *lens, dims, variant, sgot, tiles)
         assert_states_equal(sgot, swant)
-
-
-def test_earlier_designs_need_a_card(rng):
-    lens = (5, 9, 9)
-    trip = tuple(rng.integers(0, 4, n).astype(np.uint8) for n in lens)
-    dims = bk.plan_dims(*lens, *BLOCK)
-    arrs = bk.prep_blocked(*trip, dims, "cpu")
-    with pytest.raises(ValueError, match="CUDA"):
-        bk.sweep_diagonals(*arrs, *lens, dims, bk.new_state(dims, "cpu"), 0,
-                           1)
-    seqs = tuple(x.astype(np.int32) for x in trip)
-    ev = np.zeros(7, np.int32)
-    with pytest.raises(ValueError, match="CUDA"):
-        sk.sweep_diagonals(*sk.prep_blocked(*seqs, dims, "cpu"), *lens, dims,
-                           "free", sk.new_state(*lens, dims, ev, "cpu"), 0, 1)

@@ -200,12 +200,6 @@ def test_tile_planes_past_one_sub_tile_are_refused(block):
         wf.plan_tiles([(5, 5, 5)], (6, 6, 6), block)
 
 
-def test_earlier_design_runs_only_on_the_card():
-    with pytest.raises(ValueError, match="CUDA"):
-        wf.final_values_earlier(*wf.prep(*triplets(7, [(5, 4, 3)])[0],
-                                         "cpu"))
-
-
 def test_plain_is_one_sweep_per_problem():
     """On the CPU the wrapper is ref.sweep per problem and counts no
     launch."""

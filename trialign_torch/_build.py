@@ -76,39 +76,23 @@ SIGNATURES = {
             _I, [_P, _P, _P, _P, _P, _I, _I, _I, _P, StepScoring, _P, _P, _P,
                  _P, _P, _I, _I, _P]),
         "trialign_wavefront_resources": (_I, [_I, _I, _I, _I, _IP]),
-        "trialign_wavefront_scratch_ints": (_I, [_I, _I]),
-        "trialign_wavefront_earlier": (
-            _I, [_P, _I, _P, _P, _P, _I, _I, _I, _P, StepScoring, _P, _P,
-                 _P]),
     },
     "blocked": {
-        "trialign_blocked_tiles": (
-            _I, [_P, _P, _P, BlockedGeom, _I, _I, _I, _P, StepScoring, _P, _P,
-                 _P, _I, _P]),
         "trialign_blocked_sweep": (
             _I, [_P, _P, _P, BlockedGeom, _P, _I, _P, StepScoring, _P, _P, _P,
                  _I, _I, _P, _P, _I, _P]),
-        "trialign_blocked_sweep_earlier": (
-            _I, [_P, _P, _P, BlockedGeom, _P, _I, _P, StepScoring, _P, _P, _P,
-                 _I, _I, _P, _P, _P]),
         "trialign_blocked_resources": (_I, [_I, _I, _I, _I, _I, _I, _IP]),
     },
     "hetero": {
         "trialign_hetero_sweep": (
             _I, [_P, _P, _P, _I, _I, _I, _I, _P, StepScoring, _P, _P, _P, _P,
                  _P, _I, _I, _I, _P]),
-        "trialign_hetero_diag": (
-            _I, [_P, _P, _P, _I, _I, _I, _P, StepScoring, _P, _P, _P, _P,
-                 _P]),
         "trialign_hetero_resources": (_I, [_I, _I, _I, _I, _IP]),
         "trialign_hetero_phases": (
             _I, [ctypes.POINTER(ctypes.c_ulonglong)]),
     },
     "slab": {
         "trialign_slab_shared_bytes": (_I, [_I, _I, _I]),
-        "trialign_slab_tiles": (
-            _I, [_P, _P, _P, SlabGeom, _I, _I, _I, _P, _P, StepScoring, _P,
-                 _P, _P, _P, _P]),
         "trialign_slab_sweep": (
             _I, [_P, _P, _P, SlabGeom, _P, _I, _P, _P, StepScoring, _P, _P,
                  _P, _P, _I, _I, _P, _P, _P]),

@@ -42,19 +42,12 @@
 // run was swept by an earlier launch, ordered before this one by the stream
 // or an event, and reads as finished; the progress words are the launch's
 // own.  The face slabs and the output stay in device memory between
-// launches, in the layout the shared-memory pillar wrote.
-//
-// Kept for comparison only (chip_smoke.py and the cuda tests; no entry
-// point of the package reaches them): blocked_kernel, the per-tile form as
-// it was, one launch a run of one anti-diagonal with one thread block a
-// tile (schedule NoWait), and pillar_sweep, the persistent sweep as it was,
-// on the shared-memory pillar (csrc/pillar.cuh) with one word a tile.
+// launches.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
 
-#include "pillar.cuh"
 #include "warp_sweep.cuh"
 
 namespace trialign {
@@ -276,99 +269,6 @@ int step_mode(const StepScoring& s) {
   return (s.rtl ? 1 : 0) | (s.nsym ? 2 : 0) | (s.score_bits ? 4 : 0);
 }
 
-// K3's per-tile form as it was: one block of NT threads a tile of one
-// anti-diagonal, stream order carrying the faces.
-template <int NT, bool CHAIN>
-__global__ void __launch_bounds__(NT)
-    blocked_kernel(const int* __restrict__ a_ext, const int* __restrict__ b_ext,
-                   const int* __restrict__ c_ext, BlockedGeom g, int diag,
-                   int jb_lo, const int* __restrict__ sub, StepScoring s,
-                   int* rf, int* cf, int* __restrict__ out) {
-  extern __shared__ int smem[];
-  const int jb = jb_lo + blockIdx.x, kb = diag - jb;
-  const bool target = jb == g.n_jb - 1 && kb == g.n_kb - 1;
-  NoWait sync;
-  tile_pillar<NT, CHAIN>(smem, a_ext, b_ext, c_ext, g.hb, g.wc, g.la, g.d,
-                         jb, kb, target, g.jlstar, g.klstar, sub, s,
-                         row_faces(rf, g, kb), col_faces(cf, g, jb), out, sync);
-}
-
-// K3's persistent sweep as it was: blocked_persistent's table, hand-out
-// and state on the shared-memory pillar, one progress word a tile.
-constexpr int kPillarThreads = 512;
-
-template <bool CHAIN>
-__global__ void __launch_bounds__(kPillarThreads)
-    pillar_sweep(const int* __restrict__ a_ext, const int* __restrict__ b_ext,
-                 const int* __restrict__ c_ext, BlockedGeom g,
-                 const RunEntry* __restrict__ run, int ntiles, int chunk,
-                 const int* __restrict__ sub, StepScoring s, int* rf,
-                 int* cf, int* __restrict__ out, int* next_tile, int* done) {
-  extern __shared__ int smem[];
-  const int tb = g.hb - 1, tc = g.wc - 1, nq = g.la + tb + tc;
-  for (;;) {
-    const int t = take_tile(next_tile);
-    if (t >= ntiles) return;
-    int jb, kb, me, up, left;
-    launch_tile(g, run, t, jb, kb, me, up, left);
-    PlaneWait sync(done + me, up >= 0 ? done + up : nullptr,
-                   left >= 0 ? done + left : nullptr, tb, tc, nq, chunk, 1);
-    const bool target = jb == g.n_jb - 1 && kb == g.n_kb - 1;
-    tile_pillar<kPillarThreads, CHAIN>(
-        smem, a_ext, b_ext, c_ext, g.hb, g.wc, g.la, g.d, jb, kb, target,
-        g.jlstar, g.klstar, sub, s, row_faces(rf, g, kb),
-        col_faces(cf, g, jb), out, sync);
-  }
-}
-
-template <int NT, bool CHAIN>
-int launch(const int* a, const int* b, const int* c, const BlockedGeom& g,
-           int diag, int jb_lo, int ntiles, const int* sub, StepScoring s,
-           int* rf, int* cf, int* out, cudaStream_t stream) {
-  const size_t smem = pillar_shared_bytes(g.hb, g.wc, s.nsym != 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      blocked_kernel<NT, CHAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  blocked_kernel<NT, CHAIN><<<ntiles, NT, smem, stream>>>(
-      a, b, c, g, diag, jb_lo, sub, s, rf, cf, out);
-  return (int)cudaGetLastError();
-}
-
-template <int NT>
-int launch_mode(const int* a, const int* b, const int* c,
-                const BlockedGeom& g, int diag, int jb_lo, int ntiles,
-                const int* sub, StepScoring s, int* rf, int* cf, int* out,
-                cudaStream_t stream) {
-  if (g.d == g.la + 1)
-    return launch<NT, false>(a, b, c, g, diag, jb_lo, ntiles, sub, s, rf, cf,
-                             out, stream);
-  return launch<NT, true>(a, b, c, g, diag, jb_lo, ntiles, sub, s, rf, cf, out,
-                          stream);
-}
-
-template <bool CHAIN>
-int launch_pillar_sweep(const int* a, const int* b, const int* c,
-                        const BlockedGeom& g, const RunEntry* run, int ntiles,
-                        int chunk, int max_blocks, const int* sub,
-                        StepScoring s, int* rf, int* cf, int* out,
-                        int* next_tile, int* done, cudaStream_t stream) {
-  const size_t smem = pillar_shared_bytes(g.hb, g.wc, s.nsym != 0);
-  int per_sm = 0, blocks = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      pillar_sweep<CHAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pillar_sweep<CHAIN>, kPillarThreads, smem);
-  if (err == cudaSuccess)
-    err = persistent_grid(per_sm, ntiles, max_blocks, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  pillar_sweep<CHAIN><<<blocks, kPillarThreads, smem, stream>>>(
-      a, b, c, g, run, ntiles, chunk, sub, s, rf, cf, out, next_tile, done);
-  return (int)cudaGetLastError();
-}
-
 bool valid_geom(const BlockedGeom& g) {
   return g.d >= 1 && g.npack >= 1 && g.la == g.npack * g.d - 1 &&
          g.n_jb >= 1 && g.n_kb >= 1;
@@ -385,48 +285,18 @@ bool valid_run(const BlockedGeom& g, const int* run, int ntiles) {
 
 extern "C" {
 
-// K3's per-tile form as it was, for comparison: launch tiles (jb_lo ..
-// jb_lo + ntiles - 1, diag - jb) of tile anti-diagonal diag on `stream`.  a: A_i at index i for 1 <= i <= la (slot
-// borders i = m*d in chain mode); b: n_jb * tb + 1 symbols (B_j at index j, sentinels past
-// |B|); c likewise with n_kb * tc + 1; rf: n_kb * nrows * 7 * wc ints; cf:
-// n_jb * nrows * 7 * hb ints; out: 7 ints a slot, written by the last tile.
-// A tile runs after both of its upper and left neighbours on one stream.
-// Returns cudaGetLastError() (or the error of cudaFuncSetAttribute).
-int trialign_blocked_tiles(const int* a, const int* b, const int* c,
-                           trialign::BlockedGeom g, int diag, int jb_lo,
-                           int ntiles, const int* sub,
-                           trialign::StepScoring s, int* rf, int* cf,
-                           int* out, int threads, void* stream) {
-  const int lo = diag - (g.n_kb - 1) > 0 ? diag - (g.n_kb - 1) : 0;
-  const int hi = diag < g.n_jb - 1 ? diag : g.n_jb - 1;
-  if (diag < 0 || ntiles < 1 || jb_lo < lo || jb_lo + ntiles - 1 > hi ||
-      !trialign::valid_geom(g))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (threads) {
-    case 256:
-      return trialign::launch_mode<256>(a, b, c, g, diag, jb_lo, ntiles, sub, s,
-                                        rf, cf, out, st);
-    case 512:
-      return trialign::launch_mode<512>(a, b, c, g, diag, jb_lo, ntiles, sub, s,
-                                        rf, cf, out, st);
-    case 1024:
-      return trialign::launch_mode<1024>(a, b, c, g, diag, jb_lo, ntiles, sub, s,
-                                         rf, cf, out, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Launch K3 as one persistent launch on `stream`: arrays as
-// trialign_blocked_tiles takes them.  run == nullptr: the whole grid on a
-// fresh state (ntiles = n_jb * n_kb).  Otherwise run holds ntiles entries of
-// 4 ints (jb, kb, up, left), up and left the entries of the tile's
-// neighbours within the run (earlier entries) or -1; a neighbour outside the
-// run must have been swept by a launch ordered before this one (the same
-// stream, or an event); run is 16-byte aligned.  chunk: local planes
-// between two handshakes (1 .. kMaxChunk); max_blocks: caps the grid (0: as
-// many blocks as the SMs hold at once); next_tile: 1 int, 0; done:
+// Launch K3 as one persistent launch on `stream`.  a: A_i at index i for
+// 1 <= i <= la (slot borders i = m*d in chain mode); b: n_jb * tb + 1
+// symbols (B_j at index j, sentinels past |B|); c likewise with
+// n_kb * tc + 1; rf: n_kb * nrows * 7 * wc ints; cf: n_jb * nrows * 7 * hb
+// ints; out: 7 ints a slot, written by the last tile.  run == nullptr: the
+// whole grid on a fresh state (ntiles = n_jb * n_kb).  Otherwise run holds
+// ntiles entries of 4 ints (jb, kb, up, left), up and left the entries of
+// the tile's neighbours within the run (earlier entries) or -1; a neighbour
+// outside the run must have been swept by a launch ordered before this one
+// (the same stream, or an event); run is 16-byte aligned.  chunk: local
+// planes between two handshakes (1 .. kMaxChunk); max_blocks: caps the grid
+// (0: as many blocks as the SMs hold at once); next_tile: 1 int, 0; done:
 // kMaxStrips ints a tile, -1; strip_words: a progress word a strip (only
 // outside chain mode), else one a tile; the tile plane at most 33 x 33.  A
 // wait past the watchdog traps (csrc/schedule.cuh).  Returns
@@ -455,29 +325,6 @@ int trialign_blocked_sweep(const int* a, const int* b, const int* c,
       a, b, c, g, reinterpret_cast<const trialign::RunEntry*>(run), ntiles,
       chunk, sub, s, rf, cf, out, next_tile, done);
   return (int)cudaGetLastError();
-}
-
-// K3's persistent sweep as it was, for comparison: arguments as
-// trialign_blocked_sweep takes them, but chunk any number of planes >= 1
-// and done one int a tile, -1; 512 threads a block.
-int trialign_blocked_sweep_earlier(const int* a, const int* b, const int* c,
-                                   trialign::BlockedGeom g, const int* run,
-                                   int ntiles, const int* sub,
-                                   trialign::StepScoring s, int* rf, int* cf,
-                                   int* out, int chunk, int max_blocks,
-                                   int* next_tile, int* done, void* stream) {
-  if (!trialign::valid_run(g, run, ntiles) || chunk < 1 || max_blocks < 0)
-    return (int)cudaErrorInvalidValue;
-  const trialign::RunEntry* r =
-      reinterpret_cast<const trialign::RunEntry*>(run);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (g.d == g.la + 1)
-    return trialign::launch_pillar_sweep<false>(a, b, c, g, r, ntiles, chunk,
-                                                max_blocks, sub, s, rf, cf,
-                                                out, next_tile, done, st);
-  return trialign::launch_pillar_sweep<true>(a, b, c, g, r, ntiles, chunk,
-                                             max_blocks, sub, s, rf, cf, out,
-                                             next_tile, done, st);
 }
 
 // What the sweep of scoring mode `mode` (chain mode: `chain` nonzero; a

@@ -45,21 +45,15 @@
 // a cell, four shuffles), as long as the table keeps every SM's blocks busy;
 // the batch's last diagonals leave SMs idle.
 //
-// Kept for comparison only (chip_smoke.py; no entry point of the package
-// reaches it): hetero_diag, K4 as it was, one launch a run of one diagonal
-// with one 512-thread block a tile on K3's shared-memory pillar
-// (csrc/pillar.cuh, stream order carrying the faces).  The sweep's clocked
-// build (CLOCK, default scoring only) serves kernels/hetero.py step_phases.
+// The sweep's clocked build (CLOCK, default scoring only) serves
+// kernels/hetero.py step_phases.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "pillar.cuh"
 #include "warp_sweep.cuh"
 
 namespace trialign {
 namespace {
-
-constexpr int kSmemThreads = 512;
 
 // Two blocks an SM: 8 strips of 4 columns, 128 registers a thread.
 template <bool SUB, bool RTL, bool CLOCK>
@@ -101,24 +95,6 @@ __global__ void __launch_bounds__(32 * kMaxStrips, 2)
       }
     }
   }
-}
-
-// K4 as it was: one block a tile of one diagonal, stream order carrying the
-// faces; the tile's progress word is set once it is swept.
-__global__ void __launch_bounds__(kSmemThreads)
-    hetero_diag(const int* __restrict__ syms,
-                const long long* __restrict__ geom,
-                const int* __restrict__ table, int hb, int wc,
-                const int* __restrict__ sub, StepScoring s, int* rf, int* cf,
-                int* out, int* done) {
-  extern __shared__ int smem[];
-  const Entry t = table_entry(syms, syms, syms, geom, table, blockIdx.x, hb,
-                              wc, rf, cf, out, kNumMatrices, done, 1);
-  NoWait sync;
-  tile_pillar<kSmemThreads, false>(
-      smem, t.a, t.b, t.c, hb, wc, t.la, t.la + 1, t.jb, t.kb, t.target,
-      t.jlstar, t.klstar, sub, s, t.rface, t.cface, t.out, sync);
-  if (threadIdx.x == 0) *t.done = t.la + hb + wc - 2;
 }
 
 // Blocks of fn one SM holds with `threads` threads and `smem` bytes.
@@ -187,26 +163,6 @@ int trialign_hetero_sweep(const int* syms, const long long* geom,
   fn<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       syms, geom, table, idx0, count, hb, wc, sub, s, rf, cf, out, done,
       next_entry, chunk);
-  return (int)cudaGetLastError();
-}
-
-// K4 as it was: one block for each of the `ntiles` entries at `table` (a run
-// of one global tile anti-diagonal), on `stream`, after the diagonals
-// before it; done: those entries' progress words.  Returns
-// cudaGetLastError() (or the error of cudaFuncSetAttribute).
-int trialign_hetero_diag(const int* syms, const long long* geom,
-                         const int* table, int ntiles, int hb, int wc,
-                         const int* sub, trialign::StepScoring s, int* rf,
-                         int* cf, int* out, int* done, void* stream) {
-  if (ntiles < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = trialign::pillar_shared_bytes(hb, wc, s.nsym != 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      trialign::hetero_diag, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  trialign::hetero_diag<<<ntiles, trialign::kSmemThreads, smem,
-                          (cudaStream_t)stream>>>(syms, geom, table, hb, wc,
-                                                  sub, s, rf, cf, out, done);
   return (int)cudaGetLastError();
 }
 

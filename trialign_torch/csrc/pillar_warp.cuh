@@ -2,19 +2,18 @@
 // a register of its lane.
 //
 // Replaces, for K4 (csrc/hetero.cu), K2 (csrc/wavefront.cu) and K3
-// (csrc/blocked.cu, its whole grid, per-tile form and chain mode), the
-// shared-memory pillar (csrc/pillar.cuh), which now only the earlier
-// designs run: the body of trialign/kernels/blocked.py:_block_sweep, one
-// tile of tb x tc cells swept through its local planes q (cell (jl, kl) of
-// plane q holds global i = q - jl - kl), with a one-cell halo taken from
-// the faces its upper and left neighbours wrote.  K2 and K3 sweep each tile
-// as one sub-tile.
+// (csrc/blocked.cu, its whole grid, per-tile form and chain mode), the body
+// of trialign/kernels/blocked.py:_block_sweep: one tile of tb x tc cells
+// swept through its local planes q (cell (jl, kl) of plane q holds global
+// i = q - jl - kl), with a one-cell halo taken from the faces its upper and
+// left neighbours wrote.  K2 and K3 sweep each tile as one sub-tile.
 //
-// Bound on the card: csrc/pillar.cuh keeps 25 planes of the tile in shared
-// memory, so each cell is 42 shared loads and a block-wide barrier ends
-// every plane; one 33 x 33 tile-plane step took 2.26 us on an SM (PERF.md),
-// about 12% of the SM's integer rate.  Here a cell costs its integer
-// operations (about 70), four warp shuffles and no barrier.
+// Bound on the card: the shared-memory pillar this step replaced kept 25
+// planes of the tile in shared memory, so each cell was 42 shared loads and
+// a block-wide barrier ended every plane; one 33 x 33 tile-plane step took
+// 2.26 us on an SM (PERF.md), about 12% of the SM's integer rate.  Here a
+// cell costs its integer operations (about 70), four warp shuffles and no
+// barrier.
 //
 // Sub-tiles.  The step sweeps at most 32 rows by kSubCols = 32 columns at a
 // time.  A larger tile is swept as sub-tiles of that size, row after row of
@@ -66,8 +65,9 @@
 // reduces it to partials in a staging buffer.  The bottom row's values go
 // to the row face at the end of each chunk, written by the whole warp; a
 // cell of column tc writes its values to the column face (__stcg), each
-// where 1 <= i <= |A|; the halo corners go to the faces as csrc/pillar.cuh
-// writes them, so the state is K3's.  The last strip publishes the tile's
+// where 1 <= i <= |A|; the halo corners go to the faces too (the bottom
+// row's column-0 entry, the right column's row-0 entry), so the state is
+// that of K3's plain version (kernels/blocked.py blocked_ref).  The last strip publishes the tile's
 // progress after each chunk of its last sub-tile (all strips have finished
 // it by then): __syncwarp, __threadfence and a release store.  Rows a tile
 // reads and writes in place follow PlaneWait's argument; inside the tile a

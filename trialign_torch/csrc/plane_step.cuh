@@ -1,8 +1,8 @@
-// The 7-matrix affine-gap cell step shared by the wavefront (K2), blocked
-// (K3) and slab (K5) kernels and K4's earlier design; K4's register step
-// (csrc/pillar_warp.cuh) takes the same groups pre-reduced.  The direct
-// engine's choice-capture sweep (csrc/slab.cu, CHOICES) steps with
-// cell_step_choices, which also returns each target's argmax.
+// The 7-matrix affine-gap cell step of the slab kernel (K5); the register
+// step of K2, K3 and K4 (csrc/pillar_warp.cuh) takes the same groups
+// pre-reduced.  The direct engine's choice-capture sweep (csrc/slab.cu,
+// CHOICES) steps with cell_step_choices, which also returns each target's
+// argmax.
 //
 // Replaces trialign/kernels/plane_math.py:fused_plane_update_m7 (K1), the
 // plane-wide grouped max-plus update every Pallas kernel inlines.  On the TPU
@@ -12,11 +12,11 @@
 //
 // Bound on the card: the step is integer add/max only (no matrix product, so
 // no tensor cores); it reads 42 predecessor values plus one carried max7 and
-// writes 8 values per cell, so it is bound by the loads from wherever the
-// plane ring lives (L2 for K2, shared memory for K3).  Design: the weight
-// groups are fixed by which axes each matrix consumes, so they are written
-// out by hand (3 groups for the single-consume targets, 2 for the
-// double-consume ones, 1 for M) and take the gap charges at run time.  The
+// writes 8 values per cell, so it is bound by the loads from the plane ring
+// in shared memory.  Design: the weight groups are fixed by which axes each
+// matrix consumes, so they are written out by hand (3 groups for the
+// single-consume targets, 2 for the double-consume ones, 1 for M) and take
+// the gap charges at run time.  The
 // integers equal the grouped update's: max is exact, and each group's charge
 // is the one Scoring.weight_matrix() gives every source in it.
 //

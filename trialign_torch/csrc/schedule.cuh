@@ -1,31 +1,23 @@
-// The two schedules of a tile pillar: launch order, or per-plane readiness.
+// The schedule of a persistent tile sweep: per-plane readiness.
 //
-// K5 (csrc/slab.cu) and the shared-memory pillar of the earlier designs
-// (csrc/pillar.cuh) sweep tiles of tb x tc cells through local planes q;
-// the register step of K2, K3 and K4 (csrc/pillar_warp.cuh) follows the
-// same rule with PlaneWait's await and release store.  A tile reads row q of its
-// row-face slab at plane q, which its upper neighbour (jb - 1, kb) wrote at
-// its plane q + tb, and row q of its column-face slab, which its left
-// neighbour (jb, kb - 1) wrote at its plane q + tc.  A tile's sweep of its
-// pillar is therefore templated on a policy that says how faces are read and
-// written and what happens at the start of each plane:
+// K5 (csrc/slab.cu) sweeps tiles of tb x tc cells through local planes q
+// with PlaneWait; the register step of K2, K3 and K4 (csrc/pillar_warp.cuh)
+// follows the same rule with PlaneWait's await and release store.  A tile
+// reads row q of its row-face slab at plane q, which its upper neighbour
+// (jb - 1, kb) wrote at its plane q + tb, and row q of its column-face
+// slab, which its left neighbour (jb, kb - 1) wrote at its plane q + tc.
 //
-// * NoWait: a launch runs tiles whose neighbours ran in earlier launches on
-//   the same stream (one launch per tile anti-diagonal: the earlier designs
-//   of the per-tile forms of K3, K4 and K5, which only chip_smoke.py runs),
-//   so stream order makes the faces visible; faces are plain loads and
-//   stores.
-// * PlaneWait: one persistent launch runs the whole tile table, or a run of
-//   it (the per-tile forms).  A neighbour outside the run was swept by an
-//   earlier launch that the stream or an event orders before this one, and
-//   has no progress word here (nullptr): it reads as finished, and its faces
-//   are read through L2 like any other.  A tile sweeps its pillar in chunks
-//   of planes [q0, q1).  Before a chunk, thread 0 waits until the upper
-//   neighbour has finished plane min(q1 - 1 + tb, nq) and the left
-//   neighbour plane min(q1 - 1 + tc, nq) (kernels/blocked.py planes_needed,
-//   the rule the CPU tests model in any order it allows); after the chunk's
-//   last barrier it publishes q1 - 1.  The diagonal neighbour needs no flag:
-//   the corner comes through the upper neighbour's row face.
+// One persistent launch runs the whole tile table, or a run of it (the
+// per-tile forms).  A neighbour outside the run was swept by an earlier
+// launch that the stream or an event orders before this one, and has no
+// progress word here (nullptr): it reads as finished, and its faces are
+// read through L2 like any other.  A tile sweeps its pillar in chunks of
+// planes [q0, q1).  Before a chunk, thread 0 waits until the upper
+// neighbour has finished plane min(q1 - 1 + tb, nq) and the left neighbour
+// plane min(q1 - 1 + tc, nq) (kernels/blocked.py planes_needed, the rule
+// the CPU tests model in any order it allows); after the chunk's last
+// barrier it publishes q1 - 1.  The diagonal neighbour needs no flag: the
+// corner comes through the upper neighbour's row face.
 //
 // Memory ordering.  A face row is written by one SM and read by another while
 // the kernel runs, and adjacent rows share 128-byte lines (a row is 7 x wc
@@ -48,13 +40,6 @@
 namespace trialign {
 
 constexpr unsigned long long kWatchdogNs = 10ull * 1000 * 1000 * 1000;
-
-struct NoWait {
-  __device__ __forceinline__ int load(const int* p) const { return *p; }
-  __device__ __forceinline__ void store(int* p, int v) const { *p = v; }
-  __device__ __forceinline__ void before_plane(int) {}
-  __device__ __forceinline__ void finish() {}
-};
 
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;

@@ -21,7 +21,7 @@
 //   (engine.py:238-273).  Every computed value is clamped at NEG, as the
 //   engine clamps, so captured cells equal it bit for bit.
 //
-// Bound on the card: as K3, the integer add/max step (no tensor-core work)
+// Bound on the card: the integer add/max step (no tensor-core work)
 // reads 43 values a cell from the plane ring in shared memory, and a barrier
 // ends each plane; the capture adds one write of 7 ints for each cell of
 // the i = |A| plane.  Its ~117 KB plane ring holds one block to an SM.
@@ -74,10 +74,6 @@
 // argmax), the count chip_smoke.py's bound uses, and the 3 B a cell it
 // writes, 3.2 GB at 1024^3, in short rows of a tile's width.
 //
-// Kept for comparison only (chip_smoke.py; no entry point of the package
-// reaches it): slab_kernel, the per-tile form as it was, one launch a run of
-// one anti-diagonal with one block a tile (schedule NoWait).
-//
 // Design: the tile plane carries a guard row and column (index -1) that are
 // set to the variant's fill and never written, so an edge cell's
 // predecessor outside the cuboid reads NEG without a branch.  The ring (3
@@ -122,7 +118,7 @@ constexpr int kNeg = -(1 << 26);
 // slab, column-face slab, pad.
 constexpr int kScalCols = 16;
 constexpr int kRingPlanes = 3 * kNumMatrices + 4;
-// Threads per tile, as K3 (csrc/blocked.cu).
+// Threads per tile.
 constexpr int kThreads = 512;
 
 // Where the choice-capture sweep writes: packed_lo and packed_hi of
@@ -193,16 +189,17 @@ size_t choices_shared_bytes(int hb, int wc, bool sub) {
   return shared_bytes(hb, wc, sub) + (size_t)4 * (hb + 1) * (wc + 1);
 }
 
-// Sweeps tile (jb, kb) under the schedule policy `sync` (csrc/schedule.cuh).
-// CHOICES: the direct engine's choice-capture sweep (see the top of this
-// file) instead of K5's capture; `co` is read only then.
-template <bool CHOICES, class Sync>
+// Sweeps tile (jb, kb), waiting and publishing through `sync`
+// (csrc/schedule.cuh).  CHOICES: the direct engine's choice-capture sweep
+// (see the top of this file) instead of K5's capture; `co` is read only
+// then.
+template <bool CHOICES>
 __device__ __forceinline__ void slab_tile(
     int* smem, const int* __restrict__ a_ext, const int* __restrict__ b_ext,
     const int* __restrict__ c_ext, const SlabGeom& g, int jb, int kb,
     const int* __restrict__ scal, const int* __restrict__ sub,
     const StepScoring& s, int* rf, int* cf, int* __restrict__ out,
-    int* __restrict__ cap, const ChoiceOut& co, Sync& sync) {
+    int* __restrict__ cap, const ChoiceOut& co, PlaneWait& sync) {
   const int hb = g.hb, wc = g.wc, tb = hb - 1, tc = wc - 1;
   // Guarded plane: position (jl, kl) at (jl + 1) * W1 + kl + 1, jl, kl >= -1.
   const int W1 = wc + 1, PG = (hb + 1) * W1;
@@ -372,21 +369,6 @@ __device__ __forceinline__ void slab_tile(
   sync.finish();
 }
 
-// Tiles (jb_lo .. jb_lo + gridDim.x - 1, d - jb), one block each, after the
-// launches of the earlier diagonals on the same stream (the earlier design).
-__global__ void __launch_bounds__(kThreads)
-    slab_kernel(const int* __restrict__ a_ext, const int* __restrict__ b_ext,
-                const int* __restrict__ c_ext, SlabGeom g, int d, int jb_lo,
-                const int* __restrict__ scal, const int* __restrict__ sub,
-                StepScoring s, int* rf, int* cf, int* __restrict__ out,
-                int* __restrict__ cap) {
-  extern __shared__ int smem[];
-  const int jb = jb_lo + blockIdx.x;
-  NoWait sync;
-  slab_tile<false>(smem, a_ext, b_ext, c_ext, g, jb, d - jb, scal, sub, s, rf,
-                   cf, out, cap, ChoiceOut{}, sync);
-}
-
 // Entry of a run's table, as csrc/blocked.cu RunEntry: (jb, kb, up, left).
 using RunEntry = int4;
 
@@ -524,24 +506,6 @@ int launch_choices(const int* a, const int* b, const int* c,
   return (int)cudaGetLastError();
 }
 
-int launch(const int* a, const int* b, const int* c, const SlabGeom& g, int d,
-           int jb_lo, int ntiles, const int* scal, const int* sub,
-           StepScoring s, int* rf, int* cf, int* out, int* cap,
-           cudaStream_t stream) {
-  const int lo = d - (g.n_kb - 1) > 0 ? d - (g.n_kb - 1) : 0;
-  const int hi = d < g.n_jb - 1 ? d : g.n_jb - 1;
-  if (d < 0 || ntiles < 1 || jb_lo < lo || jb_lo + ntiles - 1 > hi ||
-      !valid(g, s))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = shared_bytes(g.hb, g.wc, s.nsym != 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  slab_kernel<<<ntiles, kThreads, smem, stream>>>(
-      a, b, c, g, d, jb_lo, scal, sub, s, rf, cf, out, cap);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace trialign
 
@@ -553,37 +517,22 @@ int trialign_slab_shared_bytes(int hb, int wc, int nsym) {
   return (int)trialign::shared_bytes(hb, wc, nsym != 0);
 }
 
-// K5's per-tile form as it was, for comparison: launch tiles (jb_lo ..
-// jb_lo + ntiles - 1, d - jb) of tile anti-diagonal d on `stream`.  a: A_i
-// at index i for 0 <= i <= |A| (index 0 a sentinel); b: n_jb * tb + 1 symbols (B_j at index j), c likewise with
-// n_kb * tc + 1; scal: (n_jb * n_kb, 16) ints, one row per tile (row
-// jb * n_kb + kb), whose columns 13 and 14 name the tile's row- and
-// column-face slabs; rf: 7 * wc ints a row, nrows rows a slab; cf: 7 * hb
-// ints a row, nrows rows a slab; out: 7 ints, written by the forward
-// variants' target tile; cap: (n_jb * n_kb, 7, hb, wc) ints, each tile's
-// entries written.  A tile runs after its upper and left neighbours on one
-// stream, or after an event that orders them.  Returns cudaGetLastError()
-// (or the error of cudaFuncSetAttribute).
-int trialign_slab_tiles(const int* a, const int* b, const int* c,
-                        trialign::SlabGeom g, int d, int jb_lo, int ntiles,
-                        const int* scal, const int* sub,
-                        trialign::StepScoring s, int* rf, int* cf, int* out,
-                        int* cap, void* stream) {
-  return trialign::launch(a, b, c, g, d, jb_lo, ntiles, scal, sub, s, rf, cf,
-                          out, cap, (cudaStream_t)stream);
-}
-
-// Launch K5 as one persistent launch on `stream`: arrays as
-// trialign_slab_tiles takes them, on a state whose scal names tile (jb,
-// kb)'s faces by its column and row.  run == nullptr: the whole grid on a
-// fresh state (ntiles = n_jb * n_kb).  Otherwise run holds ntiles entries of
-// 4 ints (jb, kb, up, left), up and left the entries of the tile's
-// neighbours within the run (earlier entries) or -1; a neighbour outside the
-// run must have been swept by a launch ordered before this one (the same
-// stream, or an event); run is 16-byte aligned.  chunk: local planes
-// between two handshakes (>= 1); max_blocks: caps the grid (0: as many
-// blocks as the SMs hold at once); next_tile: 1 int, 0; done: ntiles ints,
-// -1.  A wait past the watchdog traps (csrc/schedule.cuh).  Returns
+// Launch K5 as one persistent launch on `stream`.  a: A_i at index i for
+// 0 <= i <= |A| (index 0 a sentinel); b: n_jb * tb + 1 symbols (B_j at
+// index j), c likewise with n_kb * tc + 1; scal: (n_jb * n_kb, 16) ints, one
+// row per tile (row jb * n_kb + kb), whose columns 13 and 14 name the
+// tile's row- and column-face slabs, its column and row; rf: 7 * wc ints a
+// row, nrows rows a slab; cf: 7 * hb ints a row, nrows rows a slab; out: 7
+// ints, written by the forward variants' target tile; cap: (n_jb * n_kb, 7,
+// hb, wc) ints, each tile's entries written.  run == nullptr: the whole
+// grid on a fresh state (ntiles = n_jb * n_kb).  Otherwise run holds
+// ntiles entries of 4 ints (jb, kb, up, left), up and left the entries of
+// the tile's neighbours within the run (earlier entries) or -1; a neighbour
+// outside the run must have been swept by a launch ordered before this one
+// (the same stream, or an event); run is 16-byte aligned.  chunk: local
+// planes between two handshakes (>= 1); max_blocks: caps the grid (0: as
+// many blocks as the SMs hold at once); next_tile: 1 int, 0; done: ntiles
+// ints, -1.  A wait past the watchdog traps (csrc/schedule.cuh).  Returns
 // cudaGetLastError() (or the error of the occupancy query).
 int trialign_slab_sweep(const int* a, const int* b, const int* c,
                         trialign::SlabGeom g, const int* run, int ntiles,

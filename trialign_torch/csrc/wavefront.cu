@@ -35,19 +35,11 @@
 // |C| in a ragged last tile reads the last symbol (its cells feed no cell
 // inside the problem).  score_bits is a mode of the step (BITS): each
 // value wraps where it is made.
-//
-// Kept for comparison only (chip_smoke.py and the cuda tests; no entry
-// point of the package reaches it): wavefront_kernel, K2 as it was, one
-// thread block a problem striding over the (j, k) cells of each whole
-// plane with a block barrier between planes and the plane ring (3
-// generations of the 7 matrices, 4 of max7: 25 planes, 6.5 MB at 255^2) in
-// global scratch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
 
-#include "plane_step.cuh"
 #include "warp_sweep.cuh"
 
 namespace trialign {
@@ -154,70 +146,6 @@ cudaError_t cached_per_sm(SweepFn fn, int mode, int chunk, int threads,
   return err;
 }
 
-// K2 as it was: the plane ring of one problem in global scratch, and the
-// threads of its block (the fastest of 256, 512 and 1024 at 255^3).
-constexpr int kRingPlanes = 3 * kNumMatrices + 4;
-constexpr int kEarlierThreads = 1024;
-
-__global__ void __launch_bounds__(kEarlierThreads)
-    wavefront_kernel(const int* __restrict__ a_ext, int a_stride,
-                     const int* __restrict__ b_ext,
-                     const int* __restrict__ c_ext,
-                     const int* __restrict__ lens, int hb, int wc,
-                     const int* __restrict__ sub, StepScoring s, int* scratch,
-                     int* __restrict__ out) {
-  extern __shared__ int sub_s[];  // sub_table_ints(s.nsym != 0)
-  const int p = blockIdx.x;
-  const int la = lens[3 * p], lb = lens[3 * p + 1], lc = lens[3 * p + 2];
-  const int* a = a_ext + (size_t)p * a_stride;
-  const int* bsym = b_ext + (size_t)p * hb;
-  const int* csym = c_ext + (size_t)p * wc;
-  const int P = hb * wc;
-  // Ring: planes[slot][t][j * wc + k] for 3 slots, then max7[slot][...] for
-  // 4 slots.  Not __restrict__: threads read what others wrote before the
-  // barrier, so these loads must not take the non-coherent path.  The ring
-  // is zeroed once, and a cell is written only on planes where it is
-  // valid: a cell whose i is below 1 reads as the zero border; a cell past
-  // |A| may hold a stale value, but no valid cell reads it.
-  int* planes = scratch + (size_t)p * kRingPlanes * P;
-  int* m7 = planes + 3 * kNumMatrices * P;
-  for (int x = threadIdx.x; x < kRingPlanes * P; x += kEarlierThreads)
-    planes[x] = 0;
-  // An empty sequence scores 0 (its border face holds the final cell).
-  if (threadIdx.x < kOutStride) out[kOutStride * p + threadIdx.x] = 0;
-  load_sub_table(sub, s.nsym, sub_s);
-  __syncthreads();
-
-  const int qmax = la + lb + lc;
-  const int ncell = lb * lc;
-  for (int q = 1; q <= qmax; ++q) {
-    int* cur = planes + (q % 3) * kNumMatrices * P;
-    const int* p1 = planes + ((q + 2) % 3) * kNumMatrices * P;
-    const int* p2 = planes + ((q + 1) % 3) * kNumMatrices * P;
-    int* m7cur = m7 + (q & 3) * P;
-    const int* m7p3 = m7 + ((q + 1) & 3) * P;  // slot of plane q - 3
-    for (int x = threadIdx.x; x < ncell; x += kEarlierThreads) {
-      const int j = x / lc + 1;
-      const int k = x - (j - 1) * lc + 1;
-      const int i = q - j - k;
-      if (i < 1 || i > la) continue;
-      const int c = j * wc + k;
-      int v[kNumMatrices];
-      const int mx = cell_step(p1, p2, P, c, c - wc, c - 1, c - wc - 1,
-                               m7p3[c - wc - 1], a[i], bsym[j], csym[k], s,
-                               sub_s, v);
-#pragma unroll
-      for (int t = 0; t < kNumMatrices; ++t) cur[t * P + c] = v[t];
-      m7cur[c] = mx;
-      if (q == qmax && j == lb && k == lc) {
-#pragma unroll
-        for (int t = 0; t < kNumMatrices; ++t) out[kOutStride * p + t] = v[t];
-      }
-    }
-    __syncthreads();
-  }
-}
-
 }  // namespace
 }  // namespace trialign
 
@@ -286,33 +214,6 @@ int trialign_wavefront_resources(int hb, int wc, int chunk, int mode,
   out[3] = (int)smem;
   out[4] = blocks;
   return 0;
-}
-
-// K2 as it was.  Ints of ring scratch one problem needs at plane extents
-// hb x wc.
-int trialign_wavefront_scratch_ints(int hb, int wc) {
-  return trialign::kRingPlanes * hb * wc;
-}
-
-// K2 as it was: one thread block of 1024 threads for each of nprob
-// problems on `stream`.  a: (nprob, a_stride) with a[p][i] = A_i for
-// 1 <= i <= |A|; b: (nprob, hb), c: (nprob, wc) with the symbol of row j /
-// column k at index j / k; lens: (nprob, 3) int32 (|A|, |B|, |C|) with
-// |B| < hb, |C| < wc; scratch: nprob times
-// trialign_wavefront_scratch_ints(hb, wc) ints; out: (nprob, 8), of which
-// the first 7 get the final-cell values (all 0 when a sequence is empty).
-// Returns cudaGetLastError().
-int trialign_wavefront_earlier(const int* a, int a_stride, const int* b,
-                               const int* c, const int* lens, int nprob,
-                               int hb, int wc, const int* sub,
-                               trialign::StepScoring s, int* scratch,
-                               int* out, void* stream) {
-  trialign::wavefront_kernel<<<
-      nprob, trialign::kEarlierThreads,
-      sizeof(int) * trialign::sub_table_ints(s.nsym != 0),
-      (cudaStream_t)stream>>>(
-      a, a_stride, b, c, lens, hb, wc, sub, s, scratch, out);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -34,11 +34,7 @@ tile row, the cells in registers; a tile is one sub-tile of that step, at
 most 32 x 32 cells (:func:`plan_dims` refuses a larger tile plane).
 :func:`schedule` gives each strip a
 progress word of its own where the launch is bound by its ramp, and the
-tile one where it is bound by the step rate.  :func:`sweep_diagonals`
-keeps the per-tile form's earlier design, one launch a run of one
-anti-diagonal, and :func:`final_values_earlier` /
-:func:`chain_values_earlier` the persistent sweep's, on the shared-memory
-pillar, for ``chip_smoke.py`` to compare.
+tile one where it is bound by the step rate.
 
 Chain mode (:func:`plan_dims_packed`): ``npack`` problems of equal |A|
 stacked along i at pitch d = |A| + 1, sharing B and C, swept as one problem
@@ -99,9 +95,6 @@ CHUNK = 8
 RAMP_WAVES = 2
 # Shared memory one thread block may take on sm_90 (227 KB).
 SMEM_CAP = 232448
-# Threads a block of the earlier designs (sweep_diagonals, and
-# final_values_earlier's 512) on the shared-memory pillar.
-THREADS_EARLIER = 512
 
 
 def block_threads(wc: int) -> int:
@@ -680,39 +673,6 @@ def sweep_run(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                        state, list(tiles), scoring, score_bits, chunk, blocks)
 
 
-def sweep_diagonals(a_ext, b_ext, c_ext, la: int, lb: int, lc: int,
-                    dims: Dims, state: BlockedState, idx0: int, count: int,
-                    scoring: Scoring = Scoring(), score_bits: int = 0,
-                    threads: int = THREADS_EARLIER) -> BlockedState:
-    """K3's per-tile form as it was, on a CUDA tensor: one launch a run of
-    one tile anti-diagonal, a thread block a tile, stream order carrying the
-    faces (``csrc/blocked.cu`` blocked_kernel).  The same state as
-    :func:`sweep_tiles`; ``chip_smoke.py`` holds the two equal and times
-    them in turns.  No entry point of the package calls it."""
-    _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
-    dev = a_ext.device
-    _check_state(state, dims, dev)
-    if dev.type != "cuda":
-        raise ValueError("sweep_diagonals runs on a CUDA device")
-    lib = _build.load("blocked")
-    step, table = _build.kernel_scoring(scoring, score_bits, dev)
-    geom = _geom(lb, lc, dims)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for group in diagonal_groups(table_run(dims, idx0, count)):
-            jb_lo, kb = group[0]
-            code = lib.trialign_blocked_tiles(
-                a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(), geom,
-                jb_lo + kb, jb_lo, len(group), table.data_ptr(), step,
-                state.rf.data_ptr(), state.cf.data_ptr(),
-                state.out.data_ptr(), threads, stream,
-            )
-            _build.check(lib, code, f"blocked kernel launch (diagonal "
-                         f"{jb_lo + kb})")
-            sweep_diagonals.launches += 1
-    return state
-
-
 def final_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                  scoring: Scoring = Scoring(), score_bits: int = 0,
                  chunk: Optional[int] = None,
@@ -751,69 +711,12 @@ def chain_values(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                        score_bits, chunk, blocks).out
 
 
-def _earlier(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, scoring,
-             score_bits, chunk, blocks) -> BlockedState:
-    """The whole grid on a fresh state, one launch of K3's persistent sweep
-    as it was (``csrc/blocked.cu`` pillar_sweep), counted on ``counter``."""
-    _check(a_ext, b_ext, c_ext, la, lb, lc, dims, scoring)
-    check_schedule(chunk, blocks)
-    dev = a_ext.device
-    if dev.type != "cuda":
-        raise ValueError("the earlier design runs on a CUDA device")
-    state = new_state(dims, dev)
-    with torch.cuda.device(dev):
-        lib = _build.load("blocked")
-        step, table = _build.kernel_scoring(scoring, score_bits, dev)
-        work = launch_work(dims, None, dev)
-        code = lib.trialign_blocked_sweep_earlier(
-            a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
-            _geom(lb, lc, dims), work.run, work.ntiles, table.data_ptr(),
-            step, state.rf.data_ptr(), state.cf.data_ptr(),
-            state.out.data_ptr(), chunk, blocks or 0, work.next_tile,
-            work.done, torch.cuda.current_stream().cuda_stream,
-        )
-        _build.check(lib, code, "blocked kernel launch (earlier design)")
-        counter.launches += 1
-    return state
-
-
-def final_values_earlier(a_ext, b_ext, c_ext, la: int, lb: int, lc: int,
-                         dims: Dims, scoring: Scoring = Scoring(),
-                         score_bits: int = 0, chunk: int = CHUNK,
-                         blocks: Optional[int] = None) -> torch.Tensor:
-    """:func:`final_values` on K3's persistent sweep as it was, on a CUDA
-    tensor: the shared-memory pillar (``csrc/pillar.cuh``), 512 threads a
-    tile, one progress word a tile, any chunk.  ``chip_smoke.py`` and the
-    cuda tests hold the two equal and time them in turns; no entry point of
-    the package calls it."""
-    if dims.d:
-        raise ValueError("chain dims: use chain_values_earlier")
-    return _earlier(final_values_earlier, a_ext, b_ext, c_ext, la, lb, lc,
-                    dims, scoring, score_bits, chunk, blocks).out[0]
-
-
-def chain_values_earlier(a_ext, b_ext, c_ext, la: int, lb: int, lc: int,
-                         dims: Dims, scoring: Scoring = Scoring(),
-                         score_bits: int = 0, chunk: int = CHUNK,
-                         blocks: Optional[int] = None) -> torch.Tensor:
-    """:func:`chain_values` on K3's persistent sweep as it was
-    (:func:`final_values_earlier`)."""
-    if not dims.d:
-        raise ValueError("chain_values_earlier needs plan_dims_packed's dims")
-    return _earlier(final_values_earlier, a_ext, b_ext, c_ext, la, lb, lc,
-                    dims, scoring, score_bits, chunk, blocks).out
-
-
 # Launches of the CUDA kernel since the count was last set to 0, for each
 # entry point: the whole-grid sweep (final_values), the per-tile form
-# (sweep_tiles and sweep_run), chain mode (chain_values), the per-tile
-# form's earlier design (sweep_diagonals) and the persistent sweep's
-# (final_values_earlier, chain_values_earlier).
+# (sweep_tiles and sweep_run) and chain mode (chain_values).
 final_values.launches = 0
 sweep_tiles.launches = 0
 chain_values.launches = 0
-sweep_diagonals.launches = 0
-final_values_earlier.launches = 0
 
 
 def align_blocked_async(a, b, c, scoring: Scoring = Scoring(),

@@ -29,10 +29,7 @@ which sweeps each problem's tiles with K3's plain version ``blocked_ref``
 at the dispatch's tile plane, on the same state.  :func:`step_layout_ref`
 sweeps the same tiles in the register step's own order (lanes as tile
 rows, strips of columns, pre-reduced partials, a ring of boundary columns
-between strips); the tests hold it to both.  :func:`sweep_diagonals` is the
-design K4 had before (one launch a tile anti-diagonal on the shared-memory
-pillar ``csrc/pillar.cuh``), kept so that ``chip_smoke.py`` can hold the
-two equal and time them in turns; no entry point of the package reaches it.
+between strips); the tests hold it to both.
 """
 
 from __future__ import annotations
@@ -680,38 +677,6 @@ def final_values(batch: HeteroBatch, scoring: Scoring = Scoring(),
                 scoring, chunk, blocks).out
 
 
-def sweep_diagonals(batch: HeteroBatch, state: HeteroState, idx0: int,
-                    count: int, scoring: Scoring = Scoring()) -> HeteroState:
-    """K4 as it was before the register step, on a CUDA tensor: one launch
-    a run of one tile anti-diagonal, one 512-thread block a tile on the
-    shared-memory pillar (csrc/pillar.cuh), stream order carrying the
-    faces.  The same state as :func:`sweep_tiles`; ``chip_smoke.py`` holds
-    the two equal and times them in turns.  No entry point of the package
-    calls it."""
-    _build.check_submatrix(scoring)
-    _check_state(batch, state)
-    _check_range(batch, idx0, count)
-    dev = batch.syms.device
-    if dev.type != "cuda":
-        raise ValueError("sweep_diagonals runs on a CUDA device")
-    lib = _build.load("hetero")
-    step, table = _build.kernel_scoring(scoring, 0, dev)
-    row = 4 * len(TABLE_FIELDS)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for d, lo, n in _diag_runs(batch, idx0, count):
-            code = lib.trialign_hetero_diag(
-                batch.syms.data_ptr(), batch.geom_dev.data_ptr(),
-                batch.table_dev.data_ptr() + row * lo, n, batch.hb, batch.wc,
-                table.data_ptr(), step, state.rf.data_ptr(),
-                state.cf.data_ptr(), state.out.data_ptr(),
-                state.done.data_ptr() + 4 * lo, stream,
-            )
-            _build.check(lib, code, f"hetero kernel launch (diagonal {d})")
-            sweep_diagonals.launches += 1
-    return state
-
-
 def step_resources(hb: int, wc: int, scoring: Scoring = Scoring(),
                    chunk: int = CHUNK) -> dict:
     """What K4's persistent kernel takes on the current card at tile plane
@@ -727,11 +692,10 @@ def step_resources(hb: int, wc: int, scoring: Scoring = Scoring(),
 
 
 # Launches of the CUDA kernel since the count was last set to 0, for each
-# entry point: the whole dispatch (final_values), the per-tile form
-# (sweep_tiles) and the earlier design (sweep_diagonals).
+# entry point: the whole dispatch (final_values) and the per-tile form
+# (sweep_tiles).
 final_values.launches = 0
 sweep_tiles.launches = 0
-sweep_diagonals.launches = 0
 
 
 def default_budget(device, sharing: int = 1) -> Optional[int]:

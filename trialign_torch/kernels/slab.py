@@ -34,8 +34,7 @@ indices, and :func:`sweep_run` any list of tiles whose neighbours come first
 ``make_slab_block_call``, on which the stripes of ``dist/halo_tb.py`` run,
 one persistent launch a call as K3's (``kernels/blocked.py``).
 :func:`slab_sweep` computes the same state over the whole table in one
-launch.  :func:`sweep_diagonals` keeps the per-tile form's earlier design,
-one launch a run of one anti-diagonal, for ``chip_smoke.py`` to compare.
+launch.
 """
 
 from __future__ import annotations
@@ -450,39 +449,6 @@ def sweep_run(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                        variant, state, list(tiles), scoring, chunk, blocks)
 
 
-def sweep_diagonals(a_ext, b_ext, c_ext, la: int, lb: int, lc: int,
-                    dims: Dims, variant: str, state: SlabState, idx0: int,
-                    count: int, scoring: Scoring = Scoring()) -> SlabState:
-    """K5's per-tile form as it was, on a CUDA tensor: one launch a run of
-    one tile anti-diagonal, a thread block a tile, stream order carrying the
-    faces (``csrc/slab.cu`` slab_kernel).  The same state as
-    :func:`sweep_tiles`; ``chip_smoke.py`` holds the two equal and times
-    them in turns.  No entry point of the package calls it."""
-    _check(a_ext, b_ext, c_ext, la, lb, lc, dims, variant)
-    dev = a_ext.device
-    _check_state(state, dims, dev)
-    if dev.type != "cuda":
-        raise ValueError("sweep_diagonals runs on a CUDA device")
-    lib = _build.load("slab")
-    step, table = _build.kernel_scoring(scoring, 0, dev)
-    geom = _geom(dims, la, variant)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for group in bk.diagonal_groups(bk.table_run(dims, idx0, count)):
-            jb_lo, kb = group[0]
-            code = lib.trialign_slab_tiles(
-                a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(), geom,
-                jb_lo + kb, jb_lo, len(group), state.scal.data_ptr(),
-                table.data_ptr(), step, state.rf.data_ptr(),
-                state.cf.data_ptr(), state.out.data_ptr(),
-                state.cap.data_ptr(), stream,
-            )
-            _build.check(lib, code, f"slab kernel launch (diagonal "
-                         f"{jb_lo + kb})")
-            sweep_diagonals.launches += 1
-    return state
-
-
 def blocks_per_sm(dims: Dims) -> int:
     """Thread blocks of K5's persistent sweep that one SM of the current
     card holds at ``dims``'s tile plane."""
@@ -563,12 +529,11 @@ def choice_sweep(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
 
 # Launches of the CUDA kernel since the count was last set to 0, for each
 # entry point: the whole-grid sweep (slab_sweep), the per-tile form
-# (sweep_tiles and sweep_run), its earlier design (sweep_diagonals) and the
-# direct engine's choice-capture sweep (choice_sweep); and the cells those
-# launches swept (:func:`run_cells`), set to 0 with them.
+# (sweep_tiles and sweep_run) and the direct engine's choice-capture sweep
+# (choice_sweep); and the cells those launches swept (:func:`run_cells`),
+# set to 0 with them.
 slab_sweep.launches = slab_sweep.cells = 0
 sweep_tiles.launches = sweep_tiles.cells = 0
-sweep_diagonals.launches = 0
 choice_sweep.launches = choice_sweep.cells = 0
 
 

@@ -15,10 +15,7 @@ chunk of planes as its neighbours' progress words allow.  The symbols stay
 in the caller's arrays.  On a CPU tensor it runs the kernel's plain version,
 the whole-plane torch sweep of ``ref.py``; :func:`tiles_ref` sweeps the same
 table of tiles with K3's plain version ``blocked_ref``, which the tests hold
-to both.  :func:`final_values_earlier` is the design K2 had before (one
-thread block a problem), kept so that ``chip_smoke.py`` and the cuda tests
-can hold the two equal and time them in turns; no entry point of the
-package reaches it.
+to both.
 """
 
 from __future__ import annotations
@@ -398,41 +395,6 @@ def _work(plan: TilePlan, sub: Optional[np.ndarray], out_rows: int,
                  ptr + 4 * int(at[5]) if sub is not None else ptr)
 
 
-def final_values_earlier(a, b, c, lens, scoring: Scoring = Scoring(),
-                         score_bits: int = 0) -> torch.Tensor:
-    """K2 as it was before its tiles, on a CUDA tensor: one launch of one
-    1024-thread block a problem, the plane ring in global scratch; the same
-    inputs and result as :func:`final_values`.
-    ``chip_smoke.py`` and the cuda tests hold the two equal and time them
-    in turns; no entry point of the package calls it."""
-    _build.check_submatrix(scoring)
-    lens = _check_inputs(a, b, c, lens)
-    if a.device.type != "cuda":
-        raise ValueError("final_values_earlier runs on a CUDA device")
-    if b.shape[1] > MAX_BC + 1 or c.shape[1] > MAX_BC + 1:
-        raise ValueError("b and c hold at most 256 symbols a problem")
-    n = lens.shape[0]
-    lib = _build.load("wavefront")
-    hb, wc = b.shape[1], c.shape[1]
-    step, table = _build.kernel_scoring(scoring, score_bits, a.device)
-    lens_d = torch.from_numpy(lens.astype(np.int32)).to(a.device)
-    scratch = torch.empty(
-        n * lib.trialign_wavefront_scratch_ints(hb, wc), dtype=torch.int32,
-        device=a.device,
-    )
-    out = torch.empty((n, OUT_STRIDE), dtype=torch.int32, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.trialign_wavefront_earlier(
-            a.data_ptr(), a.shape[1], b.data_ptr(), c.data_ptr(),
-            lens_d.data_ptr(), n, hb, wc, table.data_ptr(), step,
-            scratch.data_ptr(), out.data_ptr(), stream,
-        )
-    _build.check(lib, code, "wavefront kernel launch (earlier design)")
-    final_values_earlier.launches += 1
-    return out[:, :NUM_MATRICES]
-
-
 def step_resources(block: Tuple[int, int] = TILE,
                    scoring: Scoring = Scoring(), score_bits: int = 0,
                    chunk: int = CHUNK) -> dict:
@@ -450,10 +412,8 @@ def step_resources(block: Tuple[int, int] = TILE,
                      "blocks_per_sm"), list(vals)))
 
 
-# Launches of the CUDA kernel since the count was last set to 0: the tiled
-# sweep (final_values) and the earlier design (final_values_earlier).
+# Launches of the CUDA kernel since the count was last set to 0.
 final_values.launches = 0
-final_values_earlier.launches = 0
 
 
 def align_wavefront(a, b, c, scoring: Scoring = Scoring(), score_bits: int = 0,

@@ -20,9 +20,8 @@ Port of ``trialign/traceback/direct.py``.  Below the Hirschberg cap
   consuming-matrix index of each alignment column, newest first: on a CUDA
   device one thread of ``csrc/walk.cu`` (the port of ``_walk_device``, an
   XLA ``while_loop``) into a small buffer that the host copies once; on the
-  CPU its plain version :func:`walk_ref`, the same loop in torch operations.
-  :func:`_walk`, which reads one entry a step into the host, is the
-  reference the tests hold both against.
+  CPU its plain version :func:`walk_ref`, the same loop in torch operations,
+  which the tests hold the kernel and the JAX engine's walk against.
 
 Every argmax breaks ties to the lowest source index, as ``jnp.argmax`` and
 ``torch.max`` do.  A field whose target has no predecessor in the cuboid (j <
@@ -185,27 +184,6 @@ def cuboid_slots(la: int, lb: int, lc: int, q0: int = 0,
           + torch.arange(lc + 1, dtype=torch.int32, device=dev)).view(1, -1)
     i = q.view(-1, 1) - jk
     return (i >= 0) & (i <= la)
-
-
-def _walk(packed_lo, packed_hi, t0: int, la: int, lb: int, lc: int, wc: int,
-          mode: str):
-    """Pointer chase from (la, lb, lc) in state t0.  Returns (actions
-    newest-first, the (i, j, k) the walk stopped at): free modes stop at the
-    first border, "pin" at the origin."""
-    freeish = mode != "pin"
-    i, j, k, t = la, lb, lc, t0
-    acts = []
-    while (i > 0 and j > 0 and k > 0) if freeish else (i > 0 or j > 0
-                                                        or k > 0):
-        q, pos = i + j + k, j * wc + k
-        if t < 5:
-            s = (int(packed_lo[q - 1, pos]) >> (3 * t)) & 7
-        else:
-            s = (int(packed_hi[q - 1, pos]) >> (3 * t - 15)) & 7
-        acts.append(t)
-        di, dj, dk = OFFSETS[t]
-        i, j, k, t = i - di, j - dj, k - dk, s
-    return acts, (i, j, k)
 
 
 def walk_ref(packed_lo, packed_hi, t0: int, la: int, lb: int, lc: int,
