@@ -9,8 +9,9 @@ CUDA toolkit (``nvcc``)::
 It builds the port's CUDA kernels from ``trialign_torch/csrc`` (one ``nvcc``
 per source, all at once) and prints one JSON line per phase:
 
-1. ``device``: the card, its SM clock, the toolkit, the build time and
-   ptxas statistics;
+1. ``device``: the card, its SM clock, the toolkit, the build time (and
+   each source's nvcc, all started together), the registers and spills of
+   every build of the register step (K2 to K5) and ptxas statistics;
 2. ``wavefront``: K2 (one persistent launch over every problem's tiles on
    the register step) against its plain version (the torch sweep),
    exactly, all seven values: tiny, ragged and |A|-long shapes under five
@@ -148,9 +149,10 @@ per source, all at once) and prints one JSON line per phase:
     warm-up) beside its plain version (one run) at the main path's
     sizes, and beside its bound; K2 at 64^3, 255^3 and 4096 x 255 x 255,
     beside K3 on the same triplets; K3 at 512^3, 1024^3 and 1536^3 (all
-    seven values against the torch sweep), both bench chains and K5 "free"
-    and "bwd" at the split; K5 against the torch engine, exactly and timed,
-    at the shape the 2048^3 traceback gives it; K4 and its per-tile form
+    seven values against the torch sweep), both bench chains; K5 against
+    the torch engine, exactly, and timed: "free" and "bwd" at the shape
+    the 2048^3 traceback gives it, "free", "free_jk" and "bwd" at a 16S
+    triplet's top split (750 x 1500 x 1500); K4 and its per-tile form
     (one run, one diagonal a run, and runs of a quarter of the table)
     against hetero_ref, exactly and timed, on a dispatch of two of the
     1024-triplet batch's problems (its largest and its smallest), and both
@@ -273,6 +275,9 @@ SLAB_VARIANTS = {**VARIANTS, "sub16": (SUB16, 0, 18)}
 # per-tile form's at the sharded 1024^3 traceback's.
 SPLIT_SHAPE = (1024, 2048, 2048)
 TOP_SPLIT = (512, 1024, 1024)
+# The shape of K5's sweeps at a 16S rRNA triplet's top split (the
+# benchmark's rrna16s.align: ~1500^3, split at |A| / 2).
+SPLIT_16S = (750, 1500, 1500)
 # The repo's throughput workload (trialign/benchmarks.py bench_batch_mixed,
 # BASELINE config 3): 1024 triplets, each length uniform in [128, 512].
 BATCH_N, BATCH_LENS = 1024, (128, 512)
@@ -370,6 +375,30 @@ def read_launches() -> dict:
 # ---------------------------------------------------------------- phases
 
 
+def step_signatures() -> dict:
+    """Registers, spill bytes, threads, shared bytes and blocks an SM of
+    every build of the register step: K2 and K3 by scoring mode (and K3's
+    progress words and chain mode), K4 by scoring, K5 by scoring and
+    variant."""
+    modes = {"default": DEFAULT, "rtl": RTL, "sub": SUB4}
+    d3, dchain = bk.plan_dims(64, 64, 64), bk.plan_dims_packed(8, 64, 64, 2)
+    d5 = sk._plan(64, 64, 64)
+    out = {}
+    for name, sc in modes.items():
+        for bits in (0, 12):
+            out[f"k2/{name}/bits{bits}"] = wf.step_resources(
+                scoring=sc, score_bits=bits)
+            for sw in (False, True):
+                out[f"k3/{name}/bits{bits}/sw{int(sw)}"] = bk.step_resources(
+                    d3, sc, bits, strip_words=sw)
+            out[f"k3chain/{name}/bits{bits}"] = bk.step_resources(
+                dchain, sc, bits)
+        out[f"k4/{name}"] = hk.step_resources(33, 33, sc)
+        for variant in sk.VARIANTS:
+            out[f"k5/{name}/{variant}"] = sk.step_resources(d5, sc, variant)
+    return out
+
+
 def phase_device() -> dict:
     name_power = smi("name,power.limit")
     clock_mhz = float(smi("clocks.max.sm").split()[0])
@@ -386,7 +415,9 @@ def phase_device() -> dict:
     emit(phase="device", nvidia_smi=name_power, sm_clock_max_mhz=clock_mhz,
          sms=sms, torch=torch.__version__, torch_cuda=torch.version.cuda,
          nvcc=[ln for ln in nvcc.splitlines() if "release" in ln][0],
-         build_s=build_s, ptxas=ptxas)
+         build_s=build_s, nvcc_s=_build.nvcc_seconds,
+         step_signatures=step_signatures(),
+         ptxas=ptxas)
     # The vpu phase adds "int32_ops_per_s", the rate every bound uses.
     return {"smi": name_power}
 
@@ -2437,10 +2468,9 @@ def time_hetero(rng, trips, dev) -> dict:
 
 # The candidates of the persistent K3 at 1024^3: tile planes (hb, wc) and
 # planes a chunk (at most bk.MAX_CHUNK, what the register step's rings
-# take; its block follows from the plane); K5's chunks.
+# take; its block follows from the plane), which K5 is timed over too.
 TUNE_TILES = ((17, 17), (33, 17), (33, 33))
 TUNE_K3_CHUNKS = (2, 4, 8)
-TUNE_CHUNKS = (4, 8, 32, 128)
 
 
 # K4's chunks in the tuning phase.
@@ -2489,7 +2519,7 @@ def phase_tuning(rng, batch) -> None:
                 functools.partial(bk.final_values, chunk=chunk), inputs)
     inputs = slab_inputs(_inputs(rng, SPLIT_SHAPE, 3), "free")
     k5 = {chunk: time_cuda_ms(functools.partial(sk.slab_sweep, chunk=chunk),
-                              inputs) for chunk in TUNE_CHUNKS}
+                              inputs) for chunk in TUNE_K3_CHUNKS}
     # K4 on the 1024-triplet batch (and two more like it) by chunk.
     inputs = [(hetero_dispatch(t),)
               for t in [batch] + [batch_triplets(rng) for _ in range(2)]]
@@ -2597,6 +2627,24 @@ def phase_timings(rng, dev, batch) -> tuple:
             "plain": "torch engine", "plain_ms": plain_ms,
             "plain_gcups": gcups(la * lb * lc, plain_ms),
             "bound_ms": bms, "bound_by": by}
+    # K5 at a 16S triplet's top split, each variant the split sweeps, held
+    # to the torch engine as at the 2048^3 split before it is timed.
+    la, lb, lc = SPLIT_16S
+    trips = _inputs(rng, SPLIT_16S)
+    dims = sk._plan(la, lb, lc)
+    bms, by = bound(la * lb * lc, 4 * (la + lb + lc + dims.n_jb * dims.n_kb
+                                       * NUM_MATRICES * dims.hb * dims.wc
+                                       + NUM_MATRICES), dev)
+    for variant in ("free", "free_jk", "bwd"):
+        err, plain_ms = slab_case(rng, SPLIT_16S, None, "default", variant,
+                                  tiled_ref=False)
+        split_err = max(split_err, err)
+        ms = time_cuda_ms(sk.slab_sweep, slab_inputs(trips, variant))
+        rows[f"slab_{variant}_{la}x{lb}x{lc}"] = {
+            "ms": ms, "gcups": gcups(la * lb * lc, ms),
+            "plain": "torch engine", "plain_ms": plain_ms,
+            "plain_gcups": gcups(la * lb * lc, plain_ms), "bound_ms": bms,
+            "bound_by": by}
     # K3's per-tile form at the main path's 1024^3 in quarters, and the
     # halo's band heights at 1024^3 in 2 stripes sharing the card, and in 4
     # stripes the model's band against one band a stripe, in turns.

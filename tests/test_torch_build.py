@@ -73,3 +73,29 @@ def test_signatures_are_the_entry_points_of_each_source(source):
     defined = extern_c_names(source_text(f"{source}.cu"))
     assert defined == set(_build.SIGNATURES[source]) | {
         "trialign_error_string"}
+
+
+def test_build_times_each_compiler_by_its_own_end(tmp_path, monkeypatch):
+    """``build`` starts every compiler together and records each source's
+    own end: a source listed after a slower one is not charged its time."""
+    fake = tmp_path / "nvcc"
+    # Sleeps 1.5 s for the first source, 0.1 s for the others; writes -o.
+    fake.write_text(
+        "#!/bin/sh\n"
+        'out=""; prev=""\n'
+        'for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done\n'
+        'case "$a" in *wavefront.cu) sleep 1.5;; *) sleep 0.1;; esac\n'
+        'echo "ptxas info: $a"; : > "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "nvcc_seconds", {})
+    names = ("wavefront", "walk", "vpu")
+    paths = _build.build(names)
+    assert all(os.path.exists(paths[n]) for n in names)
+    with open(paths["walk"] + ".log") as f:
+        assert "walk.cu" in f.read()
+    secs = _build.nvcc_seconds
+    assert set(secs) == set(names)
+    assert secs["wavefront"] >= 1.4
+    assert secs["walk"] < 1.0 and secs["vpu"] < 1.0

@@ -12,6 +12,8 @@ is exact (tolerance 0).
 """
 
 import functools
+import json
+import os
 
 import numpy as np
 import pytest
@@ -49,7 +51,15 @@ SCORINGS = {
 SUB16 = Scoring(submatrix=tuple(
     tuple(int(v) for v in row)
     for row in np.random.default_rng(16).integers(-4, 6, (16, 16))))
-SLAB_SCORINGS = {**SCORINGS, "sub16": (SUB16, 18)}
+# NCBI BLOSUM62 with BLASTP's gaps, as the benchmark's protein
+# configuration states it; codes 24 and 25 score the floor row.
+with open(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark", "configs",
+        "protfam.json")) as _f:
+    _PROT = json.load(_f)["scoring"]
+BLOSUM62 = Scoring(gap_open=_PROT["gap_open"], gap_extend=_PROT["gap_extend"],
+                   submatrix=tuple(map(tuple, _PROT["submatrix"])))
+SLAB_SCORINGS = {**SCORINGS, "sub16": (SUB16, 18), "blosum62": (BLOSUM62, 26)}
 
 
 @pytest.fixture
@@ -261,10 +271,12 @@ def test_align_on_card_matches_golden(card, dims, backend):
 @pytest.mark.parametrize("name", sorted(SLAB_SCORINGS))
 @pytest.mark.parametrize("dims,block", [((12, 20, 30), (9, 17)),
                                         ((7, 8, 9), (9, 17)),
+                                        ((15, 40, 33), (17, 9)),
                                         ((40, 100, 70), None)])
 def test_slab_kernel_matches_plain(card, dims, block, name, variant):
     """K5's capture (every tile's plane, halo included) and final vector
-    equal slab_ref's, on multi-tile, ragged and single-tile shapes."""
+    equal slab_ref's, on multi-tile, ragged and single-tile shapes, at the
+    tile planes 9 x 17, 17 x 9 and 33 x 33."""
     scoring, nsym = SLAB_SCORINGS[name]
     a, b, c = (x.astype(np.int32) for x in triplet(4, dims, nsym))
     ev = np.full(7, NEG, np.int32)
@@ -276,6 +288,18 @@ def test_slab_kernel_matches_plain(card, dims, block, name, variant):
     assert torch.equal(cap_k, cap_r)
     if variant != "bwd":
         assert torch.equal(f_k, f_r)
+
+
+@pytest.mark.parametrize("variant", sorted(sk.VARIANTS))
+def test_slab_step_resources(card, variant):
+    """K5 on K3's register step: a warp a strip of 4 columns, 8 warps at the
+    33 x 33 plane, two blocks an SM, at most 128 registers a thread."""
+    d = sk._plan(64, 64, 64)
+    for scoring in (Scoring(), SCORINGS["rtl"][0], BLOSUM62):
+        res = sk.step_resources(d, scoring, variant)
+        assert res["threads"] == 256 and res["blocks_per_sm"] == 2
+        assert 0 < res["registers"] <= 128
+    assert sk.blocks_per_sm(d) == 2
 
 
 def test_traceback_on_card_rescores(card, monkeypatch):

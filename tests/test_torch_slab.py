@@ -25,9 +25,10 @@ from trialign_torch.traceback.engine import NEG
 torch.set_num_threads(1)
 
 # tests/test_slab_kernel.py's shapes: (20, 30, 150) is a 2x2 tile grid and
-# (12, 18, 40) a single tile at its (hb, wc) = (24, 128), and at (24, 80),
-# the port's tile plane of that row count that fits a block's shared memory.
-BS = (24, 80)
+# (12, 18, 40) a single tile at its (hb, wc) = (24, 128); at (24, 33), the
+# port's tile plane of that row count within one sub-tile of K5's register
+# step, they are 2 x 5 and 1 x 2 tiles.
+BS = (24, 33)
 SHAPES = {"grid2x2": (20, 30, 150), "single": (12, 18, 40)}
 SUB4 = ((3, -1, -2, 0), (-2, 2, -1, -3), (0, -3, 4, -1), (-1, -2, -1, 1))
 SCORINGS = {
@@ -167,6 +168,22 @@ def test_slab_sweep_checks_its_inputs():
         slab._plan(4, 5, 6, (100, 100))
     with pytest.raises(ValueError, match="ev"):
         slab.slab_sweep(*arrs, 4, 5, 6, dims, "free", ev[:6])
+
+
+@pytest.mark.parametrize("block", [(34, 33), (33, 34), (24, 80)])
+def test_slab_refuses_a_plane_past_one_sub_tile(block):
+    """K5 sweeps a tile as one sub-tile of K3's register step, 33 x 33 cells
+    at most: _plan refuses a larger plane, though the choice sweep's shared
+    memory would hold it, and so does a sweep given such dims."""
+    assert slab.shared_bytes(*block) <= slab.bk.SMEM_CAP
+    with pytest.raises(ValueError, match="sub-tile"):
+        slab._plan(4, 5, 6, block)
+    dims = slab.bk.grid_dims(4, 5, 6, *block)
+    arrs = slab.prep_blocked(np.zeros(4), np.zeros(5), np.zeros(6), dims,
+                             "cpu")
+    with pytest.raises(ValueError, match="sub-tile"):
+        slab.slab_sweep(*arrs, 4, 5, 6, dims, "free", np.zeros(7, np.int32))
+    assert slab._plan(4, 5, 6, (33, 33)).hb == 33
 
 
 @pytest.mark.parametrize("case", ["bwd", "planned", "cpu"])

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, Optional, Sequence
 
 from trialign_torch.config import MAX_SUBMATRIX_SYMBOLS
@@ -43,6 +44,9 @@ SUBMATRIX_NSYM_CAP = MAX_SUBMATRIX_SYMBOLS
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# Source name -> seconds from the start of the build that compiled it to its
+# nvcc's end (all of one build's compilers start together).
+nvcc_seconds: Dict[str, float] = {}
 
 
 class StepScoring(ctypes.Structure):
@@ -95,8 +99,8 @@ SIGNATURES = {
         "trialign_slab_shared_bytes": (_I, [_I, _I, _I]),
         "trialign_slab_sweep": (
             _I, [_P, _P, _P, SlabGeom, _P, _I, _P, _P, StepScoring, _P, _P,
-                 _P, _P, _I, _I, _P, _P, _P]),
-        "trialign_slab_blocks_per_sm": (_I, [_I, _I, _IP]),
+                 _P, _P, _I, _I, _P, _P, _I, _P]),
+        "trialign_slab_resources": (_I, [_I, _I, _I, _I, _I, _IP]),
         "trialign_slab_choices": (
             _I, [_P, _P, _P, SlabGeom, _P, _P, StepScoring, _P, _P, _P, _P,
                  _P, _I, _I, _I, _P, _P, _P]),
@@ -139,8 +143,9 @@ def library_path(name: str) -> str:
 def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     """Compile each named kernel source that has no library for its hash
     yet, one ``nvcc`` per source, all started together; returns the
-    libraries' paths by name.  Raises RuntimeError without ``nvcc`` or when a
-    compile fails, with the compiler's output."""
+    libraries' paths by name, and records in :data:`nvcc_seconds` the seconds
+    from the start to each compiler's own end.  Raises RuntimeError without
+    ``nvcc`` or when a compile fails, with the compiler's output."""
     paths = {name: library_path(name) for name in names}
     todo = [name for name in names if not os.path.exists(paths[name])]
     if not todo:
@@ -152,6 +157,14 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
             "the CUDA toolkit on a machine with an sm_90 GPU"
         )
     os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    logs, threads = {}, []
+
+    def wait(name, proc):
+        # Each compiler's own end, whichever of them finishes first.
+        logs[name] = proc.communicate()[0]
+        nvcc_seconds[name] = time.perf_counter() - t0
+
     procs = {}
     for name in todo:
         tmp = f"{paths[name]}.{os.getpid()}.tmp"
@@ -159,16 +172,20 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
                os.path.join(CSRC, f"{name}.cu")]
         procs[name] = (cmd, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        threads.append(threading.Thread(target=wait,
+                                        args=(name, procs[name][2])))
+        threads[-1].start()
+    for thread in threads:
+        thread.join()
     failed = []
     for name, (cmd, tmp, proc) in procs.items():
-        log, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                          f"\n{log}")
+                          f"\n{logs[name]}")
             continue
         os.replace(tmp, paths[name])
         with open(paths[name] + ".log", "w") as f:
-            f.write(log)
+            f.write(logs[name])
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths

@@ -1,12 +1,14 @@
-// The register tile step of K4, K2 and K3: a tile swept with every cell in
-// a register of its lane.
+// The register tile step of K4, K2, K3 and K5: a tile swept with every
+// cell in a register of its lane.
 //
-// Replaces, for K4 (csrc/hetero.cu), K2 (csrc/wavefront.cu) and K3
-// (csrc/blocked.cu, its whole grid, per-tile form and chain mode), the body
-// of trialign/kernels/blocked.py:_block_sweep: one tile of tb x tc cells
-// swept through its local planes q (cell (jl, kl) of plane q holds global
-// i = q - jl - kl), with a one-cell halo taken from the faces its upper and
-// left neighbours wrote.  K2 and K3 sweep each tile as one sub-tile.
+// Replaces, for K4 (csrc/hetero.cu), K2 (csrc/wavefront.cu), K3
+// (csrc/blocked.cu, its whole grid, per-tile form and chain mode) and K5
+// (csrc/slab.cu, the slab sweep of alignment recovery), the body of
+// trialign/kernels/blocked.py:_block_sweep and slab.py:_slab_sweep: one
+// tile of tb x tc cells swept through its local planes q (cell (jl, kl) of
+// plane q holds global i = q - jl - kl), with a one-cell halo taken from
+// the faces its upper and left neighbours wrote.  K2, K3 and K5 sweep each
+// tile as one sub-tile.
 //
 // Bound on the card: the shared-memory pillar this step replaced kept 25
 // planes of the tile in shared memory, so each cell was 42 shared loads and
@@ -86,9 +88,11 @@
 // ring), and strip 0 for word W - 1 of the left tile (t.left + W - 1), its
 // last strip; each strip publishes its own word after each chunk.  A
 // single triplet's critical path crosses a tile diagonal per step, so this
-// cuts its ramp; K4's many tiles keep one word a tile, and K3 takes a word
-// a strip only where its grid is bound by its ramp (kernels/blocked.py
-// schedule), since each strip's word costs a fence a chunk.
+// cuts its ramp; K4's many tiles keep one word a tile, and K3 and K5 take
+// a word a strip only where the grid is bound by its ramp
+// (kernels/blocked.py schedule), since each strip's word costs a fence a
+// chunk.  K5 takes the choice at run time (WarpTile::strip_words), which
+// halves its builds.
 //
 // Chain borders (CHAIN, K3's chain mode, kernels/blocked.py
 // plan_dims_packed): npack problems of equal |A| stacked along i at pitch
@@ -104,9 +108,37 @@
 // Register width (BITS, K2's and K3's score_bits).  A cell's seven values
 // wrap to a score_bits-wide signed register where they are made, before
 // they are reduced to partials or written to a face, so a partial is the
-// grouped max-plus of stored, wrapped values: what cell_step computes
-// (csrc/plane_step.cuh wrap_bits).  The instantiation without BITS is the
-// one K4 runs.
+// grouped max-plus of stored, wrapped values: what the RTL's registers
+// hold (kernels/ref.py wrap).  The instantiation without BITS is the one K4
+// runs.
+//
+// The slab sweep (SLAB, K5; trialign/traceback/engine.py:77-119 and
+// 238-273, kernels/slab.py slab_ref).  Every value a cell makes is clamped
+// at kNeg, as the engine clamps.  A cell below the variant's first i holds
+// its fill, t.fill: 0 in "free", kNeg in "free_jk" (whose j = 0 and k = 0
+// faces are zero: the halo of the first tile row or column, and the tile
+// corner at plane 0 there), kNeg under WALLS.  Every position of the tile
+// plane, halo included, is captured into t.cap (7 x hb x wc) on the plane
+// where its i is |A|: the cells where they are made, the halo row where it
+// is staged, the halo column where it is read.  WALLS ("pin" and "bwd"):
+// the sweep starts at plane 0, the origin's, where i = 0 holds a value and
+// everything below is kNeg; a tile of the first tile row computes its halo
+// row (the j = 0 face) and one of the first tile column its halo column
+// (the k = 0 face) as DP cells that read kNeg outside the cuboid.  The face
+// row is a DP along k and i only, so each chunk's staging computes it plane
+// by plane, a lane a column (strip w's lane 0 reads column k0 from the ring,
+// where strip w - 1's staging put its Iz and Ixz partials beside the Iyz
+// and M ones), and the tile origin's lane holds the start vector t.ev there;
+// the face column is one more cell a lane for strip 0, made after its
+// plane's strip cells from its own row's Ix and the row above's Iy and Ixy
+// (two more shuffles a plane).  "pin" (WALLS without BWD) makes a matrix
+// kNeg where it would consume a symbol that does not exist: A at i = 0, B
+// on the j = 0 face, C on the k = 0 face.  BWD, the backward step keyed by
+// source state: a cell sends its raw value of state u where the forward
+// step sends partial u (Ix, Iy, Iz a plane on, Ixy, Iyz, Ixz two, M three),
+// and the consumer takes each target t's max over u of what it received
+// (plus its substitution) + W[u][t], the transposed groups of
+// slab_values.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -149,6 +181,87 @@ __device__ __forceinline__ void cell_partials(const int v[kNumMatrices],
   p[4] = max(max3(v[0], v[3], m56) + k.o, max3(v[1], v[2], v[4]) + k.e);
   p[5] = max(max3(m04, v[1], v[6]) + k.o, max3(v[2], v[3], v[5]) + k.e);
   p[6] = max(max3(m04, v[2], v[5]) + k.o, max3(v[1], v[3], v[6]) + k.e);
+}
+
+// K5: minus infinity that survives additions (trialign/traceback/engine.py
+// NEG).
+constexpr int kNeg = -(1 << 26);
+
+// What a cell with values v sends its consumers: the forward step's seven
+// partials, or under BWD its seven values.
+template <bool BWD>
+__device__ __forceinline__ void cell_sends(const int v[kNumMatrices],
+                                           const Charges& k,
+                                           int p[kNumMatrices]) {
+  if constexpr (BWD) {
+#pragma unroll
+    for (int m = 0; m < kNumMatrices; ++m) p[m] = v[m];
+  } else {
+    cell_partials(v, k, p);
+  }
+}
+
+// K5's seven values of a cell from e (in v), what its predecessors sent plus
+// the cell's substitution scores (M + S3, Ixy + S(a, b), Iyz + S(b, c),
+// Ixz + S(a, c)), clamped at kNeg: forward the sums themselves; BWD each
+// target t's max over source states u of e[u] + W[u][t], W's columns
+// grouped by charge (Scoring.weight_matrix; engine.py backward_slab).
+template <bool BWD>
+__device__ __forceinline__ void slab_values(int v[kNumMatrices],
+                                            const Charges& k) {
+  if constexpr (BWD) {
+    const int e0 = v[0], e1 = v[1], e2 = v[2], e3 = v[3], e4 = v[4],
+              e5 = v[5], e6 = v[6];
+    const int m12 = max(e1, e2), m13 = max(e1, e3), m23 = max(e2, e3);
+    const int m45 = max(e4, e5), m46 = max(e4, e6), m56 = max(e5, e6);
+    v[0] = max3(e0, max(m12, e3) + k.o2, max(m45, e6) + k.o);
+    v[1] = max(max3(e0, e1 + k.e2, m23 + k.oe), max(m46 + k.e, e5 + k.o));
+    v[2] = max(max3(e0, e2 + k.e2, m13 + k.oe), max(m45 + k.e, e6 + k.o));
+    v[3] = max(max3(e0, e3 + k.e2, m12 + k.oe), max(e4 + k.o, m56 + k.e));
+    v[4] = max(max3(e0, m12 + k.oe, e3 + k.o2), max(e4 + k.e, m56 + k.o));
+    v[5] = max(max3(e0, e1 + k.o2, m23 + k.oe), max(m46 + k.o, e5 + k.e));
+    v[6] = max(max3(e0, m13 + k.oe, e2 + k.o2), max(m45 + k.o, e6 + k.e));
+  }
+#pragma unroll
+  for (int m = 0; m < kNumMatrices; ++m) v[m] = max(v[m], kNeg);
+}
+
+// "pin": a matrix is kNeg where it would consume a symbol that does not
+// exist: A where no_a (i = 0), B where no_b (j = 0), C where no_c (k = 0).
+__device__ __forceinline__ void pin_walls(int v[kNumMatrices], bool no_a,
+                                          bool no_b, bool no_c) {
+#pragma unroll
+  for (int m = 0; m < kNumMatrices; ++m) {
+    const int cb = consume_bits(m);
+    if ((no_a && (cb & 1)) || (no_b && (cb & 2)) || (no_c && (cb & 4)))
+      v[m] = kNeg;
+  }
+}
+
+// The substitution scores of a cell with symbols a, b, c, as the step's
+// plane loop computes them.
+template <bool SUB, bool RTL>
+__device__ __forceinline__ void cell_scores(int a, int b, int c,
+                                            const int* sub,
+                                            const StepScoring& s, int& s3,
+                                            int& sab, int& sbc, int& sac) {
+  if constexpr (SUB) {
+    const int nsub = s.nsym + 1;
+    const int ra = min(a, s.nsym) * nsub, cb = min(c, s.nsym);
+    sab = sub[ra + min(b, s.nsym)];
+    sac = sub[ra + cb];
+    sbc = sub[min(b, s.nsym) * nsub + cb];
+  } else {
+    sab = a == b ? s.match : s.mismatch;
+    sac = a == c ? s.match : s.mismatch;
+    sbc = b == c ? s.match : s.mismatch;
+  }
+  if constexpr (RTL) {
+    s3 = a == b ? (b == c ? 3 * s.match : 2 * (s.match + s.mismatch))
+                : 3 * s.mismatch;
+  } else {
+    s3 = sab + sac + sbc;
+  }
 }
 
 // Shared memory of one block of W strips: the W - 1 rings between them,
@@ -215,6 +328,12 @@ struct WarpTile {
   int jlstar, klstar;     // the final cell, in the sub-tile
   bool target;            // the sub-tile holds the final cell
   bool has_row, has_col;  // the halo row / column was written
+  // K5 (SLAB) only.
+  int* cap;        // the tile's capture plane, 7 x hb x wc ints
+  const int* ev;   // the origin's seven values (WALLS)
+  int fill;        // a cell's value below the first i: 0 or kNeg
+  bool origin;     // the tile holds the cuboid's origin (WALLS)
+  bool strip_words;  // a progress word a strip, else one a tile
 };
 
 // Sweeps one sub-tile with the block's first ceil(tc / 4) warps as strips.
@@ -225,15 +344,22 @@ struct WarpTile {
 // s.score_bits; STRIP_WORDS gives each strip a progress word of its own
 // (t.done, t.up and t.left then point at kMaxStrips words a tile); CHAIN
 // makes every cell with i = 0 (mod d) a zero border and captures slot m's
-// final values into t.out row m (7 ints a row).
+// final values into t.out row m (7 ints a row); SLAB, WALLS and BWD make
+// it K5's tile (see the top of this file).
 template <bool SUB, bool RTL, bool CLOCK, bool BITS = false,
-          bool STRIP_WORDS = false, bool CHAIN = false>
+          bool STRIP_WORDS = false, bool CHAIN = false, bool SLAB = false,
+          bool WALLS = false, bool BWD = false>
 __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
                                             int4* stage, const int* sub,
                                             const StepScoring& s,
                                             const Charges& K, int chunk,
                                             int d = 0) {
   constexpr int R = kStrip;
+  // The first plane, and the least i a cell holds a value at: 0 under
+  // WALLS (the origin), else 1.
+  constexpr int FIRST = WALLS ? 0 : 1;
+  // A progress word a strip: K5 picks it at run time (t.strip_words).
+  const bool words = STRIP_WORDS || (SLAB && t.strip_words);
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int tb = t.tb, tc = t.tc, la = t.la, nq = la + tb + tc;
   const int W = (tc + R - 1) / R;  // the sub-tile's strips
@@ -255,8 +381,18 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
   const bool has_row = t.has_row, has_col = t.has_col;
 
   // The partials of a zero cell: every cell with i < 1, every plane <= 0.
+  // SLAB: of a cell holding the fill (every cell below the first i, every
+  // plane before the first), which under WALLS is also every cell outside
+  // the cuboid.
+  int fill = 0;
   int Z[kNumMatrices];
-  {
+  if constexpr (SLAB) {
+    fill = WALLS ? kNeg : t.fill;
+    int f[kNumMatrices];
+#pragma unroll
+    for (int m = 0; m < kNumMatrices; ++m) f[m] = fill;
+    cell_sends<BWD>(f, K, Z);
+  } else {
     const int zero[kNumMatrices] = {};
     cell_partials(zero, K, Z);
   }
@@ -275,7 +411,8 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
     a[r] = t.a[0];
   }
   int a_next = t.a[0];  // every cell of plane 1 has i < 1
-  // The register's range, as wrap_bits takes it (BITS only).
+  // The register's range: a value v is stored as ((v + half) & low) - half
+  // (BITS only; two's complement makes the mask exact for negatives).
   const int half = BITS ? 1 << (s.score_bits - 1) : 0;
   const int low = BITS ? (1 << s.score_bits) - 1 : 0;
   // Chain borders: (q - jl - k0) mod d at plane q, from plane 1.
@@ -304,6 +441,24 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
   int nbz = Z[3], nbxz = Z[6], nbyz = Z[5], nbm = Z[0];
   int cbyz = Z[5], cbm = Z[0];
   int craw[kNumMatrices];
+  if constexpr (SLAB && !WALLS) {
+    // The tile corner at plane 0 (i = 0): zero on the j = 0 and k = 0
+    // faces, else the fill.
+    if (!has_row || !has_col) {
+      const int zero[kNumMatrices] = {};
+      int p[kNumMatrices];
+      cell_partials(zero, K, p);
+      cbyz = p[5];
+      cbm = p[0];
+    }
+  }
+  // WALLS: the computed face row's partials a lane keeps (its column's Ix,
+  // Iz and Ixz, the last two also read by the lane to its right), and the
+  // computed face column's (its own row's Ix, the row above's Iy and Ixy);
+  // C of the face column.
+  int hx = Z[1], hz = Z[3], hxz1 = Z[6], hxz2 = Z[6];
+  int xc1 = Z[1], yc1 = Z[2], xyc1 = Z[4], xyc2 = Z[4];
+  const int c0 = WALLS ? t.c[0] : 0;
 
   // The tile's planes: the sub-tile's plane q is the tile's q + plane0; a
   // chunk waits for the upper tile's plane q + tile tb and the left one's
@@ -313,7 +468,7 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
   PhaseClock<CLOCK> phases;
   phases.start();
   int chunks = 0;
-  for (int q0 = 1; q0 <= nq; q0 += chunk, ++chunks) {
+  for (int q0 = FIRST; q0 <= nq; q0 += chunk, ++chunks) {
     const int q1 = min(q0 + chunk, nq + 1);
     // Strip w - 1 has finished this chunk, and the neighbours the planes
     // whose face rows it reads.
@@ -321,7 +476,7 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
     if (lane == 0) {
       int* up = t.up;
       int* left = t.left;
-      if constexpr (STRIP_WORDS) {
+      if (words) {
         // The upper tile's strip w has written the halo row over this
         // strip's columns (strip w - 1's before it); the left tile's last
         // strip, the halo column.
@@ -339,12 +494,86 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
     // The halo row over the strip's columns (and the corner, strip 0), as
     // partials; the right column's row-0 entry of the column face.  One
     // load round for up to 32 cells.
-    {
+    bool staged = false;
+    if constexpr (WALLS) {
+      if (!has_row) {
+        // The j = 0 face, computed plane by plane: lane r makes column
+        // k0 + r (strip 0's lane 0 the corner line, read from the column
+        // face past the first tile column); strip w's lane 0 reads column
+        // k0 from the ring, where strip w - 1 put it.
+        staged = true;
+        const int k = k0 + lane, b0 = t.b[0];
+        const int ck = t.c[min(k, t.cmax)];
+        const bool makes = lane <= R && (lane > 0 || w == 0);
+        for (int q = q0; q < q1; ++q) {
+          const int lz = __shfl_up_sync(0xffffffffu, hz, 1);
+          const int lxz = __shfl_up_sync(0xffffffffu, hxz2, 1);
+          const int i = q - k;
+          if (lane == 0 && w > 0) {
+            const int4 e = ring_in[(q % D) * kRingRows];
+            hz = e.x;
+            hxz2 = hxz1;
+            hxz1 = e.y;
+          } else if (makes) {
+            int v[kNumMatrices];
+            if (lane == 0 && has_col) {
+              const bool in = i >= 0 && i <= la;
+#pragma unroll
+              for (int m = 0; m < kNumMatrices; ++m)
+                v[m] = in ? __ldcg(t.cface + q * crow + m * t.hb) : kNeg;
+            } else {
+              int s3, sab, sbc, sac;
+              cell_scores<SUB, RTL>(t.a[min(max(i, 0), la)], b0, ck, sub,
+                                    s, s3, sab, sbc, sac);
+              v[0] = Z[0] + s3;
+              v[1] = hx;
+              v[2] = Z[2];
+              v[3] = lane == 0 ? Z[3] : lz;
+              v[4] = Z[4] + sab;
+              v[5] = Z[5] + sbc;
+              v[6] = (lane == 0 ? Z[6] : lxz) + sac;
+              slab_values<BWD>(v, K);
+              if constexpr (!BWD) pin_walls(v, i < 1, true, lane == 0);
+              if (t.origin && lane == 0 && i == 0) {
+#pragma unroll
+                for (int m = 0; m < kNumMatrices; ++m) v[m] = t.ev[m];
+              }
+              if (i < 0) {
+#pragma unroll
+                for (int m = 0; m < kNumMatrices; ++m) v[m] = kNeg;
+              }
+            }
+            int p[kNumMatrices];
+            cell_sends<BWD>(v, K, p);
+            hrow[(q - q0) * (R + 1) + lane] =
+                make_int4(p[2], p[4], p[5], p[0]);
+            if (lane == R && ring_out != nullptr)
+              ring_out[(q % D) * kRingRows] =
+                  make_int4(p[3], p[6], p[5], p[0]);
+            if (k == tc && i >= 0 && i <= la) {
+#pragma unroll
+              for (int m = 0; m < kNumMatrices; ++m)
+                __stcg(t.cface + (q - tc) * crow + m * t.hb, v[m]);
+            }
+            if (i == la && k <= tc) {
+#pragma unroll
+              for (int m = 0; m < kNumMatrices; ++m)
+                t.cap[m * t.hb * t.wc + k] = v[m];
+            }
+            hx = p[1];
+            hz = p[3];
+            hxz2 = hxz1;
+            hxz1 = p[6];
+          }
+        }
+      }
+    }
+    if (!staged) {
       const int first = w == 0 ? 0 : 1, cols = R + 1 - first;
       for (int n = lane; n < (q1 - q0) * cols; n += 32) {
         const int q = q0 + n / cols, r = n % cols + first, k = k0 + r;
         const int i = q - k;
-        const bool in = i >= 1 && i <= la;
+        const bool in = i >= FIRST && i <= la;
         const bool ok = has_row && k <= tc && in;
         const bool cc = k == 0 && t.k0 > 0;
         const int* f = cc ? t.cface + q * crow : t.rface + q * rrow + k;
@@ -352,13 +581,20 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
         int v[kNumMatrices], p[kNumMatrices];
 #pragma unroll
         for (int m = 0; m < kNumMatrices; ++m)
-          v[m] = ok ? __ldcg(f + m * stride) : 0;
-        cell_partials(v, K, p);
+          v[m] = ok ? __ldcg(f + m * stride) : (SLAB && has_row ? fill : 0);
+        cell_sends<BWD>(v, K, p);
         hrow[(q - q0) * (R + 1) + r] = make_int4(p[2], p[4], p[5], p[0]);
         if (k == tc && in) {
 #pragma unroll
           for (int m = 0; m < kNumMatrices; ++m)
             __stcg(t.cface + (q - tc) * crow + m * t.hb, v[m]);
+        }
+        if constexpr (SLAB) {
+          if (i == la && k <= tc) {
+#pragma unroll
+            for (int m = 0; m < kNumMatrices; ++m)
+              t.cap[m * t.hb * t.wc + k] = v[m];
+          }
         }
       }
     }
@@ -385,7 +621,7 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
           cbyz = h.z;
           cbm = h.w;
         }
-      } else if (q > 1) {
+      } else if (q > FIRST) {
         const int4* slot = ring_in + prev * kRingRows;
         const int4 v = slot[jl];
         bz = v.x;
@@ -462,8 +698,19 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
           for (int m = 0; m < kNumMatrices; ++m)
             v[m] = ((v[m] + half) & low) - half;
         }
+        if constexpr (SLAB) slab_values<BWD>(v, K);
         const int k = k0 + r, i = q - jl - k;
-        if (ramp && i < 1) {
+        if constexpr (SLAB) {
+          if (ramp) {
+            if constexpr (WALLS && !BWD) {
+              if (i == 0) pin_walls(v, true, false, false);
+            }
+            if (i < FIRST) {
+#pragma unroll
+              for (int m = 0; m < kNumMatrices; ++m) v[m] = fill;
+            }
+          }
+        } else if (ramp && i < 1) {
 #pragma unroll
           for (int m = 0; m < kNumMatrices; ++m) v[m] = 0;
         }
@@ -480,7 +727,7 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
           b[0] = make_int4(v[0], v[1], v[2], v[3]);
           b[1] = make_int4(v[4], v[5], v[6], 0);
         }
-        if (k == tc && jl <= tb && i >= 1 && i <= la) {
+        if (k == tc && jl <= tb && i >= FIRST && i <= la) {
 #pragma unroll
           for (int m = 0; m < kNumMatrices; ++m)
             __stcg(t.cface + (q - tc) * crow + m * t.hb + jl, v[m]);
@@ -489,8 +736,15 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
 #pragma unroll
           for (int m = 0; m < kNumMatrices; ++m) out[m] = v[m];
         }
+        if constexpr (SLAB) {
+          if (i == la && jl <= tb && k <= tc) {
+#pragma unroll
+            for (int m = 0; m < kNumMatrices; ++m)
+              t.cap[(m * t.hb + jl) * t.wc + k] = v[m];
+          }
+        }
         int p[kNumMatrices];
-        cell_partials(v, K, p);
+        cell_sends<BWD>(v, K, p);
         x1[r] = p[1];
         z1[r] = p[3];
         xz2[r] = xz1[r];
@@ -504,7 +758,8 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
           s4 = h.y;
           s5 = h.z;
           s0 = h.w;
-          if (r == R && ring_out != nullptr)
+          // A computed face row's entry is the staging's (WALLS).
+          if (r == R && ring_out != nullptr && (!WALLS || has_row))
             ring_out[cur * kRingRows] = make_int4(0, 0, s5, s0);
         }
         const int src = (lane + 31) & 31;
@@ -527,19 +782,61 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
         // The halo column of plane q as partials; its bottom entry is the
         // row face's column-0 entry.
         const int i = q - jl;
-        const bool ok = has_col && jl <= tb && i >= 1 && i <= la;
+        const bool ok = has_col && jl <= tb && i >= FIRST && i <= la;
+        if (WALLS && !has_col) {
+          // The k = 0 face: this row's cell of plane q from its own Ix and
+          // the row above's Iy and Ixy; kNeg across the face.
+          int s3, sab, sbc, sac;
+          cell_scores<SUB, RTL>(a_next, bsym, c0, sub, s, s3, sab, sbc, sac);
+          craw[0] = Z[0] + s3;
+          craw[1] = xc1;
+          craw[2] = yc1;
+          craw[3] = Z[3];
+          craw[4] = xyc2 + sab;
+          craw[5] = Z[5] + sbc;
+          craw[6] = Z[6] + sac;
+          slab_values<BWD>(craw, K);
+          if constexpr (!BWD) pin_walls(craw, i < 1, false, true);
+          if (i < 0) {
 #pragma unroll
-        for (int m = 0; m < kNumMatrices; ++m) craw[m] = ok ? craw[m] : 0;
+            for (int m = 0; m < kNumMatrices; ++m) craw[m] = kNeg;
+          }
+        } else {
+#pragma unroll
+          for (int m = 0; m < kNumMatrices; ++m)
+            craw[m] = ok ? craw[m] : (SLAB && has_col ? fill : 0);
+        }
         int p[kNumMatrices];
-        cell_partials(craw, K, p);
+        cell_sends<BWD>(craw, K, p);
         nbz = p[3];
         nbxz = p[6];
         nbyz = p[5];
         nbm = p[0];
-        if (jl == tb && q - tb >= 1 && q - tb <= la) {
+        if (jl == tb && q - tb >= FIRST && q - tb <= la) {
 #pragma unroll
           for (int m = 0; m < kNumMatrices; ++m)
             __stcg(t.rface + (q - tb) * rrow + m * t.wc, craw[m]);
+        }
+        if constexpr (SLAB) {
+          if (i == la && jl <= tb) {
+#pragma unroll
+            for (int m = 0; m < kNumMatrices; ++m)
+              t.cap[(m * t.hb + jl) * t.wc] = craw[m];
+          }
+        }
+        if (WALLS && !has_col) {
+          // The row above's Iy and Ixy of the face column; lane 31 sends
+          // the tile corner's.
+          int sy = p[2], sxy = p[4];
+          if (lane == 31) {
+            const int4 h = hrow[(q - q0) * (R + 1)];
+            sy = h.x;
+            sxy = h.y;
+          }
+          xc1 = p[1];
+          yc1 = __shfl_sync(0xffffffffu, sy, src);
+          xyc2 = xyc1;
+          xyc1 = __shfl_sync(0xffffffffu, sxy, src);
         }
       }
       cur = cur + 1 == D ? 0 : cur + 1;
@@ -553,7 +850,7 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
     __syncwarp();
     for (int e = lane; e < kNumMatrices * R; e += 32) {
       const int m = e / R, r = e % R + 1, k = k0 + r;
-      const int qa = max(q0, tb + k + 1), qb = min(q1, la + tb + k + 1);
+      const int qa = max(q0, tb + k + FIRST), qb = min(q1, la + tb + k + 1);
       if (k > tc) continue;
       const int* src = reinterpret_cast<const int*>(brow) + (r - 1) * 8 + m;
       int* dst = t.rface + m * t.wc + k;
@@ -575,11 +872,9 @@ __device__ __forceinline__ void warp_pillar(const WarpTile& t, int4* ring,
     if (w + 1 < W) {
       // Hand the chunk to strip w + 1.
       asm volatile("bar.sync %0, 64;" ::"r"(w + 1) : "memory");
-      if constexpr (STRIP_WORDS) {
-        if (t.done != nullptr) publish(t.done + w);
-      }
+      if (words && t.done != nullptr) publish(t.done + w);
     } else if (t.done != nullptr) {
-      publish(t.done + (STRIP_WORDS ? w : 0));
+      publish(t.done + (words ? w : 0));
     }
     phases.mark(4);
   }

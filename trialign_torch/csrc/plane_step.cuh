@@ -1,8 +1,10 @@
-// The 7-matrix affine-gap cell step of the slab kernel (K5); the register
-// step of K2, K3 and K4 (csrc/pillar_warp.cuh) takes the same groups
-// pre-reduced.  The direct engine's choice-capture sweep (csrc/slab.cu,
-// CHOICES) steps with cell_step_choices, which also returns each target's
-// argmax.
+// The 7-matrix affine-gap cell step on a plane ring in shared memory
+// (cell_step, and the direct engine's cell_step_choices, which also returns
+// each target's argmax; csrc/slab.cu's choice-capture sweep steps with it),
+// and what every kernel shares: the scoring the kernels take, the
+// substitution lookup, the matrices' axes and transition weights.  The
+// register step of K2, K3, K4 and K5 (csrc/pillar_warp.cuh) takes the same
+// groups pre-reduced.
 //
 // Replaces trialign/kernels/plane_math.py:fused_plane_update_m7 (K1), the
 // plane-wide grouped max-plus update every Pallas kernel inlines.  On the TPU
@@ -11,14 +13,12 @@
 // reads its predecessors at the shifted positions directly.
 //
 // Bound on the card: the step is integer add/max only (no matrix product, so
-// no tensor cores); it reads 42 predecessor values plus one carried max7 and
-// writes 8 values per cell, so it is bound by the loads from the plane ring
-// in shared memory.  Design: the weight groups are fixed by which axes each
-// matrix consumes, so they are written out by hand (3 groups for the
-// single-consume targets, 2 for the double-consume ones, 1 for M) and take
-// the gap charges at run time.  The
-// integers equal the grouped update's: max is exact, and each group's charge
-// is the one Scoring.weight_matrix() gives every source in it.
+// no tensor cores); on the ring it reads 42 predecessor values plus one
+// carried max7 and writes 8 values per cell, so it is bound by the loads
+// from shared memory.  The weight groups are fixed by which axes each
+// matrix consumes and take the gap charges at run time; the integers equal
+// the grouped update's: max is exact, and each group's charge is the one
+// Scoring.weight_matrix() gives every source in it.
 //
 // Matrix order (trialign/config.py): 0 M, 1 Ix, 2 Iy, 3 Iz, 4 Ixy, 5 Iyz, 6 Ixz.
 // Plane q holds cell (i = q - j - k, j, k).  The predecessor of target t is

@@ -1,10 +1,12 @@
-// K5: the slab sweep of alignment recovery, with capture of the plane i = |A|.
+// K5: the slab sweep of alignment recovery, with capture of the plane
+// i = |A|; and the direct engine's choice-capture sweep.
 //
 // Replaces trialign/kernels/slab.py:_slab_sweep as launched by
 // make_slab_grid_call and by make_slab_block_call.  It is K3's tiled sweep
 // (csrc/blocked.cu: tiles of tb x tc cells with a one-cell halo, faces in
-// skewed global slabs, the whole grid in one persistent launch) plus three
-// things the Hirschberg split needs:
+// skewed global slabs, the whole grid in one persistent launch) on the same
+// register step (csrc/pillar_warp.cuh, its SLAB, WALLS and BWD modes), plus
+// three things the Hirschberg split needs:
 //
 // * Capture.  Every position (jl, kl) of a tile, halo included, is written
 //   once to cap[blk][t][jl][kl] on the plane where its global i equals |A|.
@@ -15,83 +17,79 @@
 //   the origin holds the end vector) have NEG walls everywhere, and their
 //   face cells are real DP cells: the tiles of the first tile row and column
 //   compute their halo row or column with the step, reading NEG outside the
-//   cuboid.
-// * A backward step, keyed by source state: E_u is the u-shifted plane's row
-//   u plus u's substitution at this cell, and value_t = max_u E_u + W[u][t]
-//   (engine.py:238-273).  Every computed value is clamped at NEG, as the
-//   engine clamps, so captured cells equal it bit for bit.
+//   cuboid, and start at plane 0, where the origin lies.
+// * A backward step, keyed by source state: E_u is the u-shifted plane's
+//   value of state u plus u's substitution at this cell, and value_t =
+//   max_u E_u + W[u][t] (engine.py:238-273).  Every computed value is
+//   clamped at NEG, as the engine clamps, so captured cells equal it bit for
+//   bit.
 //
-// Bound on the card: the integer add/max step (no tensor-core work)
-// reads 43 values a cell from the plane ring in shared memory, and a barrier
-// ends each plane; the capture adds one write of 7 ints for each cell of
-// the i = |A| plane.  Its ~117 KB plane ring holds one block to an SM.
-// Launched one tile anti-diagonal at a time, the grid was bound by the tiles
-// of one diagonal (125 launches at the 2048^3 top split, 33 tiles each on
-// average).
+// Bound on the card: the integer add/max step, as K3's (about 70 operations
+// a cell forward, four shuffles; the backward cell takes each target's
+// grouped max over seven sources, about 1.4 times the forward's); the
+// capture adds one write of 7 ints for each position of the i = |A| plane.
+// On the shared-memory plane ring this sweep ran before, a cell read 43
+// values from shared memory, a barrier ended each plane and the ~117 KB
+// ring held one block to an SM.
 //
-// Whole-grid sweep (slab_persistent): one launch for every tile, as K3's
-// (csrc/schedule.cuh PlaneWait).  Blocks take tiles in table order from a
-// global counter and sweep each pillar in chunks of planes; before a chunk a
-// tile waits until its upper neighbour has finished plane q1 - 1 + tb and its
-// left neighbour plane q1 - 1 + tc (capped at the last plane), the rule of
-// kernels/blocked.py planes_needed.  The face slabs stay one a tile column
-// and one a tile row, read and written in place: tile (jb, kb) reads row s
-// at its step s, after (jb - 1, kb) wrote it at its step s + tb, and writes
-// row s at its own step s + tb, before which (jb + 1, kb) does not read it
-// and after which (jb - 1, kb), past its step s, never reads it again.
-// "pin" and "bwd" start at plane 0, so progress starts at -1.
-//
-// Per-tile form (trialign/kernels/slab.py:make_slab_block_call, which the
-// halo-sharded traceback runs one block a call): the same launch over a run
-// of tiles the host lists as (jb, kb, up, left) entries, as K3's per-tile
-// form (csrc/blocked.cu): any run of the tile table, or a band of rows of a
-// stripe's columns.  A neighbour outside the run was swept by an earlier
-// launch and reads as finished.  Tile indices are always global, so
-// borders, the variant's fill, the target tile and the symbols are decided
-// as in the whole sweep.  The wait rule needs a tile's faces to be those of
-// its tile column and row, and so they are in every run: the scalar table
-// (kernels/slab.py _scal_table, one for the whole grid in every state, a
-// stripe's included) names tile (jb, kb)'s slabs kb and jb (columns 13, 14).
+// Whole-grid sweep and per-tile form: one persistent launch
+// (slab_persistent) for the whole tile table or for a run of it the host
+// lists as (jb, kb, up, left) entries, as K3's (csrc/blocked.cu): any run
+// of the tile table, or a band of rows of a stripe's columns
+// (trialign/kernels/slab.py make_slab_block_call, which the halo-sharded
+// traceback runs one block a call).  A neighbour outside the run was swept
+// by an earlier launch and reads as finished.  Tile indices are always
+// global, so borders, the variant's fill, the target tile and the symbols
+// are decided as in the whole sweep; the scalar table (kernels/slab.py
+// _scal_table) names tile (jb, kb)'s face slabs kb and jb (columns 13, 14),
+// its final-cell target (3-5) and the origin vector (6-12).  A tile is one
+// sub-tile of the register step (kernels/slab.py refuses a larger plane),
+// and the progress words and chunks follow K3's schedule
+// (kernels/blocked.py schedule): a word a strip where the launch is bound
+// by its ramp, one a tile where the step rate binds.
 //
 // The direct engine's choice-capture sweep (choices_persistent, entry
 // trialign_slab_choices) replaces trialign/traceback/direct.py:_choices_seg,
 // which is XLA in the JAX package (a jitted lax.scan a segment of planes),
-// not a pallas_call.  It is this file's whole-grid sweep with the CHOICES
-// flag: no capture plane; every cell with 0 <= i <= |A| on a plane q >= 1
-// steps with cell_step_choices (csrc/plane_step.cuh), which also returns
-// each target's argmax over its seven sources, and writes the 21 bits to
-// the caller's packed buffers (3 bits a matrix: matrices 0-4 into an int16,
-// 5-6 into a byte, row q - 1, (j, k) at j * (|C| + 1) + k, 64-bit
-// offsets).  A target with no predecessor (j < dj or k < dk) chooses 0.  M's
-// choice is the argmax of the seven stored values at (i-1, j-1, k-1), so a
-// ring of 4 byte planes carries the argmax of max7 beside it, taken after
-// the walls.  Cells whose value a wall fixes (the j = 0 / k = 0 faces and
-// i = 0 of "free" and "free_jk") still step, for their choices, which is
-// why the sweep visits i = 0 in every variant.  Bound: the step's 88 int32
-// operations a cell (six targets by seven sources, ungrouped, since the
-// argmax needs every source: 42 adds of a weight and 36 max-with-argmax
-// steps; 3 pair-score adds; M's add and the 6 steps of max7 with its
-// argmax), the count chip_smoke.py's bound uses, and the 3 B a cell it
-// writes, 3.2 GB at 1024^3, in short rows of a tile's width.
+// not a pallas_call.  It sweeps the whole tile grid as K5 does, on a plane
+// ring in shared memory (slab_tile): every cell with 0 <= i <= |A| on a
+// plane q >= 1 steps with cell_step_choices (csrc/plane_step.cuh), which
+// also returns each target's argmax over its seven sources, and writes the
+// 21 bits to the caller's packed buffers (3 bits a matrix: matrices 0-4
+// into an int16, 5-6 into a byte, row q - 1, (j, k) at j * (|C| + 1) + k,
+// 64-bit offsets).  A target with no predecessor (j < dj or k < dk) chooses
+// 0.  M's choice is the argmax of the seven stored values at
+// (i-1, j-1, k-1), so a ring of 4 byte planes carries the argmax of max7
+// beside it, taken after the walls.  Cells whose value a wall fixes (the
+// j = 0 / k = 0 faces and i = 0 of "free" and "free_jk") still step, for
+// their choices, which is why the sweep visits i = 0 in every variant.
+// Bound: the step's 88 int32 operations a cell (six targets by seven
+// sources, ungrouped, since the argmax needs every source: 42 adds of a
+// weight and 36 max-with-argmax steps; 3 pair-score adds; M's add and the 6
+// steps of max7 with its argmax), the count chip_smoke.py's bound uses, and
+// the 3 B a cell it writes, 3.2 GB at 1024^3, in short rows of a tile's
+// width.  Before each chunk of planes a tile waits until its upper
+// neighbour has finished plane q1 - 1 + tb and its left neighbour plane
+// q1 - 1 + tc (capped at the last plane, csrc/schedule.cuh PlaneWait), the
+// rule of kernels/blocked.py planes_needed.
 //
-// Design: the tile plane carries a guard row and column (index -1) that are
-// set to the variant's fill and never written, so an edge cell's
-// predecessor outside the cuboid reads NEG without a branch.  The ring (3
-// generations of 7 planes and 4 generations of one plane: max7 forward, the
-// M row backward) starts at the value every cell has below its first plane:
-// 0 ("free"), 0 on the j = 0 / k = 0 faces and NEG elsewhere ("free_jk"),
-// NEG ("pin", "bwd").  A position is written only on planes where its i is in
-// [1, |A|] ("free", "free_jk") or [0, |A|] ("pin", "bwd", and every variant
-// of the choice sweep); "pin" and "bwd"
-// start at plane 0, where each tile's corner holds i = 0.  The faces carry
-// every written position of the bottom row and right column, so a
-// neighbour reads only face rows that were written, and no slab needs
-// initialising.
+// The choice sweep's ring: the tile plane carries a guard row and column
+// (index -1) that are set to the variant's fill and never written, so an
+// edge cell's predecessor outside the cuboid reads NEG without a branch.
+// The ring (3 generations of 7 planes and 4 generations of max7 and of its
+// argmax) starts at the value every cell has below its first plane: 0
+// ("free"), 0 on the j = 0 / k = 0 faces and NEG elsewhere ("free_jk"), NEG
+// ("pin").  A position is written only on planes where its i is in
+// [0, |A|]; "pin" starts at plane 0, where each tile's corner holds i = 0.
+// The faces carry every written position of the bottom row and right
+// column, so a neighbour reads only face rows that were written, and no
+// slab needs initialising.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "plane_step.cuh"
-#include "schedule.cuh"
+#include <atomic>
+
+#include "warp_sweep.cuh"
 
 namespace trialign {
 
@@ -111,15 +109,219 @@ namespace {
 
 enum Variant { kFree = 0, kFreeJk = 1, kPin = 2, kBwd = 3 };
 
-// trialign/traceback/engine.py NEG: minus infinity that survives additions.
-constexpr int kNeg = -(1 << 26);
 // Columns of a row of the per-block scalar table (trialign_torch/kernels/
 // slab.py _scal_table): la, jb, kb, qstar, jlstar, klstar, ev[7], row-face
 // slab, column-face slab, pad.
 constexpr int kScalCols = 16;
 constexpr int kRingPlanes = 3 * kNumMatrices + 4;
-// Threads per tile.
+// Threads of a choice sweep's tile.
 constexpr int kThreads = 512;
+
+// Entry of a run's table, as csrc/blocked.cu RunEntry: (jb, kb, up, left).
+using RunEntry = int4;
+
+// Tile t of a K5 launch as the register step takes it: the whole grid in
+// table order (run == nullptr) or entry t of run; its symbols, face slabs,
+// capture plane and progress words (kMaxStrips a tile, one a strip if
+// strip_words, else the first alone), and the variant's target, fill and
+// origin.
+__device__ __forceinline__ WarpTile slab_warp_tile(
+    const SlabGeom& g, const RunEntry* run, int t, const int* a,
+    const int* b, const int* c, const int* scal, int* rf, int* cf, int* out,
+    int* cap, int* done, bool strip_words) {
+  int jb, kb, me, up, left;
+  if (run != nullptr) {
+    const RunEntry e = run[t];
+    jb = e.x;
+    kb = e.y;
+    me = t;
+    up = e.z;
+    left = e.w;
+  } else {
+    table_tile(t, g.n_jb, g.n_kb, jb, kb);
+    me = jb * g.n_kb + kb;
+    up = jb > 0 ? me - g.n_kb : -1;
+    left = kb > 0 ? me - 1 : -1;
+  }
+  const int tb = g.hb - 1, tc = g.wc - 1, blk = jb * g.n_kb + kb;
+  const int* row = scal + (size_t)blk * kScalCols;
+  WarpTile w;
+  w.a = a;
+  w.b = b + jb * tb;
+  w.c = c + kb * tc;
+  // Face slabs: row faces [n_kb][nrows][7][wc], column faces
+  // [n_jb][nrows][7][hb].
+  w.rface = rf + (size_t)row[13] * g.nrows * kNumMatrices * g.wc;
+  w.cface = cf + (size_t)row[14] * g.nrows * kNumMatrices * g.hb;
+  w.out = out;
+  w.done = done + (size_t)me * kMaxStrips;
+  w.up = up >= 0 ? done + (size_t)up * kMaxStrips : nullptr;
+  w.left = left >= 0 ? done + (size_t)left * kMaxStrips : nullptr;
+  w.la = g.la;
+  w.hb = g.hb;
+  w.wc = g.wc;
+  w.j0 = 0;
+  w.k0 = 0;
+  w.tb = tb;
+  w.tc = tc;
+  w.bmax = tb;
+  w.cmax = tc;
+  w.jlstar = row[4];
+  w.klstar = row[5];
+  w.target = row[3] >= 0 && g.variant != kBwd;
+  w.has_row = jb > 0;
+  w.has_col = kb > 0;
+  w.cap = cap + (size_t)blk * kNumMatrices * g.hb * g.wc;
+  w.ev = row + 6;
+  w.fill = g.variant == kFree ? 0 : kNeg;
+  w.origin = jb == 0 && kb == 0;
+  w.strip_words = strip_words;
+  return w;
+}
+
+// The tile table in one launch: the whole grid in table order (run ==
+// nullptr, ntiles = n_jb * n_kb), or the ntiles entries of run, in which
+// every neighbour of the run comes before its tile.  next_tile: the hand-out
+// counter (0); done: kMaxStrips progress words a tile (-1), at row
+// jb * n_kb + kb of the whole grid or the entry of the run.  WALLS: "pin"
+// and "bwd"; BWD: "bwd"; strip_words: a progress word a strip, else the
+// tile's first word alone.  Two blocks an SM: 8 strips of 4 columns, 128
+// registers a thread, as K3.
+template <bool SUB, bool RTL, bool WALLS, bool BWD>
+__global__ void __launch_bounds__(32 * kMaxStrips, 2)
+    slab_persistent(const int* __restrict__ a_ext,
+                    const int* __restrict__ b_ext,
+                    const int* __restrict__ c_ext, SlabGeom g,
+                    const RunEntry* __restrict__ run, int ntiles, int chunk,
+                    bool strip_words, const int* __restrict__ scal,
+                    const int* __restrict__ sub, StepScoring s, int* rf,
+                    int* cf, int* out, int* __restrict__ cap, int* next_tile,
+                    int* done) {
+  extern __shared__ int4 smem4[];
+  const int W = blockDim.x >> 5;
+  int4* ring = smem4;
+  int4* stage = ring + (size_t)(W - 1) * (2 * chunk + 1) * kRingRows;
+  int* sub_s =
+      reinterpret_cast<int*>(stage + (size_t)W * chunk * (3 * kStrip + 1));
+  load_sub_table(sub, s.nsym, sub_s);
+  const Charges K{-2 * s.gap_open, -2 * s.gap_extend,
+                  -(s.gap_open + s.gap_extend), -s.gap_open, -s.gap_extend};
+  __shared__ int tile;
+  for (;;) {
+    if (threadIdx.x == 0) tile = atomicAdd(next_tile, 1);
+    __syncthreads();  // also orders sub_s
+    if (tile >= ntiles) return;
+    warp_pillar<SUB, RTL, false, false, false, false, true, WALLS, BWD>(
+        slab_warp_tile(g, run, tile, a_ext, b_ext, c_ext, scal, rf, cf, out,
+                       cap, done, strip_words),
+        ring, stage, sub_s, s, K, chunk);
+    // The rings and staging buffers serve the next tile; thread 0 takes it
+    // after this barrier.
+    __syncthreads();
+  }
+}
+
+using SweepFn = void (*)(const int*, const int*, const int*, SlabGeom,
+                         const RunEntry*, int, int, bool, const int*,
+                         const int*, StepScoring, int*, int*, int*, int*,
+                         int*, int*);
+
+// The sweeps K5 is built in: a kind of variant (0 "free" and "free_jk", 1
+// "pin", 2 "bwd") by a scoring mode (bit 0 rtl, bit 1 submatrix).
+constexpr int kKinds = 3, kModes = 4;
+
+int kind_of(int variant) {
+  return variant == kBwd ? 2 : variant == kPin ? 1 : 0;
+}
+
+template <bool WALLS, bool BWD>
+SweepFn pick_mode(int mode) {
+  switch (mode) {
+    case 0: return slab_persistent<false, false, WALLS, BWD>;
+    case 1: return slab_persistent<false, true, WALLS, BWD>;
+    case 2: return slab_persistent<true, false, WALLS, BWD>;
+    case 3: return slab_persistent<true, true, WALLS, BWD>;
+  }
+  return nullptr;
+}
+
+// The sweep and its block for a variant and scoring mode at tile plane
+// hb x wc and chunk (false for a variant K5 does not know or a plane past
+// one sub-tile).
+bool plan(int variant, int mode, int hb, int wc, int chunk, SweepFn* fn,
+          int* threads, size_t* smem) {
+  if (variant < kFree || variant > kBwd || mode < 0 || mode >= kModes ||
+      hb - 1 > kSubRows || wc - 1 > kSubCols)
+    return false;
+  switch (kind_of(variant)) {
+    case 0: *fn = pick_mode<false, false>(mode); break;
+    case 1: *fn = pick_mode<true, false>(mode); break;
+    default: *fn = pick_mode<true, true>(mode);
+  }
+  return *fn != nullptr &&
+         sweep_block(hb, wc, chunk, (mode & 2) != 0, threads, smem);
+}
+
+int step_mode(const StepScoring& s) {
+  return (s.rtl ? 1 : 0) | (s.nsym ? 2 : 0);
+}
+
+// Blocks an SM of each sweep at each chunk and strip count, on each of the
+// first kCachedDevices devices (0: not asked yet), as csrc/blocked.cu
+// keeps K3's: asked once, each sweep allowed the shared memory of the
+// largest block (8 strips, the longest chunk) before the first query.
+constexpr int kCachedDevices = 16;
+std::atomic<int> g_per_sm[kCachedDevices][kKinds][kModes][kMaxChunk + 1]
+                         [kMaxStrips + 1];
+
+cudaError_t cached_per_sm(SweepFn fn, int variant, int mode, int chunk,
+                          int threads, size_t smem, int* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::atomic<int>* slot =
+      dev < kCachedDevices
+          ? &g_per_sm[dev][kind_of(variant)][mode][chunk][threads / 32]
+          : nullptr;
+  *blocks = slot != nullptr ? slot->load(std::memory_order_relaxed) : 0;
+  if (*blocks > 0) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)warp_pillar_shared_bytes(kMaxStrips, kMaxChunk, (mode & 2) != 0));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, threads,
+                                                        smem);
+  if (err == cudaSuccess && slot != nullptr)
+    slot->store(*blocks, std::memory_order_relaxed);
+  return err;
+}
+
+int launch_persistent(const int* a, const int* b, const int* c,
+                      const SlabGeom& g, const RunEntry* run, int ntiles,
+                      int chunk, int max_blocks, const int* scal,
+                      const int* sub, StepScoring s, int* rf, int* cf,
+                      int* out, int* cap, int* next_tile, int* done,
+                      bool strip_words, cudaStream_t stream) {
+  SweepFn fn = nullptr;
+  int threads = 0, per_sm = 0, blocks = 0;
+  size_t smem = 0;
+  const int mode = step_mode(s);
+  if (s.nsym < 0 || s.nsym > kMaxSym || g.n_jb < 1 || g.n_kb < 1 ||
+      max_blocks < 0 || ntiles < 1 ||
+      (run == nullptr && ntiles != g.n_jb * g.n_kb) ||
+      ntiles > g.n_jb * g.n_kb || (uintptr_t)run % sizeof(int4) != 0 ||
+      !plan(g.variant, mode, g.hb, g.wc, chunk, &fn, &threads, &smem))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cached_per_sm(fn, g.variant, mode, chunk, threads, smem, &per_sm);
+  if (err == cudaSuccess)
+    err = persistent_grid(per_sm, ntiles, max_blocks, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  fn<<<blocks, threads, smem, stream>>>(a, b, c, g, run, ntiles, chunk,
+                                        strip_words, scal, sub, s, rf, cf,
+                                        out, cap, next_tile, done);
+  return (int)cudaGetLastError();
+}
 
 // Where the choice-capture sweep writes: packed_lo and packed_hi of
 // traceback/direct.py, (|A| + |B| + |C|, (|B| + 1)(|C| + 1)) each; row q - 1
@@ -130,52 +332,6 @@ struct ChoiceOut {
   int lb, lc;   // |B|, |C|
 };
 
-// The three pairwise scores and S3 of one cell, as cell_step computes them.
-__device__ __forceinline__ void cell_subs(int a, int b, int cc,
-                                          const StepScoring& s, const int* sub,
-                                          int& s3, int& sab, int& sbc,
-                                          int& sac) {
-  sab = pair_score(a, b, s, sub);
-  sac = pair_score(a, cc, s, sub);
-  sbc = pair_score(b, cc, s, sub);
-  if (s.rtl) {
-    s3 = a == b ? (b == cc ? 3 * s.match : 2 * (s.match + s.mismatch))
-                : 3 * s.mismatch;
-  } else {
-    s3 = sab + sac + sbc;
-  }
-}
-
-// One cell of the backward sweep (engine.backward_slab): p1, p2 point at
-// matrix 0 of planes q-1 and q-2 (matrices `ts` ints apart), m3 at the M row
-// of plane q-3; c, up, left, upleft as in cell_step.
-__device__ __forceinline__ void bwd_step(const int* p1, const int* p2,
-                                         const int* m3, int ts, int c, int up,
-                                         int left, int upleft, int a, int b,
-                                         int cc, const StepScoring& s,
-                                         const int* sub,
-                                         int out[kNumMatrices]) {
-  int s3, sab, sbc, sac;
-  cell_subs(a, b, cc, s, sub, s3, sab, sbc, sac);
-  int e[kNumMatrices];
-  e[0] = m3[upleft] + s3;          // M: plane q-3 at (j-1, k-1)
-  e[1] = p1[1 * ts + c];           // Ix: plane q-1 at (j, k)
-  e[2] = p1[2 * ts + up];          // Iy: plane q-1 at (j-1, k)
-  e[3] = p1[3 * ts + left];        // Iz: plane q-1 at (j, k-1)
-  e[4] = p2[4 * ts + up] + sab;    // Ixy: plane q-2 at (j-1, k)
-  e[5] = p2[5 * ts + upleft] + sbc;  // Iyz: plane q-2 at (j-1, k-1)
-  e[6] = p2[6 * ts + left] + sac;  // Ixz: plane q-2 at (j, k-1)
-  const int go = s.gap_open, ge = s.gap_extend;
-#pragma unroll
-  for (int t = 0; t < kNumMatrices; ++t) {
-    int acc = e[0] + transition_weight(0, t, go, ge);
-#pragma unroll
-    for (int u = 1; u < kNumMatrices; ++u)
-      acc = max(acc, e[u] + transition_weight(u, t, go, ge));
-    out[t] = max(acc, kNeg);
-  }
-}
-
 // Shared memory of a tile's block: the guarded ring, the tile's B and C
 // symbols and, under a submatrix (`sub`), its table.
 size_t shared_bytes(int hb, int wc, bool sub) {
@@ -183,23 +339,25 @@ size_t shared_bytes(int hb, int wc, bool sub) {
                          sub_table_ints(sub));
 }
 
-// The choice-capture sweep's shared memory: K5's, and 4 generations of one
-// byte plane, the argmax of max7.
+// The choice-capture sweep's shared memory: the ring's, and 4 generations
+// of one byte plane, the argmax of max7.
 size_t choices_shared_bytes(int hb, int wc, bool sub) {
   return shared_bytes(hb, wc, sub) + (size_t)4 * (hb + 1) * (wc + 1);
 }
 
-// Sweeps tile (jb, kb), waiting and publishing through `sync`
-// (csrc/schedule.cuh).  CHOICES: the direct engine's choice-capture sweep
-// (see the top of this file) instead of K5's capture; `co` is read only
-// then.
-template <bool CHOICES>
+// Sweeps tile (jb, kb) of the choice-capture sweep on the plane ring,
+// waiting and publishing through `sync` (csrc/schedule.cuh).  The last
+// branch of the cell, the forward step with "pin"'s walls that K5 took on
+// this ring, is reached by no cell: every cell but the origin takes the
+// choice step.  It stays because the sweep built without it took 90
+// registers a thread instead of 97 and ran 6.5% slower on an H100 (PERF.md
+// section 6); it goes with the ring (ROADMAP queue 2).
 __device__ __forceinline__ void slab_tile(
     int* smem, const int* __restrict__ a_ext, const int* __restrict__ b_ext,
     const int* __restrict__ c_ext, const SlabGeom& g, int jb, int kb,
     const int* __restrict__ scal, const int* __restrict__ sub,
     const StepScoring& s, int* rf, int* cf, int* __restrict__ out,
-    int* __restrict__ cap, const ChoiceOut& co, PlaneWait& sync) {
+    const ChoiceOut& co, PlaneWait& sync) {
   const int hb = g.hb, wc = g.wc, tb = hb - 1, tc = wc - 1;
   // Guarded plane: position (jl, kl) at (jl + 1) * W1 + kl + 1, jl, kl >= -1.
   const int W1 = wc + 1, PG = (hb + 1) * W1;
@@ -207,14 +365,13 @@ __device__ __forceinline__ void slab_tile(
   int* m4 = planes + 3 * kNumMatrices * PG;   // [4 slots][PG]
   int* bsym = m4 + 4 * PG;                    // [hb]
   int* csym = bsym + hb;                      // [wc]
-  // CHOICES: [4 slots][PG], the argmax of each max7 in m4.
+  // [4 slots][PG], the argmax of each max7 in m4.
   uint8_t* a4 = reinterpret_cast<uint8_t*>(csym + wc);
-  int* sub_s = csym + wc + (CHOICES ? PG : 0);  // [kSubTable], sub only
+  int* sub_s = csym + wc + PG;  // [kSubTable], sub only
   const int blk = jb * g.n_kb + kb;
   const int* row = scal + (size_t)blk * kScalCols;
   const int la = g.la, qstar = row[3], jlstar = row[4], klstar = row[5];
   const int variant = g.variant;
-  const bool fwd = variant != kBwd;
   const bool walls = variant == kPin || variant == kBwd;
 
   for (int x = threadIdx.x; x < kRingPlanes * PG; x += kThreads) {
@@ -223,9 +380,7 @@ __device__ __forceinline__ void slab_tile(
     const bool border = (jb == 0 && jl == 0) || (kb == 0 && kl == 0);
     planes[x] = variant == kFree || (variant == kFreeJk && border) ? 0 : kNeg;
   }
-  if (CHOICES) {
-    for (int x = threadIdx.x; x < 4 * PG; x += kThreads) a4[x] = 0;
-  }
+  for (int x = threadIdx.x; x < 4 * PG; x += kThreads) a4[x] = 0;
   for (int x = threadIdx.x; x < hb; x += kThreads)
     bsym[x] = b_ext[jb * tb + x];
   for (int x = threadIdx.x; x < wc; x += kThreads)
@@ -238,13 +393,9 @@ __device__ __forceinline__ void slab_tile(
   const size_t rrow = (size_t)kNumMatrices * wc, crow = (size_t)kNumMatrices * hb;
   int* rface = rf + (size_t)row[13] * g.nrows * rrow;
   int* cface = cf + (size_t)row[14] * g.nrows * crow;
-  int* capb = cap + (size_t)blk * kNumMatrices * hb * wc;
-  // The choice sweep also steps the cells with i = 0 of "free" and
-  // "free_jk", whose choices the walk may read.
-  const int ilo = walls || CHOICES ? 0 : 1;
   const int nq = la + tb + tc;
   const int npos = hb * wc;
-  // CHOICES: one row of the packed buffers a global plane, 64-bit offsets.
+  // One row of the packed buffers a global plane, 64-bit offsets.
   const size_t crow_len = (size_t)(co.lb + 1) * (co.lc + 1);
 
   for (int q = walls ? 0 : 1; q <= nq; ++q) {
@@ -260,11 +411,13 @@ __device__ __forceinline__ void slab_tile(
     for (int x = threadIdx.x; x < npos; x += kThreads) {
       const int jl = x / wc, kl = x - (x / wc) * wc;
       const int i = q - jl - kl;
-      if (i < ilo || i > la) continue;
+      // Cells with i = 0 step too, in every variant, for the choices the
+      // walk may read.
+      if (i < 0 || i > la) continue;
       const int c = (jl + 1) * W1 + kl + 1;
       const int gj = jb * tb + jl, gk = kb * tc + kl;
       int v[kNumMatrices];
-      int word = -1;  // CHOICES: the cell's choices, where this tile owns it
+      int word = -1;  // the cell's choices, where this tile owns it
       if (jl == 0 && jb > 0) {
         // Halo row from the row face; it wins at the corner.
         const int* src = rface + q * rrow + kl;
@@ -274,7 +427,7 @@ __device__ __forceinline__ void slab_tile(
         const int* src = cface + q * crow + jl;
 #pragma unroll
         for (int t = 0; t < kNumMatrices; ++t) v[t] = sync.load(src + t * hb);
-      } else if (CHOICES && i + gj + gk > 0) {
+      } else if (i + gj + gk > 0) {
         // Every cell chooses from its stored predecessors; its value is then
         // walled as traceback/torch_engine.py _Grid.mask walls it.
         word = cell_step_choices(p1, p2, PG, c, c - W1, c - 1, c - W1 - 1,
@@ -302,10 +455,10 @@ __device__ __forceinline__ void slab_tile(
 #pragma unroll
         for (int t = 0; t < kNumMatrices; ++t) v[t] = 0;
       } else if (i == 0 && jl == 0 && kl == 0) {
-        // The origin of "pin" / "bwd" (only tile (0, 0) reaches here).
+        // The origin of "pin" (only tile (0, 0) reaches here).
 #pragma unroll
         for (int t = 0; t < kNumMatrices; ++t) v[t] = row[6 + t];
-      } else if (fwd) {
+      } else {
         cell_step(p1, p2, PG, c, c - W1, c - 1, c - W1 - 1, m4p3[c - W1 - 1],
                   a_ext[i], bsym[jl], csym[kl], s, sub_s, v);
 #pragma unroll
@@ -320,12 +473,9 @@ __device__ __forceinline__ void slab_tile(
               v[t] = kNeg;
           }
         }
-      } else {
-        bwd_step(p1, p2, m4p3, PG, c, c - W1, c - 1, c - W1 - 1, a_ext[i],
-                 bsym[jl], csym[kl], s, sub_s, v);
       }
 
-      // max7 and, for CHOICES, its first argmax, of the stored values.
+      // max7 and its first argmax, of the stored values.
       int m = v[0], am = 0;
 #pragma unroll
       for (int t = 0; t < kNumMatrices; ++t) {
@@ -335,8 +485,8 @@ __device__ __forceinline__ void slab_tile(
           am = t;
         }
       }
-      m4cur[c] = fwd ? m : v[0];
-      if (CHOICES) a4cur[c] = (uint8_t)am;
+      m4cur[c] = m;
+      a4cur[c] = (uint8_t)am;
       if (jl == tb) {
 #pragma unroll
         for (int t = 0; t < kNumMatrices; ++t)
@@ -347,15 +497,11 @@ __device__ __forceinline__ void slab_tile(
         for (int t = 0; t < kNumMatrices; ++t)
           sync.store(&cface[(q - tc) * crow + t * hb + jl], v[t]);
       }
-      if (!CHOICES && i == la) {
-#pragma unroll
-        for (int t = 0; t < kNumMatrices; ++t) capb[t * npos + x] = v[t];
-      }
-      if (fwd && q == qstar && jl == jlstar && kl == klstar) {
+      if (q == qstar && jl == jlstar && kl == klstar) {
 #pragma unroll
         for (int t = 0; t < kNumMatrices; ++t) out[t] = v[t];
       }
-      if (CHOICES && word >= 0 && gj <= co.lb && gk <= co.lc) {
+      if (word >= 0 && gj <= co.lb && gk <= co.lc) {
         // Row i + j + k - 1 (q is the tile's local plane); matrices 0-4 in
         // the int16 buffer, 5-6 in the byte buffer.
         const size_t at = (size_t)(i + gj + gk - 1) * crow_len +
@@ -369,51 +515,9 @@ __device__ __forceinline__ void slab_tile(
   sync.finish();
 }
 
-// Entry of a run's table, as csrc/blocked.cu RunEntry: (jb, kb, up, left).
-using RunEntry = int4;
-
-// The tile table in one launch: the whole grid in table order (run ==
-// nullptr, ntiles = n_jb * n_kb), or the ntiles entries of run, in which
-// every neighbour of the run comes before its tile.  next_tile: the hand-out
-// counter (0); done: one progress word a tile (-1), row jb * n_kb + kb of
-// the whole grid or the entry of the run.
-__global__ void __launch_bounds__(kThreads)
-    slab_persistent(const int* __restrict__ a_ext,
-                    const int* __restrict__ b_ext,
-                    const int* __restrict__ c_ext, SlabGeom g,
-                    const RunEntry* __restrict__ run, int ntiles, int chunk,
-                    const int* __restrict__ scal, const int* __restrict__ sub,
-                    StepScoring s, int* rf, int* cf, int* __restrict__ out,
-                    int* __restrict__ cap, int* next_tile, int* done) {
-  extern __shared__ int smem[];
-  const int tb = g.hb - 1, tc = g.wc - 1, nq = g.la + tb + tc;
-  const int first = g.variant == kPin || g.variant == kBwd ? 0 : 1;
-  for (;;) {
-    const int t = take_tile(next_tile);
-    if (t >= ntiles) return;
-    int jb, kb;
-    int *me, *up, *left;
-    if (run != nullptr) {
-      const RunEntry e = run[t];
-      jb = e.x;
-      kb = e.y;
-      me = done + t;
-      up = e.z >= 0 ? done + e.z : nullptr;
-      left = e.w >= 0 ? done + e.w : nullptr;
-    } else {
-      table_tile(t, g.n_jb, g.n_kb, jb, kb);
-      me = done + jb * g.n_kb + kb;
-      up = jb > 0 ? me - g.n_kb : nullptr;
-      left = kb > 0 ? me - 1 : nullptr;
-    }
-    PlaneWait sync(me, up, left, tb, tc, nq, chunk, first);
-    slab_tile<false>(smem, a_ext, b_ext, c_ext, g, jb, kb, scal, sub, s, rf,
-                     cf, out, cap, ChoiceOut{}, sync);
-  }
-}
-
 // The direct engine's choice-capture sweep over the whole tile table in one
-// launch, as slab_persistent sweeps it (next_tile 0, done one -1 a tile).
+// launch: blocks take tiles in table order from next_tile (0); done holds
+// one progress word a tile (-1).
 __global__ void __launch_bounds__(kThreads)
     choices_persistent(const int* __restrict__ a_ext,
                        const int* __restrict__ b_ext,
@@ -433,46 +537,9 @@ __global__ void __launch_bounds__(kThreads)
     int* me = done + jb * g.n_kb + kb;
     PlaneWait sync(me, jb > 0 ? me - g.n_kb : nullptr,
                    kb > 0 ? me - 1 : nullptr, tb, tc, nq, chunk, first);
-    slab_tile<true>(smem, a_ext, b_ext, c_ext, g, jb, kb, scal, sub, s, rf,
-                    cf, out, nullptr, co, sync);
+    slab_tile(smem, a_ext, b_ext, c_ext, g, jb, kb, scal, sub, s, rf, cf,
+              out, co, sync);
   }
-}
-
-bool valid(const SlabGeom& g, const StepScoring& s) {
-  return g.variant >= kFree && g.variant <= kBwd && s.nsym >= 0 &&
-         s.nsym <= kMaxSym && g.n_jb >= 1 && g.n_kb >= 1;
-}
-
-cudaError_t persistent_per_sm(int hb, int wc, bool sub, int* per_sm) {
-  const size_t smem = shared_bytes(hb, wc, sub);
-  cudaError_t err = cudaFuncSetAttribute(
-      slab_persistent, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, slab_persistent,
-                                                       kThreads, smem);
-}
-
-int launch_persistent(const int* a, const int* b, const int* c,
-                      const SlabGeom& g, const RunEntry* run, int ntiles,
-                      int chunk, int max_blocks, const int* scal,
-                      const int* sub, StepScoring s, int* rf, int* cf,
-                      int* out, int* cap, int* next_tile, int* done,
-                      cudaStream_t stream) {
-  if (!valid(g, s) || chunk < 1 || max_blocks < 0 || ntiles < 1 ||
-      (run == nullptr && ntiles != g.n_jb * g.n_kb) ||
-      ntiles > g.n_jb * g.n_kb || (uintptr_t)run % sizeof(int4) != 0)
-    return (int)cudaErrorInvalidValue;
-  const bool table = s.nsym != 0;
-  int per_sm = 0, blocks = 0;
-  cudaError_t err = persistent_per_sm(g.hb, g.wc, table, &per_sm);
-  if (err == cudaSuccess)
-    err = persistent_grid(per_sm, ntiles, max_blocks, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  slab_persistent<<<blocks, kThreads, shared_bytes(g.hb, g.wc, table),
-                    stream>>>(
-      a, b, c, g, run, ntiles, chunk, scal, sub, s, rf, cf, out, cap,
-      next_tile, done);
-  return (int)cudaGetLastError();
 }
 
 cudaError_t choices_per_sm(int hb, int wc, bool sub, int* per_sm) {
@@ -490,8 +557,9 @@ int launch_choices(const int* a, const int* b, const int* c,
                    const int* sub, StepScoring s, int* rf, int* cf, int* out,
                    const ChoiceOut& co, int* next_tile, int* done,
                    cudaStream_t stream) {
-  if (!valid(g, s) || g.variant == kBwd || chunk < 1 || co.lb < 0 ||
-      co.lc < 0 || co.lb > g.n_jb * (g.hb - 1) ||
+  if (g.variant < kFree || g.variant > kPin || s.nsym < 0 ||
+      s.nsym > kMaxSym || g.n_jb < 1 || g.n_kb < 1 || chunk < 1 ||
+      co.lb < 0 || co.lc < 0 || co.lb > g.n_jb * (g.hb - 1) ||
       co.lc > g.n_kb * (g.wc - 1) || g.la + co.lb + co.lc < 1)
     return (int)cudaErrorInvalidValue;
   const bool table = s.nsym != 0;
@@ -511,10 +579,10 @@ int launch_choices(const int* a, const int* b, const int* c,
 
 extern "C" {
 
-// Shared memory one tile's thread block of K5 takes at tile plane hb x wc
-// under a submatrix of nsym symbols (0: match/mismatch).
+// Shared memory one tile's thread block of the choice sweep takes at tile
+// plane hb x wc under a submatrix of nsym symbols (0: match/mismatch).
 int trialign_slab_shared_bytes(int hb, int wc, int nsym) {
-  return (int)trialign::shared_bytes(hb, wc, nsym != 0);
+  return (int)trialign::choices_shared_bytes(hb, wc, nsym != 0);
 }
 
 // Launch K5 as one persistent launch on `stream`.  a: A_i at index i for
@@ -530,20 +598,48 @@ int trialign_slab_shared_bytes(int hb, int wc, int nsym) {
 // the tile's neighbours within the run (earlier entries) or -1; a neighbour
 // outside the run must have been swept by a launch ordered before this one
 // (the same stream, or an event); run is 16-byte aligned.  chunk: local
-// planes between two handshakes (>= 1); max_blocks: caps the grid (0: as
-// many blocks as the SMs hold at once); next_tile: 1 int, 0; done: ntiles
-// ints, -1.  A wait past the watchdog traps (csrc/schedule.cuh).  Returns
-// cudaGetLastError() (or the error of the occupancy query).
+// planes between two handshakes (1 .. kMaxChunk); max_blocks: caps the grid
+// (0: as many blocks as the SMs hold at once); next_tile: 1 int, 0; done:
+// kMaxStrips ints a tile, -1; strip_words: a progress word a strip, else
+// one a tile; the tile plane at most 33 x 33.  A wait past the watchdog
+// traps (csrc/schedule.cuh).  Returns cudaGetLastError() (or the error of
+// the occupancy query).
 int trialign_slab_sweep(const int* a, const int* b, const int* c,
                         trialign::SlabGeom g, const int* run, int ntiles,
                         const int* scal, const int* sub,
                         trialign::StepScoring s, int* rf, int* cf, int* out,
                         int* cap, int chunk, int max_blocks, int* next_tile,
-                        int* done, void* stream) {
+                        int* done, int strip_words, void* stream) {
   return trialign::launch_persistent(
       a, b, c, g, reinterpret_cast<const trialign::RunEntry*>(run), ntiles,
       chunk, max_blocks, scal, sub, s, rf, cf, out, cap, next_tile, done,
-      (cudaStream_t)stream);
+      strip_words != 0, (cudaStream_t)stream);
+}
+
+// What K5's sweep of variant `variant` under scoring mode `mode` (bit 0
+// rtl, bit 1 a submatrix) takes at tile plane hb x wc and chunk: into
+// out[0..4] its registers a thread, local (spill) bytes a thread, threads
+// and shared bytes a block, and blocks an SM.  Returns a CUDA error code.
+int trialign_slab_resources(int hb, int wc, int chunk, int mode, int variant,
+                            int* out) {
+  trialign::SweepFn fn = nullptr;
+  int threads = 0;
+  size_t smem = 0;
+  if (!trialign::plan(variant, mode, hb, wc, chunk, &fn, &threads, &smem))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = trialign::cached_per_sm(fn, variant, mode, chunk, threads, smem,
+                                  &blocks);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = threads;
+  out[3] = (int)smem;
+  out[4] = blocks;
+  return 0;
 }
 
 // The direct engine's choice-capture sweep (traceback/direct.py choices) as
@@ -552,9 +648,9 @@ int trialign_slab_sweep(const int* a, const int* b, const int* c,
 // target is (|B|, |C|), which may be 0), no capture.  lo and hi: the packed
 // buffers, (la + lb + lc) rows of (lb + 1) * (lc + 1) entries, each cuboid
 // slot (0 <= i <= la on plane q >= 1) written; the rest is left as it was.
-// out: the 7 values at (la, lb, lc).  next_tile: 1 int, 0; done: n_jb * n_kb
-// ints, -1.  Returns cudaGetLastError() (or the error of the occupancy
-// query).
+// out: the 7 values at (la, lb, lc).  chunk: local planes between two
+// handshakes (>= 1); next_tile: 1 int, 0; done: n_jb * n_kb ints, -1.
+// Returns cudaGetLastError() (or the error of the occupancy query).
 int trialign_slab_choices(const int* a, const int* b, const int* c,
                           trialign::SlabGeom g, const int* scal,
                           const int* sub, trialign::StepScoring s, int* rf,
@@ -564,12 +660,6 @@ int trialign_slab_choices(const int* a, const int* b, const int* c,
   return trialign::launch_choices(a, b, c, g, chunk, scal, sub, s, rf, cf,
                                   out, trialign::ChoiceOut{lo, hi, lb, lc},
                                   next_tile, done, (cudaStream_t)stream);
-}
-
-// Blocks of the persistent slab sweep one SM holds at tile plane hb x wc
-// under match/mismatch scoring, into *per_sm.  Returns a CUDA error code.
-int trialign_slab_blocks_per_sm(int hb, int wc, int* per_sm) {
-  return (int)trialign::persistent_per_sm(hb, wc, false, per_sm);
 }
 
 }  // extern "C"

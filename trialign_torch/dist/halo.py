@@ -58,13 +58,13 @@ from trialign_torch.dist import mesh as dmesh
 from trialign_torch.kernels import blocked as bk
 
 # The persistent schedule's tile-plane step on a full card: K3 on its
-# earlier shared-memory pillar, whose plane ring and cell step K5
-# (csrc/slab.cu) still takes, swept 1024^3 (1024 tiles of 1088 planes) in
-# 23.16703987121582 ms with RESIDENT blocks at once (PERF.md section 6,
-# chip_smoke.py timings, NVIDIA H100 80GB HBM3 at 700 W).  K3 on the
-# register step sweeps it in 12.29 ms: the stripes of K3 and of K5 share
-# this model (PERF.md section 7).
-RESIDENT = 264  # two 512-thread blocks of the 33 x 33 plane on each of 132 SMs
+# earlier shared-memory pillar, since deleted, swept 1024^3 (1024 tiles of
+# 1088 planes) in 23.16703987121582 ms with RESIDENT blocks at once
+# (PERF.md section 6, chip_smoke.py timings, NVIDIA H100 80GB HBM3 at
+# 700 W).  K3 and K5 now sweep on the register step, K3 1024^3 in 12.29
+# ms: the stripes of both share this model, not refitted (PERF.md section
+# 7).
+RESIDENT = 264  # two blocks of the 33 x 33 plane on each of 132 SMs
 STEP_S = 23.16703987121582e-3 * RESIDENT / (1024 * 1088)
 # Planes a tile trails its upper or left neighbour: fitted to K3 at 512^3
 # (256 tiles, all resident: 576 planes and 30 diagonals of lag in

@@ -78,9 +78,9 @@ SUB_ROWS = 32
 MAX_STRIPS = 8
 RING_ROWS = 33
 MAX_CHUNK = 8
-# Local planes a tile of K5's persistent sweeps (and of K3's at the caller's
-# request) sweeps between two handshakes with its neighbours (chip_smoke.py
-# "tuning", PERF.md).
+# Local planes a tile of the choice sweep (csrc/slab.cu) sweeps between two
+# handshakes with its neighbours (chip_smoke.py "tuning", PERF.md), and the
+# chunk step_resources asks about by default.
 CHUNK = 8
 # K3's schedule by its waves: the launch's tiles over the blocks the card
 # holds at once (timed in turns at 448^3 .. 1536^3 on the 33 x 33 plane,
@@ -522,12 +522,12 @@ def _resident(device: int, hb: int, wc: int, chain: bool) -> int:
                                else plan_dims(1, 1, 1, hb, wc))
 
 
-def _check_step(chunk: int, blocks: Optional[int]) -> None:
+def check_step(chunk: int, blocks: Optional[int]) -> None:
     """:func:`check_schedule`, and the register step's longest chunk."""
     check_schedule(chunk, blocks)
     if chunk > MAX_CHUNK:
-        raise ValueError(f"K3 takes chunks of at most {MAX_CHUNK} planes, "
-                         f"not {chunk}")
+        raise ValueError(f"the register step (K3, K5) takes chunks of at "
+                         f"most {MAX_CHUNK} planes, not {chunk}")
 
 
 class Work(NamedTuple):
@@ -570,7 +570,7 @@ def _persistent(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, state,
     tensor; on a CUDA tensor one persistent launch of K3 on its
     :func:`schedule` (``chunk``, where given, in place of the schedule's),
     counted on ``counter``, which raises if refused and never falls back."""
-    _check_step(1 if chunk is None else chunk, blocks)
+    check_step(1 if chunk is None else chunk, blocks)
     dev = a_ext.device
     _check_state(state, dims, dev)
     run = None if tiles is None else run_table(dims, tiles)
@@ -620,7 +620,7 @@ def step_resources(dims: Dims, scoring: Scoring = Scoring(),
     current card at ``dims``'s tile plane: registers a thread, local-memory
     (spill) bytes a thread, threads and shared bytes a block, and blocks an
     SM."""
-    _check_step(chunk, None)
+    check_step(chunk, None)
     lib = _build.load("blocked")
     vals = (ctypes.c_int * 5)()
     _build.check(lib, lib.trialign_blocked_resources(

@@ -5,8 +5,11 @@ Hirschberg top split needs three full-cuboid sweeps (traceback/hirschberg.py):
 a forward sweep that captures the 7-state plane i = m, a backward sweep that
 gives the matching suffix slab, and a ``free_jk`` guard sweep.  The TPU ran
 them in ``make_slab_grid_call`` (``_slab_sweep``); here they run in
-``csrc/slab.cu``, K3's tiled sweep plus the capture, the whole grid in one
-persistent launch (``blocked.planes_needed`` says when a tile may go on).
+``csrc/slab.cu``, K3's tiled sweep on K3's register step
+(``csrc/pillar_warp.cuh``) plus the capture, the whole grid in one
+persistent launch on K3's :func:`blocked.schedule` (``blocked.planes_needed``
+says when a tile may go on).  A tile is one sub-tile of that step:
+:func:`_plan` refuses a tile plane past 33 x 33.
 Variants, as in the reference:
 
 * ``free``: zero borders, the score sweep's semantics;
@@ -40,6 +43,7 @@ launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -65,24 +69,37 @@ _UNWRITTEN = 1 << 28
 
 
 def shared_bytes(hb: int, wc: int) -> int:
-    """Shared memory a tile's thread block takes under a submatrix, as
-    csrc/slab.cu counts it: 25 ring planes with a guard row and column, the
-    tile's B and C symbols and the 25 x 25 table, which match/mismatch
-    scoring does not reserve.  A tile plane is planned for the larger."""
-    return 4 * (25 * (hb + 1) * (wc + 1) + hb + wc
+    """Shared memory a tile's thread block of the choice sweep takes under a
+    submatrix, as csrc/slab.cu counts it: 25 ring planes with a guard row
+    and column, the tile's B and C symbols, 4 byte planes (the argmax of
+    max7) and the 25 x 25 table, which match/mismatch scoring does not
+    reserve.  A tile plane is planned for the larger."""
+    return 4 * (26 * (hb + 1) * (wc + 1) + hb + wc
                 + (_build.SUBMATRIX_NSYM_CAP + 1) ** 2)
 
 
-def _plan(la: int, lb: int, lc: int,
-          block_shape: Optional[Tuple[int, int]] = None) -> Dims:
-    """Tile geometry of one slab sweep: K3's tile plane (or ``block_shape``,
-    (hb, wc)); raises ValueError for a tile the card cannot hold."""
-    hb, wc = block_shape or bk.choose_block_shape(la, lb, lc)
+def _check_plane(hb: int, wc: int) -> None:
+    """ValueError for a tile plane the card cannot hold: past the choice
+    sweep's shared memory, or past one sub-tile of K5's register step."""
     if shared_bytes(hb, wc) > bk.SMEM_CAP:
         raise ValueError(
             f"slab tile plane {hb}x{wc} needs {shared_bytes(hb, wc)} bytes "
             f"of shared memory; a block has {bk.SMEM_CAP}"
         )
+    if hb - 1 > bk.SUB_ROWS or wc - 1 > bk.STRIP * bk.MAX_STRIPS:
+        raise ValueError(
+            f"slab tile plane {hb}x{wc} is past one sub-tile of the register "
+            f"step: K5 takes at most {bk.SUB_ROWS + 1}x"
+            f"{bk.STRIP * bk.MAX_STRIPS + 1}")
+
+
+def _plan(la: int, lb: int, lc: int,
+          block_shape: Optional[Tuple[int, int]] = None) -> Dims:
+    """Tile geometry of one slab sweep: K3's tile plane (or ``block_shape``,
+    (hb, wc)); raises ValueError for a tile the card cannot hold
+    (:func:`_check_plane`)."""
+    hb, wc = block_shape or bk.choose_block_shape(la, lb, lc)
+    _check_plane(hb, wc)
     return bk.grid_dims(la, lb, lc, hb, wc)
 
 
@@ -327,8 +344,7 @@ def _check(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
         raise ValueError(f"the slab sweep needs |A|, |B|, |C| >= {least}")
     if dims != bk.grid_dims(la, lb, lc, dims.hb, dims.wc):
         raise ValueError(f"dims {dims} were not planned for {la, lb, lc}")
-    if shared_bytes(dims.hb, dims.wc) > bk.SMEM_CAP:
-        raise ValueError(f"tile plane {dims.hb}x{dims.wc} is too large")
+    _check_plane(dims.hb, dims.wc)
     tb, tc = dims.hb - 1, dims.wc - 1
     for t, n in ((a_ext, la + 1), (b_ext, dims.n_jb * tb + 1),
                  (c_ext, dims.n_kb * tc + 1)):
@@ -356,9 +372,11 @@ def _check_state(state: SlabState, dims: Dims, device) -> None:
 def _persistent(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, variant,
                 state, tiles, scoring, chunk, blocks) -> SlabState:
     """``tiles`` (None: the whole table) on ``state``: slab_ref on a CPU
-    tensor; on a CUDA tensor one persistent launch of K5, counted on
-    ``counter``, which raises if refused and never falls back."""
-    bk.check_schedule(chunk, blocks)
+    tensor; on a CUDA tensor one persistent launch of K5 on K3's
+    :func:`blocked.schedule` (``chunk``, where given, in place of the
+    schedule's), counted on ``counter``, which raises if refused and never
+    falls back."""
+    bk.check_step(1 if chunk is None else chunk, blocks)
     dev = a_ext.device
     _check_state(state, dims, dev)
     run = None if tiles is None else bk.run_table(dims, tiles)
@@ -370,15 +388,22 @@ def _persistent(counter, a_ext, b_ext, c_ext, la, lb, lc, dims, variant,
         return state
     if dev.type != "cuda":
         raise ValueError(f"no slab kernel for device {dev}")
+
+    def call(lib, step, table, work, stream):
+        resident = resident_blocks(dims)
+        plan = bk.schedule(dims, work.ntiles,
+                           min(resident, blocks or resident))
+        return lib.trialign_slab_sweep(
+            a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
+            _geom(dims, la, variant), work.run, work.ntiles,
+            state.scal.data_ptr(), table.data_ptr(), step,
+            state.rf.data_ptr(), state.cf.data_ptr(), state.out.data_ptr(),
+            state.cap.data_ptr(), plan.chunk if chunk is None else chunk,
+            blocks or 0, work.next_tile, work.done, int(plan.strip_words),
+            stream)
+
     _launch(counter, "k5", run_cells(la, lb, lc, dims, run), dims, run,
-            scoring, dev, lambda lib, step, table, work, stream:
-            lib.trialign_slab_sweep(
-                a_ext.data_ptr(), b_ext.data_ptr(), c_ext.data_ptr(),
-                _geom(dims, la, variant), work.run, work.ntiles,
-                state.scal.data_ptr(), table.data_ptr(), step,
-                state.rf.data_ptr(), state.cf.data_ptr(),
-                state.out.data_ptr(), state.cap.data_ptr(), chunk,
-                blocks or 0, work.next_tile, work.done, stream))
+            scoring, dev, call, bk.MAX_STRIPS)
     return state
 
 
@@ -394,17 +419,18 @@ def run_cells(la: int, lb: int, lc: int, dims: Dims, run) -> int:
 
 
 def _launch(counter, kernel: str, cells: int, dims: Dims, run,
-            scoring: Scoring, device, call) -> None:
+            scoring: Scoring, device, call, words: int = 1) -> None:
     """One persistent launch of csrc/slab.cu on ``device`` over ``run``
-    (None: the whole tile table): ``call(lib, step, table, work, stream)``
-    makes it and returns its code; a refused launch raises, and nothing
-    falls back.  Counted on ``counter``: one launch and its ``cells``.
-    ``kernel`` names its spans ("k5" or "choices")."""
+    (None: the whole tile table) with ``words`` progress words a tile:
+    ``call(lib, step, table, work, stream)`` makes it and returns its code;
+    a refused launch raises, and nothing falls back.  Counted on
+    ``counter``: one launch and its ``cells``.  ``kernel`` names its spans
+    ("k5" or "choices")."""
     with torch.cuda.device(device):
         with span(kernel + ".pack"):
             lib = _build.load("slab")
             step, table = _build.kernel_scoring(scoring, 0, device)
-            work = bk.launch_work(dims, run, device)
+            work = bk.launch_work(dims, run, device, words)
         with span(kernel + ".launch"):
             code = call(lib, step, table, work,
                         torch.cuda.current_stream().cuda_stream)
@@ -420,7 +446,7 @@ def _geom(dims: Dims, la: int, variant: str):
 
 def sweep_tiles(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                 variant: str, state: SlabState, idx0: int, count: int,
-                scoring: Scoring = Scoring(), chunk: int = bk.CHUNK,
+                scoring: Scoring = Scoring(), chunk: Optional[int] = None,
                 blocks: Optional[int] = None) -> SlabState:
     """The per-tile form (slab.py make_slab_block_call): runs tiles idx0 ..
     idx0 + count - 1 of ``blocked.tile_table`` on ``state`` (from
@@ -435,7 +461,7 @@ def sweep_tiles(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
 
 def sweep_run(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
               variant: str, state: SlabState, tiles, scoring: Scoring =
-              Scoring(), chunk: int = bk.CHUNK,
+              Scoring(), chunk: Optional[int] = None,
               blocks: Optional[int] = None) -> SlabState:
     """The per-tile form over the list ``tiles`` of (jb, kb), as
     ``blocked.sweep_run``: each tile's neighbours in the list come before
@@ -449,24 +475,52 @@ def sweep_run(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                        variant, state, list(tiles), scoring, chunk, blocks)
 
 
+def step_resources(dims: Dims, scoring: Scoring = Scoring(),
+                   variant: str = "free", chunk: int = bk.CHUNK) -> dict:
+    """What K5's persistent kernel of this scoring mode and variant takes
+    on the current card at ``dims``'s tile plane: registers a thread,
+    local-memory (spill) bytes a thread, threads and shared bytes a block,
+    and blocks an SM."""
+    bk.check_step(chunk, None)
+    mode = (int(scoring.s3_mode == "rtl") |
+            2 * int(scoring.submatrix is not None))
+    lib = _build.load("slab")
+    vals = (ctypes.c_int * 5)()
+    _build.check(lib, lib.trialign_slab_resources(
+        dims.hb, dims.wc, chunk, mode, VARIANTS[variant], vals),
+        "slab resource query")
+    return dict(zip(("registers", "local_bytes", "threads", "shared_bytes",
+                     "blocks_per_sm"), list(vals)))
+
+
 def blocks_per_sm(dims: Dims) -> int:
     """Thread blocks of K5's persistent sweep that one SM of the current
-    card holds at ``dims``'s tile plane."""
-    lib = _build.load("slab")
-    per_sm = ctypes.c_int(0)
-    _build.check(lib, lib.trialign_slab_blocks_per_sm(
-        dims.hb, dims.wc, ctypes.byref(per_sm)), "slab occupancy query")
-    return per_sm.value
+    card holds at ``dims``'s tile plane under match/mismatch scoring."""
+    return step_resources(dims)["blocks_per_sm"]
+
+
+def resident_blocks(dims: Dims) -> int:
+    """Blocks of K5's sweep at ``dims``'s tile plane that the current card
+    holds at once."""
+    return _resident(torch.cuda.current_device(), dims.hb, dims.wc)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device: int, hb: int, wc: int) -> int:
+    """:func:`resident_blocks`, asked once a card and tile plane."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * blocks_per_sm(bk.grid_dims(1, 1, 1, hb, wc))
 
 
 def slab_sweep(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                variant: str, ev, scoring: Scoring = Scoring(),
-               chunk: int = bk.CHUNK, blocks: Optional[int] = None):
+               chunk: Optional[int] = None, blocks: Optional[int] = None):
     """(final (7,), cap (n_blocks, 7, hb, wc)) int32 of one slab sweep with
     |A|, |B|, |C| >= 1, from the arrays of ``prep_blocked``; ``ev`` is the
     origin vector of "pin" and "bwd" (ignored by "free" and "free_jk").  On a
     CPU tensor this is :func:`slab_ref`; on a CUDA tensor it is one
-    persistent launch of K5 (tiles advance ``chunk`` planes at a time;
+    persistent launch of K5 on K3's :func:`blocked.schedule` (tiles advance
+    ``chunk`` planes at a time where given, at most ``blocked.MAX_CHUNK``;
     ``blocks`` caps the grid, the SMs' occupancy by default) and never falls
     back.  ``final`` is meaningful for the forward variants only."""
     _check(a_ext, b_ext, c_ext, la, lb, lc, dims, variant)
@@ -484,10 +538,10 @@ CHOICE_MODES = ("free", "free_jk", "pin")
 
 def choice_sweep(a_ext, b_ext, c_ext, la: int, lb: int, lc: int, dims: Dims,
                  mode: str, ev, scoring: Scoring, packed_lo, packed_hi):
-    """The direct engine's choice-capture sweep (csrc/slab.cu, CHOICES) on
-    a CUDA tensor: one persistent launch over the whole tile table, counted
-    on ``choice_sweep.launches``, which raises if refused and never falls
-    back.  |A|, |B|, |C| >= 0 with one symbol at least, arrays from
+    """The direct engine's choice-capture sweep (csrc/slab.cu
+    choices_persistent) on a CUDA tensor: one persistent launch over the
+    whole tile table, counted on ``choice_sweep.launches``, which raises if
+    refused and never falls back.  |A|, |B|, |C| >= 0 with one symbol at least, arrays from
     ``prep_blocked``; ``mode`` "free", "free_jk" or "pin" (the origin holds
     ``ev``).  Writes every cuboid slot (0 <= q-j-k <= |A|) of ``packed_lo``
     (int16) and ``packed_hi`` (uint8), (|A|+|B|+|C|, (|B|+1)(|C|+1)) each,

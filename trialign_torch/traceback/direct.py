@@ -11,8 +11,9 @@ Port of ``trialign/traceback/direct.py``.  Below the Hirschberg cap
   plane q, whose (j, k) entry is cell (i = q-j-k, j, k).  Only cuboid slots
   (0 <= i <= |A|) are written, 9.7 GB at 1024^3.  On a CUDA device it is one
   persistent launch of the choice-capture kernel (``kernels/slab.py``
-  ``choice_sweep``: ``csrc/slab.cu`` with the CHOICES flag, K5's whole-grid
-  sweep on ``cell_step_choices``), the port of the JAX package's
+  ``choice_sweep``: ``csrc/slab.cu`` ``choices_persistent``, a whole-grid
+  sweep on a plane ring in shared memory, step ``cell_step_choices``), the
+  port of the JAX package's
   ``_choices_seg`` (XLA: a jitted ``lax.scan`` a segment of planes, not a
   ``pallas_call``).  On the CPU it is its plain version :func:`_choices`, a
   torch sweep a plane at a time.
